@@ -1,0 +1,80 @@
+"""Diffusion model facade: denoiser + DDPM process + normalizers. Port of
+the generation half of npcd_tpu/models/diffusion/diffusion_model.py. The
+denoiser's weights live in the module; the normalizer stats, which the JAX
+package keeps beside the params in its DiffusionState, are a
+``DiffusionState`` here."""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .gaussian_diffusion import GaussianDiffusion, NoiseFn
+from .normalizers import NormalizerStats, denormalize, fit_minus_one_to_one, fit_unit_gaussian
+from .transformer import NPCDTransformer
+
+
+def split_num(num: int, max_size: int) -> List[int]:
+    """``num`` in parts of at most ``max_size``."""
+    if num <= 0:
+        return []
+    return [max_size] * (num // max_size) + ([num % max_size] if num % max_size else [])
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionState:
+    coords_norm: NormalizerStats
+    feats_norm: NormalizerStats
+
+    @classmethod
+    def fit(cls, all_coords, all_feats) -> "DiffusionState":
+        """all_coords [coords_dim, num_data], all_feats [feats_dim, num_data]."""
+        return cls(fit_unit_gaussian(all_coords), fit_minus_one_to_one(all_feats))
+
+
+class DiffusionModel(nn.Module):
+    def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
+                 width: int = 1024, layers: int = 24, heads: int = 16,
+                 qkv_groups: Optional[int] = None):
+        super().__init__()
+        self.coords_dim, self.feats_dim, self.num_points = coords_dim, feats_dim, num_points
+        self.denoiser = NPCDTransformer(coords_dim, feats_dim, num_points, width, layers,
+                                        heads, qkv_groups)
+        self.process = GaussianDiffusion()
+
+    @torch.no_grad()
+    def generate_batch(self, state: DiffusionState, batch_size: int, noise: NoiseFn):
+        """One batch through the full sampler: draws the start latents
+        (coords, then feats) and then two normal draws per step from
+        ``noise``, clips x0 predictions to the normalizer min/max and
+        denormalizes -> (coords [B, C, P], feats [B, F, P])."""
+        device = next(self.parameters()).device
+        state = DiffusionState(state.coords_norm.to(device), state.feats_norm.to(device))
+        coords_start = noise((batch_size, self.coords_dim, self.num_points))
+        feats_start = noise((batch_size, self.feats_dim, self.num_points))
+        coords, feats = self.process.to(device).p_sample_loop(
+            noise, self.denoiser, coords_start, feats_start,
+            coords_clip_range=(state.coords_norm.min[0], state.coords_norm.max[0]),
+            feats_clip_range=(state.feats_norm.min[0], state.feats_norm.max[0]))
+        return denormalize(state.coords_norm, coords), denormalize(state.feats_norm, feats)
+
+    def generate(self, state: DiffusionState, num: int, batch_size: int = 8,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[NoiseFn] = None):
+        """``num`` neural point clouds -> numpy (coords [num, C, P],
+        feats [num, F, P]). Draws come from ``noise`` when given, else from
+        ``generator`` (a torch.Generator on the model's device)."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("generate needs a torch.Generator or a noise function")
+            device = next(self.parameters()).device
+            noise = lambda shape: torch.randn(shape, generator=generator, device=device)
+        coords, feats = [], []
+        for bs in split_num(num, batch_size):
+            c, f = self.generate_batch(state, bs, noise)
+            coords.append(c.cpu().numpy())
+            feats.append(f.cpu().numpy())
+        return np.concatenate(coords, 0), np.concatenate(feats, 0)

@@ -1,0 +1,162 @@
+"""NPCD transformer denoiser, forward. Port of
+npcd_tpu/models/diffusion/transformer.py: a pre-LN transformer over the P
+point tokens plus one prepended timestep token, with the sequence padded to
+a multiple of 8 (513 -> 520) so the [N*S, W] token matrix reshapes freely;
+pad keys are masked out of attention and pad rows sliced off at the end.
+
+Module and parameter names follow the flax tree (input_proj, time_embed,
+ln_pre, resblocks.{i}.{ln_1, attn.c_qkv, attn.c_proj, ln_2, mlp.c_fc,
+mlp.c_proj}, ln_post, output_proj) so utils/from_jax.py maps one onto the
+other. c_qkv's output channels keep npcd_tpu's grouped [Q|K|V] order.
+LayerNorms run through kernel K2 and attention through kernel K1.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.attention import default_qkv_groups, fused_qkv_attention
+from ...ops.kernels.layer_norm import layer_norm, layer_norm_residual
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
+    """Sinusoidal embeddings [N] -> [N, dim], cos first, then sin."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class FusedLayerNorm(nn.Module):
+    """LayerNorm with f32 statistics; ``forward(x, delta)`` returns
+    (x + delta, LN(x + delta)) with the residual add fused."""
+
+    def __init__(self, width: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor] = None):
+        if delta is None:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm_residual(x, delta, self.weight, self.bias, self.eps)
+
+
+class TransformerMLP(nn.Module):
+    """4x MLP with the exact (erf) GELU, npcd_tpu's choice for f32 compute
+    (its bf16 flavour takes the tanh form; the port is f32 only so far)."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.c_fc = nn.Linear(width, 4 * width)
+        self.c_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x):
+        return self.c_proj(F.gelu(self.c_fc(x)))
+
+
+class MultiheadAttention(nn.Module):
+    """Attention over 2D token matrices [N*seq, W] (rows batch-major)."""
+
+    def __init__(self, width: int, heads: int, seq: int, valid_len: int, qkv_groups: int):
+        super().__init__()
+        self.c_qkv = nn.Linear(width, 3 * width)
+        self.c_proj = nn.Linear(width, width)
+        self.heads, self.seq, self.valid_len, self.qkv_groups = heads, seq, valid_len, qkv_groups
+
+    def forward(self, x):
+        qkv = self.c_qkv(x)
+        out = fused_qkv_attention(qkv, self.heads, qkv.shape[0] // self.seq, self.seq,
+                                  self.valid_len, self.qkv_groups)
+        return self.c_proj(out)
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block with deferred residual adds: takes (x, pending), where
+    pending is the previous sublayer's un-added output, and returns
+    (x', mlp_out) with the MLP output left pending for the next LayerNorm."""
+
+    def __init__(self, width, heads, seq, valid_len, qkv_groups):
+        super().__init__()
+        self.ln_1 = FusedLayerNorm(width)
+        self.attn = MultiheadAttention(width, heads, seq, valid_len, qkv_groups)
+        self.ln_2 = FusedLayerNorm(width)
+        self.mlp = TransformerMLP(width)
+
+    def forward(self, x, pending=None):
+        if pending is None:
+            y1 = self.ln_1(x)
+        else:
+            x, y1 = self.ln_1(x, pending)
+        x, y2 = self.ln_2(x, self.attn(y1))
+        return x, self.mlp(y2)
+
+
+class NPCDTransformer(nn.Module):
+    """Joint coords+feats epsilon-prediction denoiser:
+    (coords [N, C, P], feats [N, F, P], t [N]) -> (eps_coords, eps_feats)."""
+
+    def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
+                 width: int = 1024, layers: int = 24, heads: int = 16,
+                 qkv_groups: Optional[int] = None):
+        super().__init__()
+        self.coords_dim, self.feats_dim, self.width = coords_dim, feats_dim, width
+        self.qkv_groups = (qkv_groups if qkv_groups is not None
+                           else default_qkv_groups(heads, width // heads))
+        self.valid = num_points + 1  # points + the time token
+        self.seq = -(-self.valid // 8) * 8
+        in_ch = coords_dim + feats_dim
+        self.input_proj = nn.Linear(in_ch, width)
+        self.time_embed = TransformerMLP(width)
+        self.ln_pre = FusedLayerNorm(width)
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(width, heads, self.seq, self.valid, self.qkv_groups)
+            for _ in range(layers))
+        self.ln_post = FusedLayerNorm(width)
+        self.output_proj = nn.Linear(width, in_ch)
+
+    @torch.no_grad()
+    def init_seeded(self, generator: torch.Generator, init_scale: float = 0.25) -> None:
+        """npcd_tpu's init scheme from a torch.Generator: blocks and
+        time_embed N(0, (init_scale/sqrt(W))^2) with zero biases, input_proj
+        U(+-1/sqrt(in)), LayerNorms (1, 0). Unlike npcd_tpu, output_proj is
+        drawn like the blocks rather than zeroed, so an untrained model
+        predicts a nonzero epsilon that depends on every layer."""
+        std = init_scale / math.sqrt(self.width)
+        for name, p in self.named_parameters():
+            if name.startswith("input_proj"):
+                bound = 1.0 / math.sqrt(self.input_proj.in_features)
+                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+            elif ".ln_" in f".{name}" or name.startswith("ln_"):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    def forward(self, coords: torch.Tensor, feats: torch.Tensor, t: torch.Tensor):
+        n, _, p = coords.shape
+        x = torch.cat([coords, feats], dim=1)  # [N, C, P]
+        h = self.input_proj(x.transpose(1, 2).reshape(n * p, -1))
+        t_embed = self.time_embed(timestep_embedding(t, self.width))  # [N, W]
+        parts = [t_embed[:, None, :], h.reshape(n, p, self.width)]
+        if self.seq != self.valid:
+            parts.append(h.new_zeros((n, self.seq - self.valid, self.width)))
+        h = torch.cat(parts, dim=1).reshape(n * self.seq, self.width)
+        h = self.ln_pre(h)
+        pending = None
+        for block in self.resblocks:
+            h, pending = block(h, pending)
+        _, h = self.ln_post(h, pending)
+        h = self.output_proj(h).reshape(n, self.seq, -1)[:, 1:self.valid]
+        pred = h.transpose(1, 2)  # [N, C, P]
+        return pred[:, :self.coords_dim], pred[:, self.coords_dim:]

@@ -1,0 +1,84 @@
+"""Functional MLP and positional-encoding primitives of the PointNeRF path.
+
+Port of npcd_tpu/models/pointnerf/nn_core.py. Layers are lists of
+{"w": [in, out], "b": [out]} tensors, the layout the JAX params use, so an
+MLP is ``h @ w + b`` and the bridged weights need no transpose.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+Layers = List[Dict[str, torch.Tensor]]
+
+
+def init_mlp(dims: Sequence[int], d_in: int, d_out: Optional[int],
+             generator: torch.Generator, device=None) -> Layers:
+    """Hidden layers ``dims`` plus an optional final projection to d_out,
+    with torch.nn.Linear's default init U(+-1/sqrt(in)) for w and b."""
+    layers = []
+    cur = d_in
+    for dim in list(dims) + ([d_out] if d_out is not None else []):
+        bound = 1.0 / math.sqrt(cur)
+        w = (torch.rand((cur, dim), generator=generator) * 2 - 1) * bound
+        b = (torch.rand((dim,), generator=generator) * 2 - 1) * bound
+        layers.append({"w": w.to(device), "b": b.to(device)})
+        cur = dim
+    return layers
+
+
+def apply_mlp(layers: Layers, x: torch.Tensor, act: str = "leaky_relu",
+              final_linear: bool = True) -> torch.Tensor:
+    """Activation after every layer except the last when final_linear."""
+    if act == "leaky_relu":
+        act_fn = lambda h: torch.maximum(h, 0.01 * h)
+    elif act == "relu":
+        act_fn = torch.relu
+    else:
+        raise ValueError(act)
+    h = x
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        h = h @ layer["w"] + layer["b"]
+        if not (final_linear and i == n - 1):
+            h = act_fn(h)
+    return h
+
+
+def positional_encoding(x: torch.Tensor, n_freqs: int, freq_mult: float = 1.0,
+                        method: str = "recurrence") -> torch.Tensor:
+    """[..., d] -> [..., d*(1+2*n_freqs)]: [x, then per input dim
+    sin(2^0 pi x)..sin(2^{n-1} pi x), cos(2^0 pi x)..cos(2^{n-1} pi x)].
+
+    'direct' evaluates every octave; 'recurrence' only octave 0 and derives
+    the rest by the double-angle identities; 'anchored' re-anchors with a
+    direct evaluation every 5 octaves (see npcd_tpu's nn_core)."""
+    if method == "direct":
+        bands = (freq_mult * 2.0 ** torch.arange(n_freqs, dtype=torch.float32,
+                                                 device=x.device)) * torch.pi
+        spectrum = x[..., None] * bands.to(torch.float32)
+        enc = torch.cat([torch.sin(spectrum), torch.cos(spectrum)], dim=-1)
+    else:
+        anchor_every = 5 if method == "anchored" else n_freqs
+        xf = x.float()
+        sins, coss = [], []
+        for g0 in range(0, n_freqs, anchor_every):
+            # fm*2^g0*pi rounded to f32 is a power-of-2 scaling of fl(fm*pi)
+            base = float(np.float32(freq_mult * float(2 ** g0) * math.pi)) * xf
+            s, c = torch.sin(base), torch.cos(base)
+            sins.append(s)
+            coss.append(c)
+            for _ in range(min(anchor_every, n_freqs - g0) - 1):
+                s, c = 2.0 * s * c, 2.0 * c * c - 1.0
+                sins.append(s)
+                coss.append(c)
+        enc = torch.stack(sins + coss, dim=-1).to(x.dtype)  # [..., d, 2n]
+    enc = enc.reshape(*x.shape[:-1], x.shape[-1] * 2 * n_freqs)
+    return torch.cat([x, enc], dim=-1)
+
+
+def posenc_dim(d_in: int, n_freqs: int) -> int:
+    return d_in * (1 + 2 * n_freqs)
