@@ -1,19 +1,20 @@
 """Diffusion model facade: denoiser + DDPM process + normalizers. Port of
-the generation half of npcd_tpu/models/diffusion/diffusion_model.py. The
-denoiser's weights live in the module; the normalizer stats, which the JAX
-package keeps beside the params in its DiffusionState, are a
-``DiffusionState`` here."""
+npcd_tpu/models/diffusion/diffusion_model.py (normalizer fit, training
+loss, generation). The denoiser's weights live in the module; the
+normalizer stats, which the JAX package keeps beside the params in its
+DiffusionState, are a ``DiffusionState`` here."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .gaussian_diffusion import GaussianDiffusion, NoiseFn
-from .normalizers import NormalizerStats, denormalize, fit_minus_one_to_one, fit_unit_gaussian
+from .normalizers import (NormalizerStats, denormalize, fit_minus_one_to_one, fit_unit_gaussian,
+                          normalize)
 from .transformer import NPCDTransformer
 
 
@@ -44,6 +45,35 @@ class DiffusionModel(nn.Module):
         self.denoiser = NPCDTransformer(coords_dim, feats_dim, num_points, width, layers,
                                         heads, qkv_groups)
         self.process = GaussianDiffusion()
+
+    def fit_normalizers(self, all_coords, all_feats) -> DiffusionState:
+        """all_coords [coords_dim, num_data], all_feats [feats_dim, num_data]
+        (npcd_tpu diffusion_model.py:87-93)."""
+        return DiffusionState.fit(all_coords, all_feats)
+
+    def compute_loss(self, state: DiffusionState, coords: torch.Tensor, feats: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
+        """coords [N, C, P], feats [N, F, P] in latent space -> (loss,
+        sub_losses): normalize, noise at t, eps-MSE (npcd_tpu
+        diffusion_model.py:102-148). ``draws`` = (t, coords_noise,
+        feats_noise) replaces the draws from ``generator`` (t in [0, T), then
+        the two normal draws); tests pass the draws npcd_tpu made from its
+        per-example fold_in keys."""
+        device = coords.device
+        coords = normalize(state.coords_norm.to(device), coords)
+        feats = normalize(state.feats_norm.to(device), feats)
+        if draws is None:
+            if generator is None:
+                raise ValueError("compute_loss needs a torch.Generator or explicit draws")
+            n = coords.shape[0]
+            draws = (torch.randint(0, self.process.num_timesteps, (n,), generator=generator,
+                                   device=device),
+                     torch.randn(coords.shape, generator=generator, device=device),
+                     torch.randn(feats.shape, generator=generator, device=device))
+        t, coords_noise, feats_noise = draws
+        process = self.process.to(device)
+        return process.p_losses(self.denoiser, coords, feats, t, coords_noise, feats_noise)
 
     @torch.no_grad()
     def generate_batch(self, state: DiffusionState, batch_size: int, noise: NoiseFn):

@@ -1,9 +1,11 @@
-"""DDPM ancestral sampler over joint (coords, feats) latents. Port of the
-sampling half of npcd_tpu/models/diffusion/gaussian_diffusion.py. The
-reverse process is a Python loop over t = T-1 .. 0 (the JAX package runs it
-as one lax.scan). Every random draw comes from ``noise``, a callable
-shape -> tensor: by default a torch.Generator's normal draws, in tests the
-draws JAX made."""
+"""DDPM over joint (coords, feats) latents: the forward process and the
+training loss, and the ancestral sampler. Port of
+npcd_tpu/models/diffusion/gaussian_diffusion.py (q_sample, p_losses and the
+reverse process). The reverse process is a Python loop over t = T-1 .. 0
+(the JAX package runs it as one lax.scan). Every random draw of the sampler
+comes from ``noise``, a callable shape -> tensor: by default a
+torch.Generator's normal draws, in tests the draws JAX made; the loss takes
+its noise as tensors."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -35,6 +37,23 @@ class GaussianDiffusion:
 
     def to(self, device) -> "GaussianDiffusion":
         return GaussianDiffusion(self.schedule.to(device))
+
+    def q_sample(self, x_start, t, noise):
+        s = self.schedule
+        return (extract(s.sqrt_alphas_cumprod, t, x_start.dim()) * x_start
+                + extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.dim()) * noise)
+
+    def p_losses(self, denoise_fn: DenoiseFn, coords_start, feats_start, t,
+                 coords_noise, feats_noise):
+        """Joint eps-MSE on coords and feats, each halved so their sum is the
+        average -> (loss, {"00_coords_loss", "01_feats_loss"})."""
+        coords_t = self.q_sample(coords_start, t, coords_noise)
+        feats_t = self.q_sample(feats_start, t, feats_noise)
+        eps_coords, eps_feats = denoise_fn(coords_t, feats_t, t)
+        coords_loss = ((coords_noise - eps_coords.float()) ** 2 / 2.0).mean()
+        feats_loss = ((feats_noise - eps_feats.float()) ** 2 / 2.0).mean()
+        return coords_loss + feats_loss, {"00_coords_loss": coords_loss,
+                                          "01_feats_loss": feats_loss}
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         s = self.schedule

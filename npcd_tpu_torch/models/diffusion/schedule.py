@@ -22,10 +22,13 @@ def get_beta_schedule(schedule_type: str, *, num_diffusion_steps: int,
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM buffers the sampler reads, each f32 of shape [T]."""
+    """The DDPM buffers the sampler and the training loss read, each f32 of
+    shape [T]."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
@@ -61,6 +64,8 @@ def make_schedule(schedule_type: str = "linear", num_diffusion_steps: int = 1000
     return DiffusionSchedule(
         betas=f32(betas),
         alphas_cumprod=f32(alphas_cumprod),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
         alphas_cumprod_prev=f32(alphas_cumprod_prev),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),

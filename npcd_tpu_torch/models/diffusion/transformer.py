@@ -1,4 +1,4 @@
-"""NPCD transformer denoiser, forward. Port of
+"""NPCD transformer denoiser. Port of
 npcd_tpu/models/diffusion/transformer.py: a pre-LN transformer over the P
 point tokens plus one prepended timestep token, with the sequence padded to
 a multiple of 8 (513 -> 520) so the [N*S, W] token matrix reshapes freely;
@@ -8,7 +8,8 @@ Module and parameter names follow the flax tree (input_proj, time_embed,
 ln_pre, resblocks.{i}.{ln_1, attn.c_qkv, attn.c_proj, ln_2, mlp.c_fc,
 mlp.c_proj}, ln_post, output_proj) so utils/from_jax.py maps one onto the
 other. c_qkv's output channels keep npcd_tpu's grouped [Q|K|V] order.
-LayerNorms run through kernel K2 and attention through kernel K1.
+LayerNorms run through kernel K2 and attention through kernel K1, forward
+and, under autograd, backward (their wrappers' autograd Functions).
 """
 from __future__ import annotations
 
@@ -142,6 +143,15 @@ class NPCDTransformer(nn.Module):
                 p.zero_()
             else:
                 p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    @torch.no_grad()
+    def init_scratch(self, generator: torch.Generator, init_scale: float = 0.25) -> None:
+        """npcd_tpu's from-scratch init (transformer.py:460-541): as
+        ``init_seeded``, with output_proj zeroed, so an untrained model
+        predicts eps = 0 and its first step trains output_proj alone."""
+        self.init_seeded(generator, init_scale)
+        self.output_proj.weight.zero_()
+        self.output_proj.bias.zero_()
 
     def forward(self, coords: torch.Tensor, feats: torch.Tensor, t: torch.Tensor):
         n, _, p = coords.shape

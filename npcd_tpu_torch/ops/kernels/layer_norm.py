@@ -1,22 +1,37 @@
-"""K2: LayerNorm and residual-add + LayerNorm, forward (Triton).
+"""K2: LayerNorm and residual-add + LayerNorm, forward and backward (Triton).
 
-Replaces npcd_tpu/ops/pallas/layer_norm.py:layer_norm (_ln_fwd_kernel) and
-layer_norm_residual (_lnres_fwd_kernel), forward only: y = LN(x) and
-(r, y) = (x + delta, LN(x + delta)) over the last dim, statistics in f32,
-outputs in the input dtype.
+Replaces npcd_tpu/ops/pallas/layer_norm.py: layer_norm (_ln_fwd_kernel,
+K2a; _ln_bwd_kernel, K2c) and layer_norm_residual (_lnres_fwd_kernel, K2b;
+_lnres_bwd_kernel, K2d): y = LN(x) and (r, y) = (x + delta, LN(x + delta))
+over the last dim, statistics in f32, outputs in the input dtype. When a
+gradient is needed the forward also writes the per-row mean and rstd (f32),
+and the backward computes
+
+    dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) [+ gr],
+    dxhat = gy * gamma,
+
+with dgamma = sum(gy * xhat) and dbeta = sum(gy) over rows written as one
+partial row per program and summed by the wrapper (no atomics: the sums
+are deterministic). The residual form takes both cotangents, gr of r and
+gy of y, and returns the same dr for x and for delta.
 
 What bounds it on the H100: a row of W = 1024 is read once (twice with the
-residual) and written once (twice), with ~10 flops per element, so it is
-bound by memory bandwidth; at the denoiser's [B*520, 1024] slabs it is also
-small enough that launch latency matters. Design: one Triton program per
-row with the whole row (BLOCK = next power of two >= W) in registers, so x
-and delta are read once and the residual sum is written from registers.
-The sequence-pad rows of the denoiser are all zeros: their variance is 0,
-rsqrt(eps) stays finite and y = beta.
+residual) and written once (twice), with ~10 flops per element, so forward
+and backward are bound by memory bandwidth; at the denoiser's [B*520, 1024]
+slabs they are also small enough that launch latency matters. Design: one
+Triton program per row in the forward, with the whole row (BLOCK = next
+power of two >= W) in registers, so x and delta are read once and the
+residual sum is written from registers; in the backward one program per
+block of 32 rows, which keeps its dgamma/dbeta partials in registers across
+the rows and writes them once. The sequence-pad rows of the denoiser are
+all zeros: their variance is 0, rsqrt(eps) stays finite, y = beta, and with
+a zero cotangent their dx is exactly 0.
 
-``layer_norm`` / ``layer_norm_residual`` launch the kernel for CUDA tensors
-and run the plain PyTorch versions for CPU tensors. Triton is imported
-only when a kernel is launched.
+``layer_norm`` / ``layer_norm_residual`` launch the forward kernel for CUDA
+tensors and run the plain PyTorch versions for CPU tensors; under autograd
+they go through a ``torch.autograd.Function`` whose backward calls
+``layer_norm_bwd`` / ``layer_norm_residual_bwd`` (kernel on CUDA, plain
+version on the CPU). Triton is imported only when a kernel is launched.
 """
 from __future__ import annotations
 
@@ -26,30 +41,60 @@ import torch
 
 from . import build
 
+BWD_ROWS = 32  # rows per backward program
 
-def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     eps: float = 1e-5, delta: torch.Tensor | None = None):
-    """npcd_tpu FusedLayerNorm's XLA path (transformer.py:167-176): returns
-    y, or (r, y) when delta is given."""
+
+def layer_norm_fwd_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         eps: float = 1e-5, delta: torch.Tensor | None = None):
+    """npcd_tpu FusedLayerNorm's XLA path (transformer.py:167-176) ->
+    (r, y, mean, rstd); r is x when delta is None, mean/rstd are f32 [rows]."""
     r32 = x.float()
     if delta is not None:
         r32 = r32 + delta.float()
     mean = r32.mean(-1, keepdim=True)
     var = ((r32 - mean) ** 2).mean(-1, keepdim=True)
-    y = ((r32 - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()).to(x.dtype)
-    if delta is None:
-        return y
-    return r32.to(x.dtype), y
+    rstd = torch.rsqrt(var + eps)
+    y = ((r32 - mean) * rstd * gamma.float() + beta.float()).to(x.dtype)
+    r = x if delta is None else r32.to(x.dtype)
+    return r, y, mean.reshape(-1), rstd.reshape(-1)
+
+
+def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     eps: float = 1e-5, delta: torch.Tensor | None = None):
+    """y, or (r, y) when delta is given."""
+    r, y, _, _ = layer_norm_fwd_plain(x, gamma, beta, eps, delta)
+    return y if delta is None else (r, y)
+
+
+def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor, gy: torch.Tensor,
+                         gr: torch.Tensor | None = None):
+    """The backward of npcd_tpu's _ln_bwd_kernel / _lnres_bwd_kernel:
+    x (or r) [..., W], per-row f32 mean/rstd, cotangents gy (and gr) ->
+    (dx, dgamma, dbeta)."""
+    w = x.shape[-1]
+    x2 = x.reshape(-1, w).float()
+    g2 = gy.reshape(-1, w).float()
+    xhat = (x2 - mean[:, None]) * rstd[:, None]
+    dxhat = g2 * gamma.float()
+    m1 = dxhat.sum(-1, keepdim=True) / w
+    m2 = (dxhat * xhat).sum(-1, keepdim=True) / w
+    dx = rstd[:, None] * (dxhat - m1 - xhat * m2)
+    if gr is not None:
+        dx = dx + gr.reshape(-1, w).float()
+    dgamma = (g2 * xhat).sum(0)
+    dbeta = g2.sum(0)
+    return dx.to(x.dtype).reshape(x.shape), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
 @functools.cache
-def _kernel():
+def _kernels():
     import triton
     import triton.language as tl
 
     @triton.jit
-    def ln_fwd(x_ptr, d_ptr, g_ptr, b_ptr, y_ptr, r_ptr, width, eps,
-               HAS_RESIDUAL: tl.constexpr, BLOCK: tl.constexpr):
+    def ln_fwd(x_ptr, d_ptr, g_ptr, b_ptr, y_ptr, r_ptr, mean_ptr, rstd_ptr, width, eps,
+               HAS_RESIDUAL: tl.constexpr, SAVE_STATS: tl.constexpr, BLOCK: tl.constexpr):
         row = tl.program_id(0).to(tl.int64)
         cols = tl.arange(0, BLOCK)
         in_row = cols < width
@@ -66,8 +111,44 @@ def _kernel():
         b = tl.load(b_ptr + cols, mask=in_row, other=0.0).to(tl.float32)
         y = xc * rstd * g + b
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=in_row)
+        if SAVE_STATS:
+            tl.store(mean_ptr + row, mean)
+            tl.store(rstd_ptr + row, rstd)
 
-    return triton, ln_fwd
+    @triton.jit
+    def ln_bwd(x_ptr, g_ptr, mean_ptr, rstd_ptr, gy_ptr, gr_ptr, dx_ptr, dg_ptr, db_ptr,
+               rows, width, HAS_GR: tl.constexpr, ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK)
+        in_row = cols < width
+        gamma = tl.load(g_ptr + cols, mask=in_row, other=0.0).to(tl.float32)
+        dg = tl.zeros([BLOCK], dtype=tl.float32)
+        db = tl.zeros([BLOCK], dtype=tl.float32)
+        row0 = pid * ROWS
+        for row in range(row0, tl.minimum(row0 + ROWS, rows)):
+            offs = row.to(tl.int64) * width + cols
+            x = tl.load(x_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
+            gy = tl.load(gy_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
+            mean = tl.load(mean_ptr + row)
+            rstd = tl.load(rstd_ptr + row)
+            xhat = tl.where(in_row, (x - mean) * rstd, 0.0)
+            dxhat = gy * gamma
+            m1 = tl.sum(dxhat, axis=0) / width
+            m2 = tl.sum(dxhat * xhat, axis=0) / width
+            dx = rstd * (dxhat - m1 - xhat * m2)
+            if HAS_GR:
+                dx = dx + tl.load(gr_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=in_row)
+            dg += gy * xhat
+            db += gy
+        tl.store(dg_ptr + pid.to(tl.int64) * width + cols, dg, mask=in_row)
+        tl.store(db_ptr + pid.to(tl.int64) * width + cols, db, mask=in_row)
+
+    return triton, ln_fwd, ln_bwd
+
+
+def _num_warps(block: int) -> int:
+    return min(max(block // 256, 1), 16)
 
 
 def _check(what, x, gamma, beta, delta=None):
@@ -79,47 +160,138 @@ def _check(what, x, gamma, beta, delta=None):
                       "delta must match x in shape and dtype")
 
 
-def _launch(x, gamma, beta, eps, delta):
-    build.require(x.dtype in (torch.float32, torch.bfloat16), "layer_norm",
+def _launch_fwd(x, gamma, beta, eps, delta, save_stats):
+    what = "layer_norm" if delta is None else "layer_norm_residual"
+    build.require(x.dtype in (torch.float32, torch.bfloat16), what,
                   f"unsupported dtype {x.dtype}")
-    tensors = [x, gamma, beta] + ([delta] if delta is not None else [])
-    for t in tensors:
-        build.require(t.is_contiguous(), "layer_norm", "inputs must be contiguous")
-    triton, kernel = _kernel()
+    for t in [x, gamma, beta] + ([delta] if delta is not None else []):
+        build.require(t.is_contiguous(), what, "inputs must be contiguous")
+    triton, kernel, _ = _kernels()
     width = x.shape[-1]
     rows = x.numel() // width
     y = torch.empty_like(x)
-    r = torch.empty_like(x) if delta is not None else y
+    r = torch.empty_like(x) if delta is not None else x
+    stats = [torch.empty(rows, device=x.device, dtype=torch.float32) for _ in range(2)
+             ] if save_stats else [None, None]
     block = triton.next_power_of_2(width)
     kernel[(rows,)](x, delta if delta is not None else x, gamma, beta, y, r,
-                    width, eps, HAS_RESIDUAL=delta is not None, BLOCK=block,
-                    num_warps=min(max(block // 256, 1), 16))
-    return r, y
+                    stats[0] if save_stats else y, stats[1] if save_stats else y,
+                    width, eps, HAS_RESIDUAL=delta is not None, SAVE_STATS=save_stats,
+                    BLOCK=block, num_warps=_num_warps(block))
+    if delta is None:
+        layer_norm.launches += 1
+    else:
+        layer_norm_residual.launches += 1
+    return r, y, stats[0], stats[1]
 
 
-@torch.no_grad()
+def _forward(x, gamma, beta, eps, delta, save_stats):
+    what = "layer_norm" if delta is None else "layer_norm_residual"
+    tensors = (x, gamma, beta) + ((delta,) if delta is not None else ())
+    if build.route(what, *tensors) == "cpu":
+        return layer_norm_fwd_plain(x, gamma, beta, eps, delta)
+    return _launch_fwd(x, gamma, beta, eps, delta, save_stats)
+
+
+def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float = 1e-5, delta: torch.Tensor | None = None):
+    """K2a (K2b with ``delta``) as the autograd Function's forward runs it,
+    with the saved statistics -> (r, y, mean, rstd), mean/rstd f32 [rows];
+    counts as a launch of ``layer_norm`` (``layer_norm_residual``)."""
+    _check("layer_norm" if delta is None else "layer_norm_residual", x, gamma, beta, delta)
+    return _forward(x, gamma, beta, eps, delta, save_stats=True)
+
+
+def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
+    what = wrapper.__name__
+    tensors = (x, gamma, mean, rstd, gy) + ((gr,) if gr is not None else ())
+    if build.route(what, *tensors) == "cpu":
+        return layer_norm_bwd_plain(x, gamma, mean, rstd, gy, gr)
+    build.require(x.dtype == torch.float32 and gamma.dtype == torch.float32, what,
+                  "the backward kernel is built for float32")
+    width = x.shape[-1]
+    rows = x.numel() // width
+    build.require(mean.shape == (rows,) and rstd.shape == (rows,), what,
+                  f"mean/rstd must be [{rows}]")
+    gy = gy.contiguous()
+    gr = gr.contiguous() if gr is not None else None
+    for t in (x, gamma, mean, rstd):
+        build.require(t.is_contiguous(), what, "inputs must be contiguous")
+    build.require(gy.shape == x.shape and (gr is None or gr.shape == x.shape), what,
+                  "cotangents must match x")
+    triton, _, kernel = _kernels()
+    n_prog = -(-rows // BWD_ROWS)
+    dx = torch.empty_like(x)
+    dg = torch.empty((n_prog, width), device=x.device, dtype=torch.float32)
+    db = torch.empty_like(dg)
+    block = triton.next_power_of_2(width)
+    kernel[(n_prog,)](x, gamma, mean, rstd, gy, gr if gr is not None else gy, dx, dg, db,
+                      rows, width, HAS_GR=gr is not None, ROWS=BWD_ROWS, BLOCK=block,
+                      num_warps=_num_warps(block))
+    wrapper.launches += 1
+    return dx, dg.sum(0), db.sum(0)
+
+
+def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, gy: torch.Tensor):
+    """K2c: the backward of ``layer_norm`` -> (dx, dgamma, dbeta)."""
+    return _backward(layer_norm_bwd, x, gamma, mean, rstd, gy, None)
+
+
+def layer_norm_residual_bwd(r: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, gr: torch.Tensor | None, gy: torch.Tensor):
+    """K2d: the backward of ``layer_norm_residual`` from the cotangents of
+    r (``gr``, None when r is unused) and y -> (dr, dgamma, dbeta); dr is
+    the gradient of both x and delta."""
+    return _backward(layer_norm_residual_bwd, r, gamma, mean, rstd, gy, gr)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, delta, eps):
+        r, y, mean, rstd = _forward(x, gamma, beta, eps, delta, save_stats=True)
+        ctx.save_for_backward(r, gamma, mean, rstd)
+        ctx.residual = delta is not None
+        ctx.set_materialize_grads(False)
+        return (r, y) if ctx.residual else y
+
+    @staticmethod
+    def backward(ctx, *grads):
+        r, gamma, mean, rstd = ctx.saved_tensors
+        gr, gy = grads if ctx.residual else (None, grads[0])
+        if gy is None:
+            gy = torch.zeros_like(r)
+        if ctx.residual:
+            dr, dg, db = layer_norm_residual_bwd(r, gamma, mean, rstd, gr, gy)
+            return dr, dg, db, dr, None
+        dx, dg, db = layer_norm_bwd(r, gamma, mean, rstd, gy)
+        return dx, dg, db, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim, f32 statistics, output in x.dtype."""
     _check("layer_norm", x, gamma, beta)
-    if build.route("layer_norm", x, gamma, beta) == "cpu":
-        return layer_norm_plain(x, gamma, beta, eps)
-    _, y = _launch(x, gamma, beta, eps, None)
-    layer_norm.launches += 1
-    return y
+    if _needs_grad(x, gamma, beta):
+        return _LayerNorm.apply(x, gamma, beta, None, eps)
+    return _forward(x, gamma, beta, eps, None, save_stats=False)[1]
 
 
-@torch.no_grad()
 def layer_norm_residual(x: torch.Tensor, delta: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, eps: float = 1e-5):
     """r = x + delta, y = LN(r): returns (r, y)."""
     _check("layer_norm_residual", x, gamma, beta, delta)
-    if build.route("layer_norm_residual", x, delta, gamma, beta) == "cpu":
-        return layer_norm_plain(x, gamma, beta, eps, delta)
-    r, y = _launch(x, gamma, beta, eps, delta)
-    layer_norm_residual.launches += 1
+    if _needs_grad(x, delta, gamma, beta):
+        return _LayerNorm.apply(x, gamma, beta, delta, eps)
+    r, y, _, _ = _forward(x, gamma, beta, eps, delta, save_stats=False)
     return r, y
 
 
 layer_norm.launches = 0
 layer_norm_residual.launches = 0
+layer_norm_bwd.launches = 0
+layer_norm_residual_bwd.launches = 0

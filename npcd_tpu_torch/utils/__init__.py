@@ -1,1 +1,1 @@
-"""Config, builders and the JAX parameter bridge."""
+"""Config, builders, the JAX parameter bridge, EMA, checkpoints, logging."""

@@ -17,6 +17,13 @@ From npcd_tpu's NPCD params (in a process that has JAX):
     flat = bridge(jax.device_get(dstate.params), dstate.coords_norm,
                   dstate.feats_norm, jax.device_get(params["pointnerf"]))
     save_npz("weights/npcd.npz", flat)
+
+Stage 2 reads the stage-1 latent tables from the same format:
+``pointnerf_latents`` adds ``latents.coords_table`` [n_obj, P, 3] and
+``latents.feats_table`` [n_obj, P, F] (the mean half of npcd_tpu's
+variational feats table) beside the ``pointnerf.*`` weights; model loading
+skips them. ``train_state_from_jax`` carries a whole stage-2 train state
+(params, Adam moments and count, EMAs, step, normalizers) over.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ import torch
 
 from ..models.diffusion.diffusion_model import DiffusionState
 from ..models.diffusion.normalizers import NormalizerStats
+from .checkpoint import check_layout_meta
 
 _NORMS = ("coords_norm", "feats_norm")
 _STATS = ("shift", "scale", "min", "max")
+LATENTS = "latents"
 
 
 def denoiser_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -88,15 +97,63 @@ def bridge(diffusion_params, coords_norm, feats_norm, pointnerf_params) -> Dict[
     return flat
 
 
+def pointnerf_latents(pointnerf_params: Mapping[str, Any], feats_dim: int) -> Dict[str, np.ndarray]:
+    """npcd_tpu PointNeRF params -> the stage-1 latent tables
+    {latents.coords_table [n_obj, P, 3], latents.feats_table [n_obj, P, F]},
+    the feats table's mean half (npcd_tpu pointnerf.py:163-168)."""
+    return {f"{LATENTS}.coords_table": np.asarray(pointnerf_params["coords_table"], np.float32),
+            f"{LATENTS}.feats_table": np.asarray(
+                pointnerf_params["feats_table"], np.float32)[..., :feats_dim]}
+
+
+def _find_adam_state(opt_state):
+    """The optax ScaleByAdamState inside an optax chain state (nested
+    tuples), found by its fields (count, mu, nu) as npcd_tpu
+    train/fused_update.py:43-53 does by type."""
+    found = []
+
+    def walk(node):
+        if hasattr(node, "_fields") and {"count", "mu", "nu"} <= set(node._fields):
+            found.append(node)
+        elif isinstance(node, (list, tuple)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected exactly one ScaleByAdamState in opt_state, got {len(found)}")
+    return found[0]
+
+
+def _norm_dict(stats) -> Dict[str, np.ndarray]:
+    return {f: np.asarray(getattr(stats, f), np.float32) for f in _STATS}
+
+
+def train_state_from_jax(params, opt_state, ema_params, step, coords_norm,
+                         feats_norm) -> Dict[str, Any]:
+    """npcd_tpu's DiffusionTrainState fields, as numpy trees -> the port's
+    bridged train state: {"params", "mu", "nu": denoiser state dicts,
+    "emas": a list of them, "count", "step": ints, "coords_norm",
+    "feats_norm": {shift, scale, min, max}} (train/diffusion_training.py
+    ``DiffusionTraining.load_bridged_state`` reads it)."""
+    adam = _find_adam_state(opt_state)
+    return {"params": denoiser_state_dict(params), "mu": denoiser_state_dict(adam.mu),
+            "nu": denoiser_state_dict(adam.nu),
+            "emas": [denoiser_state_dict(e) for e in ema_params],
+            "count": int(np.asarray(adam.count)), "step": int(np.asarray(step)),
+            "coords_norm": _norm_dict(coords_norm), "feats_norm": _norm_dict(feats_norm)}
+
+
 def save_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:
     np.savez(path, **{k: np.asarray(v, np.float32) for k, v in flat.items()})
 
 
 def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> DiffusionState:
     """Load a bridged flat dict into an ``NPCD`` (strict: every parameter
-    must be present) -> the DiffusionState of the normalizer stats."""
+    must be present; latent tables are skipped) -> the DiffusionState of
+    the normalizer stats."""
     weights = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in flat.items()
-               if k.split(".")[0] not in _NORMS}
+               if k.split(".")[0] not in _NORMS + (LATENTS,)}
     model.load_state_dict(weights, strict=True)
     norms = [NormalizerStats(*(torch.tensor(np.asarray(flat[f"{n}.{f}"], np.float32))
                                for f in _STATS)) for n in _NORMS]
@@ -104,5 +161,9 @@ def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> Diffusi
 
 
 def load_npz(model: torch.nn.Module, path: str) -> DiffusionState:
+    """``load_flat`` from a .npz; a layout sidecar beside it (the trainer's
+    exports write one) must agree with the model's qkv_groups."""
+    check_layout_meta(path, {"qkv_groups": model.diffusion.denoiser.qkv_groups},
+                      what="weights", required=False)
     with np.load(path) as z:
         return load_flat(model, {k: z[k] for k in z.files})

@@ -1,0 +1,130 @@
+"""Event-buffered metric writer fan-out.
+
+Copy of npcd_tpu/utils/writer.py (which imports no JAX), a rebuild of the
+reference writer (npcd/utils/writer.py), with the scalar path only (the
+port's trainer logs scalars): training code `put`s scalars into a global
+event buffer; `write_out_storage` flushes to all registered backends.
+Backends: JSONL (always available), TensorBoard (when the tensorboard
+package is importable) and Weights & Biases (``--wandb``).
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+EVENT_STORAGE: List[Dict[str, Any]] = []
+_WRITERS: List["Writer"] = []
+_max_iterations: Optional[int] = None
+
+
+def set_max_iterations(n: int) -> None:
+    global _max_iterations
+    _max_iterations = n
+
+
+class Writer:
+    def write_scalar(self, name: str, value: float, step: int) -> None:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class JsonlWriter(Writer):
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._f = open(path, "a")
+
+    def write_scalar(self, name: str, value: float, step: int) -> None:
+        self._f.write(json.dumps({"step": step, "name": name, "value": float(value), "t": time.time()}) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class TensorboardWriter(Writer):
+    def __init__(self, log_dir: str):
+        from torch.utils.tensorboard import SummaryWriter  # lazy
+
+        self._tb = SummaryWriter(log_dir=log_dir)
+
+    def write_scalar(self, name: str, value: float, step: int) -> None:
+        self._tb.add_scalar(name, value, step)
+
+    def close(self) -> None:
+        self._tb.close()
+
+
+class WandbWriter(Writer):
+    """Weights & Biases backend (reference writer.py:299-333).
+
+    wandb is not bundled on this image; setup_writers gates on
+    importability and logs a warning instead of failing."""
+
+    def __init__(self, out_dir: str, exp_id: Optional[str] = None,
+                 comment: Optional[str] = None):
+        import wandb  # lazy; gated by setup_writers
+
+        self._wandb = wandb
+        self._run = wandb.init(
+            project="npcd_tpu", dir=out_dir, id=exp_id, notes=comment,
+            resume="allow" if exp_id else None,
+        )
+
+    def write_scalar(self, name: str, value: float, step: int) -> None:
+        self._wandb.log({name: value}, step=step)
+
+    def close(self) -> None:
+        self._run.finish()
+
+
+def setup_writers(
+    out_dir: str,
+    tensorboard: bool = True,
+    wandb: bool = False,
+    exp_id: Optional[str] = None,
+    comment: Optional[str] = None,
+) -> None:
+    _WRITERS.clear()
+    _WRITERS.append(JsonlWriter(os.path.join(out_dir, "metrics.jsonl")))
+    if tensorboard:
+        try:
+            _WRITERS.append(TensorboardWriter(os.path.join(out_dir, "tb")))
+        except ImportError:
+            pass
+    if wandb:
+        try:
+            _WRITERS.append(WandbWriter(out_dir, exp_id=exp_id, comment=comment))
+        except Exception as e:  # import, auth, or network failures alike
+            from . import logging
+
+            logging.warning(
+                f"wandb requested but unavailable ({type(e).__name__}: {e}); "
+                "continuing without it"
+            )
+
+
+def put_scalar(name: str, value: float, step: int) -> None:
+    EVENT_STORAGE.append({"name": name, "value": value, "step": step})
+
+
+def put_scalar_dict(prefix: str, values: Dict[str, Any], step: int) -> None:
+    for k, v in values.items():
+        put_scalar(f"{prefix}/{k}", v, step)
+
+
+def write_out_storage() -> None:
+    for ev in EVENT_STORAGE:
+        for w in _WRITERS:
+            w.write_scalar(ev["name"], float(ev["value"]), ev["step"])
+    EVENT_STORAGE.clear()
+
+
+def close_writers() -> None:
+    write_out_storage()
+    for w in _WRITERS:
+        w.close()
+    _WRITERS.clear()

@@ -2,25 +2,33 @@
 on the card, at small shapes chosen for the ragged edges: partial query
 and key tiles, widths that are not powers of two, fewer points than k,
 exact distance ties, pair counts that do not fill a block, at the
-configs' k = 8 and 'anchored' posenc, the only ones the kernels build. Imports no JAX,
-so it runs where the card is:
+configs' k = 8 and 'anchored' posenc, the only ones the kernels build;
+and the training kernels: the attention backward (pad keys get exactly zero
+dk and dv), the LayerNorm backward in both forms, and the AdamW + EMA pass
+over a length that does not fill its last block. Imports no JAX, so it runs
+where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Without a GPU every test skips. Tolerances: 1e-5 on O(1) values (f32 in
-another summation order); kNN distances 1e-6 with indices equal except at
-exact ties."""
+another summation order; sums over rows scale it by their magnitude); kNN
+distances 1e-6 with indices equal except at exact ties; AdamW + EMA 1e-6 of
+each buffer's scale (elementwise f32, the kernel may contract into FMAs)."""
 import pytest
 import torch
 
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc_wsum,
                                                         fused_mlp_posenc_wsum_plain)
-from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (fused_qkv_attention,
-                                                           fused_qkv_attention_plain)
+from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain
+from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (
+    fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
+    fused_qkv_attention_fwd, fused_qkv_attention_plain, split_grouped_qkv)
 from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain
-from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_plain,
-                                                  layer_norm_residual)
+from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_bwd,
+                                                  layer_norm_bwd_plain, layer_norm_fwd,
+                                                  layer_norm_fwd_plain, layer_norm_plain,
+                                                  layer_norm_residual, layer_norm_residual_bwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +67,86 @@ def test_fused_qkv_attention_kernel(dev, groups, valid):
     got = fused_qkv_attention(*args).reshape(b, s, -1)[:, :n]
     want = fused_qkv_attention_plain(*args).reshape(b, s, -1)[:, :n]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("groups,valid", [(1, None), (2, 70), (4, 33)])
+def test_fused_qkv_attention_backward_kernel(dev, groups, valid):
+    b, s, h = 3, 72, 4  # two query and two key tiles, the second partial
+    g = _gen(dev, 1)
+    qkv = torch.randn(b * s, 3 * h * 64, generator=g, device=dev)
+    dout = torch.randn(b * s, h * 64, generator=g, device=dev)
+    n = valid or s
+    dout.reshape(b, s, -1)[:, n:] = 0  # pad-query rows are sliced off downstream
+    out, lse = fused_qkv_attention_fwd(qkv, h, b, s, n, groups)
+    want_out, want_lse = fused_qkv_attention_plain(qkv, h, b, s, n, groups, return_lse=True)
+    # every row, pad queries included: they feed c_proj's weight gradient
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    # each side's backward from its own forward's out and lse
+    got = fused_qkv_attention_bwd(qkv, out, lse, dout, h, b, s, n, groups)
+    want = fused_qkv_attention_bwd_plain(qkv, want_out, want_lse, dout, h, b, s, n, groups)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, groups)
+    assert (dq[:, n:] == 0).all() and (dk[:, n:] == 0).all() and (dv[:, n:] == 0).all()
+    # through autograd: the Function's backward is the kernel
+    a = qkv.clone().requires_grad_(True)
+    fused_qkv_attention(a, h, b, s, n, groups).backward(dout)
+    torch.testing.assert_close(a.grad, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("width", [1024, 1000])
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_backward_kernels(dev, width, residual):
+    g = _gen(dev, 2)
+    rows = 70  # two full blocks of 32 rows and a partial one
+    x, d, gy, gr = (torch.randn(rows, width, generator=g, device=dev) for _ in range(4))
+    for t in (x, d, gy, gr):
+        t[-2:] = 0  # zero pad rows with zero cotangents: dx exactly 0
+    gamma, beta = (torch.randn(width, generator=g, device=dev) for _ in range(2))
+    delta = d if residual else None
+    r, _, mean, rstd = layer_norm_fwd_plain(x, gamma, beta, delta=delta)
+    # the forward kernel's saved statistics, then each side's backward from
+    # its own forward's r, mean and rstd
+    r_k, y_k, mean_k, rstd_k = layer_norm_fwd(x, gamma, beta, delta=delta)
+    for a, w in zip((r_k, y_k, mean_k, rstd_k), layer_norm_fwd_plain(x, gamma, beta,
+                                                                     delta=delta)):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    if residual:
+        got = layer_norm_residual_bwd(r_k, gamma, mean_k, rstd_k, gr, gy)
+        want = layer_norm_bwd_plain(r, gamma, mean, rstd, gy, gr)
+    else:
+        got = layer_norm_bwd(x, gamma, mean_k, rstd_k, gy)
+        want = layer_norm_bwd_plain(x, gamma, mean, rstd, gy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
+    if not residual:
+        assert (got[0][-2:] == 0).all()
+    # through autograd, forward stats from the kernel
+    ts = [t.clone().requires_grad_(True) for t in (x, d, gamma, beta)]
+    if residual:
+        torch.autograd.backward(list(layer_norm_residual(*ts)), [gr, gy])
+    else:
+        layer_norm(ts[0], ts[2], ts[3]).backward(gy)
+    for a, w in zip([ts[0].grad, ts[2].grad, ts[3].grad], want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("n_ema,use_clip", [(0, False), (1, False), (2, True)])
+def test_adamw_ema_kernel(dev, n_ema, use_clip):
+    g = _gen(dev, 3)
+    n = 3 * 4096 + 77  # the last block is partial
+    mk = lambda scale=1.0: torch.randn(n, generator=g, device=dev) * scale
+    grads, p, mu, nu = mk(0.1), mk(), mk(1e-2), mk(1e-3).abs()
+    emas = torch.stack([mk() for _ in range(n_ema)]) if n_ema else None
+    scalars = torch.tensor([0.41, 0.0039, 0.6, 0.9, 0.99][:3 + n_ema], device=dev)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3, wd=0.01, use_clip=use_clip)
+    ref = [t.clone() for t in (p, mu, nu)] + [emas.clone() if n_ema else None]
+    sumsq = adamw_ema(grads, p, mu, nu, emas, scalars, **kw)
+    want_sumsq = adamw_ema_plain(grads, *ref, scalars, **kw)
+    torch.testing.assert_close(sumsq, want_sumsq, rtol=1e-5, atol=0)
+    for got, want in zip((p, mu, nu, emas), ref):
+        if want is not None:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("p", [5, 130, 600])
