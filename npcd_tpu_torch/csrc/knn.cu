@@ -1,4 +1,5 @@
-// k-nearest-neighbour search over one object's points, f32, for Hopper.
+// k-nearest-neighbour search over one object's points, f32, for Hopper,
+// and the minimum squared distance (min_d2_kernel, below).
 //
 // Replaces npcd_tpu/ops/pallas/knn.py:pallas_knn_t (_knn_kernel): for each
 // query, the k nearest of the instance's P points by the direct sum of
@@ -80,7 +81,55 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
   }
 }
 
+// Minimum squared distance from each query to the instance's points.
+//
+// Replaces npcd_tpu/ops/pallas/knn.py:pallas_min_d2_t (_min_d2_kernel), the
+// sample-validity test of stage-1 training and of `validity: knn` renders
+// (min d2 < radius^2). Same layout and arithmetic as knn_kernel with k = 1
+// and no index: one thread per query, the P x 3 points in shared memory, a
+// running min of the round-to-nearest sum ((dx*dx + dy*dy) + dz*dz), so
+// the result is the same float as the plain PyTorch version and a validity
+// bit cannot flip between the card and the CPU. ~9 flops per (query,
+// point) pair against 16 bytes per query: bound by the FP32 pipes.
+__global__ void __launch_bounds__(THREADS)
+min_d2_kernel(const float* __restrict__ x, const float* __restrict__ pts,
+              float* __restrict__ out, int n, int p) {
+  extern __shared__ float sp[];  // [p][3]
+  const int inst = blockIdx.y;
+  const float* src = pts + (long)inst * p * 3;
+  for (int i = threadIdx.x; i < p * 3; i += THREADS) sp[i] = src[i];
+  __syncthreads();
+
+  const int q = blockIdx.x * THREADS + threadIdx.x;
+  if (q >= n) return;
+  const float* xq = x + ((long)inst * n + q) * 3;
+  const float x0 = xq[0], x1 = xq[1], x2 = xq[2];
+  float best = INFINITY;
+  for (int j = 0; j < p; ++j) {
+    const float dx = __fsub_rn(sp[3 * j], x0);
+    const float dy = __fsub_rn(sp[3 * j + 1], x1);
+    const float dz = __fsub_rn(sp[3 * j + 2], x2);
+    const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                              __fmul_rn(dz, dz));
+    best = fminf(best, d);
+  }
+  out[(long)inst * n + q] = best;
+}
+
 }  // namespace
+
+// x [inst, n, 3], pts [inst, p, 3] f32 contiguous; out [inst, n] (inf
+// where p = 0). p * 12 bytes must fit 48 KB of shared memory (p <= 4096).
+// Returns cudaGetLastError() after launch.
+extern "C" int min_d2_fwd(const void* x, const void* pts, void* out, int inst,
+                          int n, int p, void* stream) {
+  dim3 grid((n + THREADS - 1) / THREADS, inst);
+  min_d2_kernel<<<grid, THREADS, p * 3 * sizeof(float),
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(pts),
+      static_cast<float*>(out), n, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x [inst, n, 3], pts [inst, p, 3] f32 contiguous; idx/d2 [inst, n, 8].
 // k must be 8; p * 12 bytes must fit the 48 KB of static-size shared

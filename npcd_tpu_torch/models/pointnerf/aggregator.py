@@ -1,9 +1,15 @@
-"""Dense masked kNN aggregation, forward. Port of
+"""Dense masked kNN aggregation. Port of
 npcd_tpu/models/pointnerf/aggregator.py (compact_valid_samples,
 knn_neighbors, aggregate_features through _aggregate_posenc_fused). The
 one-hot matmul gathers the TPU needed become index gathers; the per-pair
 MLP, its positional encoding and the k-neighbour weighted sum run in
-kernel K6 (ops/kernels/fused_mlp_posenc.py)."""
+kernel K6 (ops/kernels/fused_mlp_posenc.py), forward and backward.
+
+Gradient contract (npcd_tpu aggregator.py:197-211): the gradient reaches
+kp_feat (through the neighbour gather) and the MLP weights only; kp_pos,
+x_rel and the inverse-distance weights are detached. On CUDA the gather's
+backward is a scatter-add with atomics, so kp_feat's gradient can differ
+in its last bits from run to run."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -39,19 +45,23 @@ def knn_neighbors(shading_pts: torch.Tensor, pts_mask: torch.Tensor, kp_pos: tor
     return idx, nb_mask & pts_mask[..., None]
 
 
-def aggregate_features(layers: Layers, opts: AggregatorOptions, radius: float,
+def aggregate_features(layers: Layers, opts: AggregatorOptions,
                        shading_pts: torch.Tensor, pts_mask: torch.Tensor,
-                       kp_pos: torch.Tensor, kp_feat: torch.Tensor):
+                       kp_pos: torch.Tensor, kp_feat: torch.Tensor,
+                       neighbors: Tuple[torch.Tensor, torch.Tensor]):
     """shading_pts [B, N, 3], pts_mask [B, N], kp_pos [B, P, 3],
     kp_feat [B, P, F] -> (feat [B, N, out_dim], valid_pt [B, N]).
 
     Per (point, neighbour) pair: x_rel = point - neighbour, the normalized
     inverse-distance weight w over the in-radius neighbours, and
     mlp([feat | x_rel | posenc(x_rel)]); the point's feature is the
-    w-weighted sum over its k pairs."""
+    w-weighted sum over its k pairs. ``neighbors``: (idx, nb_mask) [B, N, k]
+    from ``knn_neighbors`` (training runs it once per step, outside its
+    recomputed chunks)."""
     if opts.activation != "leaky_relu":
         raise ValueError(f"the aggregation kernel applies leaky_relu; got {opts.activation!r}")
-    idx, nb_mask = knn_neighbors(shading_pts, pts_mask, kp_pos, opts.k, radius)
+    shading_pts, kp_pos = shading_pts.detach(), kp_pos.detach()
+    idx, nb_mask = neighbors
     b, n, k = idx.shape
     flat = idx.reshape(b, 1, n * k).long()
     nb_pos_t = torch.gather(kp_pos.transpose(1, 2), 2, flat.expand(b, 3, -1))  # [B, 3, M]

@@ -3,22 +3,29 @@ ray index = row * resolution + col, pixel centers at (col + 0.5, row + 0.5),
 world2cam extrinsics inverted to world-space origins and unit directions."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 
-def generate_rays(extr: torch.Tensor, intr: torch.Tensor,
-                  resolution: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def generate_rays(extr: torch.Tensor, intr: torch.Tensor, resolution: int,
+                  pixel_idx: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """extr [N, 4, 4] world2cam, intr [N, 3, 3] -> (origins [N, R, 3],
-    unit dirs [N, R, 3]), R = resolution**2."""
+    unit dirs [N, R, 3]), R = resolution**2, or only the rays of the flat
+    pixel indices ``pixel_idx`` [R] (training's shared pixel subset)."""
     n = extr.shape[0]
     fx, fy = intr[:, 0, 0, None], intr[:, 1, 1, None]
     cx, cy = intr[:, 0, 2, None], intr[:, 1, 2, None]
     sk = intr[:, 0, 1, None]
 
-    u = torch.arange(resolution, dtype=torch.float32, device=extr.device) + 0.5
-    yy, xx = torch.meshgrid(u, u, indexing="ij")
+    if pixel_idx is None:
+        u = torch.arange(resolution, dtype=torch.float32, device=extr.device) + 0.5
+        yy, xx = torch.meshgrid(u, u, indexing="ij")
+    else:
+        pixel_idx = pixel_idx.long()
+        yy = torch.div(pixel_idx, resolution, rounding_mode="floor").float() + 0.5
+        xx = (pixel_idx % resolution).float() + 0.5
     x_cam = xx.reshape(1, -1).expand(n, -1)
     y_cam = yy.reshape(1, -1).expand(n, -1)
     z_cam = torch.ones_like(x_cam)

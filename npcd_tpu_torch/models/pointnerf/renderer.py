@@ -1,21 +1,24 @@
-"""Volume rendering at eval time. Port of
-npcd_tpu/models/pointnerf/renderer.py: uniform depth samples (no jitter at
-eval, no disparity-space sampling), the cummax fix of compacted shading
-depths, and front-to-back alpha compositing with an optional white
-background."""
+"""Volume rendering. Port of npcd_tpu/models/pointnerf/renderer.py:
+uniform depth samples with the training jitter (no disparity-space
+sampling), the cummax fix of compacted shading depths, and front-to-back
+alpha compositing with an optional white background."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 
-def sample_depths(ray_start: torch.Tensor, ray_end: torch.Tensor,
-                  depth_resolution: int) -> torch.Tensor:
-    """[...] -> [..., S] inclusive linspace in depth."""
+def sample_depths(ray_start: torch.Tensor, ray_end: torch.Tensor, depth_resolution: int,
+                  jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[...] -> [..., S] inclusive linspace in depth; in training each
+    sample moves by jitter [..., S] (uniform in [0, 1)) times the spacing."""
     steps = torch.arange(depth_resolution, dtype=torch.float32,
                          device=ray_start.device) / (depth_resolution - 1)
-    return ray_start[..., None] + steps * (ray_end - ray_start)[..., None]
+    depths = ray_start[..., None] + steps * (ray_end - ray_start)[..., None]
+    if jitter is not None:
+        depths = depths + jitter * ((ray_end - ray_start) / (depth_resolution - 1))[..., None]
+    return depths
 
 
 def fix_shading_depths(depths_c: torch.Tensor, mask: torch.Tensor,

@@ -1,7 +1,10 @@
-"""kNN and voxel occupancy of the PointNeRF render path. Port of
-npcd_tpu/ops/knn.py: the kNN goes through kernel K4
-(ops/kernels/knn.py); the voxel-occupancy validity test is plain tensor code
-(scatter, 3x3x3 dilation, gather)."""
+"""kNN, radius test and voxel occupancy of the PointNeRF path. Port of
+npcd_tpu/ops/knn.py: the kNN goes through kernel K4 and the radius test
+(the `validity: knn` sample filter) through kernel K5 (ops/kernels/knn.py);
+the voxel-occupancy validity test is plain tensor code (scatter, 3x3x3
+dilation, gather). npcd_tpu's transposed within_radius_t takes queries as
+[B, 3, N] for the TPU's tiling; the port builds them as [B, N, 3] and
+calls within_radius."""
 from __future__ import annotations
 
 import math
@@ -11,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import VoxelGridOptions
-from .kernels.knn import knn
+from .kernels.knn import knn, min_d2
 
 
 def dense_knn_batched(x: torch.Tensor, points: torch.Tensor, k: int,
@@ -20,6 +23,12 @@ def dense_knn_batched(x: torch.Tensor, points: torch.Tensor, k: int,
     mask [B, N, k] bool: the neighbour lies within ``radius``)."""
     idx, d2 = knn(x.contiguous(), points.contiguous(), k)
     return idx, d2 < radius * radius
+
+
+def within_radius(x: torch.Tensor, points: torch.Tensor, radius: float) -> torch.Tensor:
+    """x [B, N, 3], points [B, P, 3] -> [B, N] bool: some point of the
+    instance lies within ``radius`` (min squared distance < radius**2)."""
+    return min_d2(x.detach().contiguous(), points.detach().contiguous()) < radius * radius
 
 
 class VoxelOccupancy(NamedTuple):

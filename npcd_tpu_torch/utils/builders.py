@@ -1,7 +1,7 @@
-"""Model construction from the YAML config. Port of the PointNeRF and
-denoiser builders of npcd_tpu/utils/builders.py, with the same optional
-``pointnerf_options`` (flat option overrides) and ``render_config``
-sections."""
+"""Model and dataset construction from the YAML config. Port of the
+PointNeRF, denoiser and dataset builders of npcd_tpu/utils/builders.py,
+with the same optional ``pointnerf_options`` (flat option overrides),
+``render_config`` and ``dataset_kwargs`` sections."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,13 +39,25 @@ def build_pointnerf_options(config: Dict[str, Any]) -> PointNeRFOptions:
     return opts
 
 
-def build_pointnerf(config: Dict[str, Any], generator=None):
+def build_pointnerf(config: Dict[str, Any], generator=None, with_tables: bool = False):
+    """The PointNeRF decoder; ``with_tables`` adds the stage-1 latent tables
+    of ``model.n_obj`` objects."""
     from ..models.pointnerf.pointnerf import PointNeRF, PointNeRFRenderConfig
 
     render_config = None
     if "render_config" in config:
         render_config = PointNeRFRenderConfig(**dict(config["render_config"]))
-    return PointNeRF(build_pointnerf_options(config), render_config, generator)
+    n_obj = config["model"]["n_obj"] if with_tables else None
+    return PointNeRF(build_pointnerf_options(config), render_config, generator, n_obj)
+
+
+def build_dataset(config: Dict[str, Any]):
+    from ..data.synthetic import DATASETS
+
+    name = config["train_dataset"]
+    if name not in DATASETS:
+        raise KeyError(f"unknown train_dataset {name!r}; the port has {sorted(DATASETS)}")
+    return DATASETS[name](**dict(config.get("dataset_kwargs", {})))
 
 
 def build_diffusion_model(config: Dict[str, Any]):

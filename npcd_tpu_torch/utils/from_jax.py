@@ -23,7 +23,9 @@ Stage 2 reads the stage-1 latent tables from the same format:
 ``latents.feats_table`` [n_obj, P, F] (the mean half of npcd_tpu's
 variational feats table) beside the ``pointnerf.*`` weights; model loading
 skips them. ``train_state_from_jax`` carries a whole stage-2 train state
-(params, Adam moments and count, EMAs, step, normalizers) over.
+(params, Adam moments and count, EMAs, step, normalizers) over, and
+``pointnerf_train_state_from_jax`` a stage-1 one (the latent tables, the
+MLPs, Adam's moments and count, step).
 """
 from __future__ import annotations
 
@@ -118,6 +120,9 @@ def _find_adam_state(opt_state):
         elif isinstance(node, (list, tuple)):
             for child in node:
                 walk(child)
+        elif isinstance(node, dict):  # optax.multi_transform's inner states
+            for child in node.values():
+                walk(child)
 
     walk(opt_state)
     if len(found) != 1:
@@ -142,6 +147,29 @@ def train_state_from_jax(params, opt_state, ema_params, step, coords_norm,
             "emas": [denoiser_state_dict(e) for e in ema_params],
             "count": int(np.asarray(adam.count)), "step": int(np.asarray(step)),
             "coords_norm": _norm_dict(coords_norm), "feats_norm": _norm_dict(feats_norm)}
+
+
+def _pointnerf_trainables(tree) -> Dict[str, np.ndarray]:
+    """npcd_tpu PointNeRF params (or an Adam moment of them) -> the port's
+    trainable parameters by name (tables.feats_table and the MLPs)."""
+    out = {"tables.feats_table": np.asarray(tree["feats_table"], np.float32)}
+    out.update({k: np.asarray(v, np.float32) for k, v in pointnerf_state_dict(tree).items()})
+    return out
+
+
+def pointnerf_train_state_from_jax(params, opt_state, step) -> Dict[str, Any]:
+    """npcd_tpu's PointNeRFTrainState fields (params, the optax
+    multi_transform state of make_pointnerf_optimizer, step), as numpy
+    trees -> the port's bridged stage-1 train state: {"params": the
+    PointNeRF state dict with its tables, "mu", "nu": Adam's moments of the
+    trainable parameters, "count", "step": ints}
+    (train/pointnerf_training.py ``PointNeRFTraining.load_bridged_state``)."""
+    adam = _find_adam_state(opt_state)
+    state = _pointnerf_trainables(params)
+    state["tables.coords_table"] = np.asarray(params["coords_table"], np.float32)
+    return {"params": state, "mu": _pointnerf_trainables(adam.mu),
+            "nu": _pointnerf_trainables(adam.nu), "count": int(np.asarray(adam.count)),
+            "step": int(np.asarray(step))}
 
 
 def save_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:

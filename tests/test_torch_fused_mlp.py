@@ -18,7 +18,7 @@ from npcd_tpu.models.pointnerf import nn_core as jax_nn
 from npcd_tpu.ops.pallas.fused_mlp import fused_mlp_posenc_wsum as pallas_wsum
 from npcd_tpu.utils.config import AggregatorOptions
 from npcd_tpu_torch.models.pointnerf import nn_core
-from npcd_tpu_torch.models.pointnerf.aggregator import aggregate_features
+from npcd_tpu_torch.models.pointnerf.aggregator import aggregate_features, knn_neighbors
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import fused_mlp_posenc_wsum
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -88,10 +88,11 @@ def test_aggregate_features_matches_jax_xla():
         {"local_field": [{k: jnp.asarray(v) for k, v in l.items()} for l in layers]},
         opts, radius, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(kp_pos),
         jnp.asarray(kp_feat), impl="xla")
+    t_pts, t_mask, t_kpp = (torch.from_numpy(a) for a in (pts, mask, kp_pos))
     feat, valid = aggregate_features(
-        [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers], opts, radius,
-        torch.from_numpy(pts), torch.from_numpy(mask), torch.from_numpy(kp_pos),
-        torch.from_numpy(kp_feat))
+        [{k: torch.from_numpy(v) for k, v in l.items()} for l in layers], opts,
+        t_pts, t_mask, t_kpp, torch.from_numpy(kp_feat),
+        knn_neighbors(t_pts, t_mask, t_kpp, opts.k, radius))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_ref))
     assert 0 < valid.numpy().mean() < 1
     np.testing.assert_allclose(feat.numpy(), np.asarray(feat_ref), **TOL)

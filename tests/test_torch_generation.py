@@ -142,12 +142,50 @@ def test_rays_match_jax_and_ignore_the_batch():
 
 
 def test_knn_validity_is_not_ported(jax_run):
-    model, _ = _port(jax_run["flat"])
-    model.pointnerf.cfg = dataclasses.replace(model.pointnerf.cfg, validity="knn")
-    extr, intr = _cameras(1, 1)
-    with pytest.raises(NotImplementedError):
-        model.pointnerf.render(torch.zeros(1, 32, 3), torch.zeros(1, 32, 8),
-                               torch.from_numpy(extr), torch.from_numpy(intr), resolution=RES)
+    """The render with validity 'knn' matches npcd_tpu's. (The name dates
+    from before kernel K5, when the port refused 'knn'; the test keeps it.)
+    npcd_tpu's radius test runs the dot form on the CPU,
+    the port the direct sum: no sample or (shading point, point) pair lies
+    within 1e-4 (relative) of the radius, asserted so that other clouds fail
+    loudly instead of flakily."""
+    from npcd_tpu_torch.models.pointnerf.math_utils import (fill_invalid_ray_limits,
+                                                            get_ray_limits_box)
+    from npcd_tpu_torch.models.pointnerf.ray_sampler import generate_rays
+    from npcd_tpu_torch.models.pointnerf.renderer import sample_depths
+
+    coords = jax_run["coords"].transpose(0, 2, 1).copy()
+    feats = jax_run["feats"].transpose(0, 2, 1).copy()
+    extr, intr = _cameras(2)
+    jmodel = jax_run["model"]
+    jmodel.pointnerf.cfg = dataclasses.replace(jmodel.pointnerf.cfg, validity="knn",
+                                               eval_slot_block=4)
+    ref = jmodel.pointnerf.render(jax_run["params"]["pointnerf"], jnp.asarray(coords),
+                                  jnp.asarray(feats), jnp.asarray(extr), jnp.asarray(intr),
+                                  resolution=RES)
+    model, _ = _port(jax_run["flat"], validity="knn", eval_slot_block=4)
+    got = model.pointnerf.render(*(torch.from_numpy(a) for a in (coords, feats, extr, intr)),
+                                 resolution=RES)
+
+    o = model.pointnerf.opts
+    rays_o, rays_d = generate_rays(torch.from_numpy(extr).reshape(-1, 4, 4),
+                                   torch.from_numpy(intr).reshape(-1, 3, 3), RES)
+    start, end = fill_invalid_ray_limits(*get_ray_limits_box(rays_o, rays_d, 1.0))
+    depths = sample_depths(start[..., 0], end[..., 0], o.renderer.depth_resolution)
+    x = (rays_o[:, :, None] + depths[..., None] * rays_d[:, :, None]).numpy().astype(np.float64)
+    kp = np.repeat(coords, 3, axis=0).astype(np.float64)
+    d2 = ((x.reshape(6, -1, 1, 3) - kp[:, None]) ** 2).sum(-1)  # every sample to every point
+    r2 = o.knn_radius ** 2
+    assert (np.abs(d2 - r2) / r2).min() > 1e-4, "a sample lies at the radius"
+    assert (d2 < r2).sum(-1).max() <= o.aggregator.k
+
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    valid = ref["ray_valid"]
+    assert 0.05 < valid.mean() < 0.95
+    np.testing.assert_array_equal(got["ray_valid"].numpy(), valid)
+    np.testing.assert_allclose(got["channels"].numpy(), ref["channels"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["mask"].numpy(), ref["mask"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["depth"].numpy()[valid], ref["depth"][valid], rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_cli_with_bridged_weights(jax_run, tmp_path):

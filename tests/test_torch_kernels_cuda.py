@@ -3,28 +3,36 @@ on the card, at small shapes chosen for the ragged edges: partial query
 and key tiles, widths that are not powers of two, fewer points than k,
 exact distance ties, pair counts that do not fill a block, at the
 configs' k = 8 and 'anchored' posenc, the only ones the kernels build;
-and the training kernels: the attention backward (pad keys get exactly zero
+the training kernels: the attention backward (pad keys get exactly zero
 dk and dv), the LayerNorm backward in both forms, and the AdamW + EMA pass
-over a length that does not fill its last block. Imports no JAX, so it runs
-where the card is:
+over a length that does not fill its last block; and stage 1's: the
+minimum squared distance (bitwise equal), the aggregation MLP's backward
+(through autograd, ragged tiles, more tiles than blocks) and one stage-1
+training step on the card against the same step on the CPU. Imports no
+JAX, so it runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Without a GPU every test skips. Tolerances: 1e-5 on O(1) values (f32 in
 another summation order; sums over rows scale it by their magnitude); kNN
 distances 1e-6 with indices equal except at exact ties; AdamW + EMA 1e-6 of
-each buffer's scale (elementwise f32, the kernel may contract into FMAs)."""
+each buffer's scale (elementwise f32, the kernel may contract into FMAs);
+the MLP backward 1e-5 of max(1, each output's largest magnitude), with the
+pairs on a leaky_relu kink (a pre-activation within 1e-5 of 0, where an
+ulp decides the slope) given weight 0."""
 import pytest
 import torch
 
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc_wsum,
-                                                        fused_mlp_posenc_wsum_plain)
+                                                        fused_mlp_posenc_wsum_bwd,
+                                                        fused_mlp_posenc_wsum_bwd_plain,
+                                                        fused_mlp_posenc_wsum_plain, leaky_kinks)
 from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (
     fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
     fused_qkv_attention_fwd, fused_qkv_attention_plain, split_grouped_qkv)
-from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain
+from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain, min_d2, min_d2_plain
 from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_bwd,
                                                   layer_norm_bwd_plain, layer_norm_fwd,
                                                   layer_norm_fwd_plain, layer_norm_plain,
@@ -189,3 +197,110 @@ def test_unsupported_shapes_raise_on_cuda(dev):
     with pytest.raises(ValueError):  # the kernel computes the 'anchored' posenc only
         fused_mlp_posenc_wsum(torch.zeros(1, 8, 16, device=dev), torch.zeros(1, 8, 16, device=dev),
                               [(l["w"], l["b"]) for l in layers], 8, 4, 1.0, "direct")
+
+
+@pytest.mark.parametrize("n,p", [(1000, 5), (77, 130), (14336, 512)])
+def test_min_d2_kernel(dev, n, p):
+    g = _gen(dev, 4)
+    pts = torch.rand(3, p, 3, generator=g, device=dev) - 0.5
+    x = torch.rand(3, n, 3, generator=g, device=dev) * 2 - 1
+    assert torch.equal(min_d2(x, pts), min_d2_plain(x, pts))
+
+
+def _close_rel(got, want, rel=1e-5):
+    tol = rel * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n_pts,inst", [(13, 2), (700, 3)])
+def test_fused_mlp_posenc_backward_kernel(dev, n_pts, inst):
+    # 104 pairs: a full and a partial tile; 5600 pairs x 3 instances: more
+    # tiles than blocks, so every block accumulates over several tiles
+    g = _gen(dev, 5)
+    k, f = 8, 32
+    layers = init_mlp((256,) * 4, f + 63, 256, torch.Generator().manual_seed(0), dev)
+    weights = [(l["w"], l["b"]) for l in layers]
+    m = n_pts * k
+    w = torch.rand(inst, n_pts, k, generator=g, device=dev)
+    pos_t = torch.cat([torch.rand(inst, 3, m, generator=g, device=dev) * 0.3 - 0.15,
+                       (w / w.sum(-1, keepdim=True)).reshape(inst, 1, -1),
+                       torch.zeros(inst, 4, m, device=dev)], dim=1)
+    feat_t = torch.randn(inst, f, m, generator=g, device=dev)
+    pos_t[:, 3][leaky_kinks(feat_t, pos_t, weights, 10)] = 0.0
+    gout = torch.randn(inst, n_pts, 256, generator=g, device=dev)
+    df, dws = fused_mlp_posenc_wsum_bwd(feat_t, pos_t, weights, gout, k, 10)
+    df_p, dws_p = fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, gout, k, 10)
+    _close_rel(df, df_p)
+    for (a, b), (c, d) in zip(dws, dws_p):
+        _close_rel(a, c)
+        _close_rel(b, d)
+    # through autograd: the Function's backward is the kernel; pos_t gets none
+    ft = feat_t.clone().requires_grad_(True)
+    pt = pos_t.clone().requires_grad_(True)
+    ws = [(a.clone().requires_grad_(True), b.clone().requires_grad_(True)) for a, b in weights]
+    launches = fused_mlp_posenc_wsum_bwd.launches
+    fused_mlp_posenc_wsum(ft, pt, ws, k, 10).backward(gout)
+    assert fused_mlp_posenc_wsum_bwd.launches == launches + 1 and pt.grad is None
+    assert torch.equal(ft.grad, df)
+    for (a, b), (c, d) in zip(ws, dws):
+        assert torch.equal(a.grad, c) and torch.equal(b.grad, d)
+
+
+def test_stage1_step_matches_the_cpu(dev, tmp_path):
+    """One stage-1 step of the tiny config (8 objects x 32 points x 8
+    features, 256-wide MLPs, 2 views of 16x16) on the card and on the CPU
+    from the same weights and draws: loss within 1e-5 relative, every
+    gradient leaf within 1e-3 of its scale (a pre-activation at leaky_relu's
+    kink can take the other slope on the other device), parameters within
+    2 lr (Adam's first step is ~lr * sign(g))."""
+    import numpy as np
+
+    from npcd_tpu_torch.data import SyntheticNPCTrain
+    from npcd_tpu_torch.train import PointNeRFTraining
+    from npcd_tpu_torch.utils.builders import build_pointnerf
+    from npcd_tpu_torch.utils.config import load_config
+
+    config = load_config("configs/npcd_synthetic_tiny.yaml")
+    ds = SyntheticNPCTrain(**config["dataset_kwargs"])
+    src = build_pointnerf(config, torch.Generator().manual_seed(0), with_tables=True)
+    src.set_all_coords(ds.get_all_coords())
+    with torch.no_grad():
+        src.tables.feats_table.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
+    state = {k: v.clone() for k, v in src.state_dict().items()}
+    o = src.opts
+    rng = np.random.default_rng(0)
+    batch = ds.batch([0, 3, 5, 6])
+    draws = {"pixel_idx": rng.choice(256, o.renderer.ray_subsamples, replace=False),
+             "feats_eps": rng.standard_normal((4, o.num_points, o.feat_dim), dtype=np.float32),
+             "depth_jitter": rng.uniform(size=(8, o.renderer.ray_subsamples,
+                                               o.renderer.depth_resolution)).astype(np.float32)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        trainer = PointNeRFTraining(str(tmp_path / device),
+                                    build_pointnerf(config, with_tables=True), ds,
+                                    device=device, verbose=False,
+                                    **config["pointnerf_training"])
+        trainer.model.load_state_dict(state)
+        loss = float(trainer.train_step(batch, draws=draws)["loss"])
+        named = dict(trainer.model.named_parameters())
+        out[device] = (loss, {k: p.grad.cpu() for k, p in named.items()},
+                       {k: p.detach().cpu() for k, p in named.items()})
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    assert abs(lg / lc - 1) <= 1e-5
+    for name in gc:
+        assert float(gg[name].abs().max()) > 0, name
+        scale = float(gc[name].abs().max())
+        assert float((gg[name] - gc[name]).abs().max()) <= 1e-3 * scale, name
+        assert float((pg[name] - pc[name]).abs().max()) <= 2 * 1e-3 + 1e-6, name
+
+
+def test_stage1_kernels_refuse_what_they_do_not_build(dev):
+    layers = init_mlp((), 8 + 63, 256, torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError):  # the backward kernel needs two or more layers
+        fused_mlp_posenc_wsum_bwd(torch.zeros(1, 8, 16, device=dev),
+                                  torch.zeros(1, 8, 16, device=dev),
+                                  [(l["w"], l["b"]) for l in layers],
+                                  torch.zeros(1, 2, 256, device=dev), 8, 10)
+    with pytest.raises(ValueError):
+        min_d2(torch.zeros(1, 4, 3, device=dev), torch.zeros(1, 5000, 3, device=dev))
+
