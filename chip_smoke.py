@@ -53,14 +53,30 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  10. GPU vs CPU, stage 1: one step at full MLP widths on 1 object x 2 views,
      112 rays x 128 samples, from the same weights and draws: loss, every
      gradient leaf and the updated parameters;
- 11. launch counts: every kernel must have launched during phase 5, 6 or
-     9, each kernel of a path during that path.
+ 11. kernels, fast stage 1 (configs/npcd_srncars_fast.yaml: bf16 compute,
+     shading budget 1792, one chunk of 400 instances), at the shapes its step
+     launches them: the field heads' MLP stack forward and backward (K7f/K7b)
+     over 400 x 1,792 packed points for shape_net and channel_net, the bf16
+     aggregation MLP forward and backward (K6f/K6b bf16) over the step's one
+     launch of 400 x 14,336 pairs (the backward fed K6f's own output, held
+     against the plain version in slices of instances), and the kNN over the
+     400 x 1,792 packed points; rows and pairs on a leaky_relu kink in bf16
+     are left out of the backward checks;
+ 12. main path, fast stage 1: phase 9 on configs/npcd_srncars_fast.yaml (bf16,
+     budget 1792, remat off), 7 steps; also prints each instance's valid
+     sample count (mean, max) and the share the budget drops;
+ 13. GPU vs CPU, fast stage 1: phase 10 on the fast config, the ray order
+     injected so that both sides pack the same slots;
+ 14. launch counts: every kernel must have launched during phase 5, 6, 9 or
+     12, each kernel of a path during that path; the bf16 launches of K6 are
+     counted apart from the f32 ones.
 Every kernel's line gives its time, its plain version's, the least time
-the card could take for the same work (bytes over 3.35 TB/s or FP32
-operations over 67 TFLOP/s, whichever is larger, at the measured shape)
-and, where one PyTorch call computes the same function, that call's time.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+the card could take for the same work (bytes over 3.35 TB/s, or operations
+over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
+BF16 tensor-core peak), whichever is larger, at the measured shape) and,
+where one PyTorch call computes the same function, that call's time. Each
+phase prints its seconds. The line before the last is {"kernels": [...]};
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -84,8 +100,11 @@ from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E40
 from npcd_tpu_torch.generate_samples import exact_f32, parse_args, run  # noqa: E402
 from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # noqa: E402
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
+from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp  # noqa: E402
 from npcd_tpu_torch.ops.kernels import build  # noqa: E402
+from npcd_tpu_torch.ops.kernels.fused_mlp import (  # noqa: E402
+    fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_plain, leaky_kinks_bf16)
 from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (  # noqa: E402
     fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc_wsum_bwd_plain,
@@ -107,48 +126,65 @@ from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
 # training path writes its checkpoints and exports under OUT / "train"
 OUT = ROOT / "runs" / "chip_smoke"
 SRNCARS = ROOT / "configs/npcd_srncars.yaml"
+FAST = ROOT / "configs/npcd_srncars_fast.yaml"
 TRAIN_STEPS = 8
 WARMUP_STEPS = 2  # the first steps compile the Triton kernels
 
-# name -> (wrapper, route, source, the TPU kernel it replaces)
+# name -> (wrapper, its launch counter, route, source, the TPU kernel it
+# replaces)
 KERNELS = {
-    "fused_qkv_attention": (fused_qkv_attention, "cuda",
+    "fused_qkv_attention": (fused_qkv_attention, "launches", "cuda",
                             "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
                             "npcd_tpu/ops/pallas/fused_qkv_attention.py:131"),
-    "layer_norm": (layer_norm, "triton", "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm": (layer_norm, "launches", "triton", "npcd_tpu_torch/ops/kernels/layer_norm.py",
                    "npcd_tpu/ops/pallas/layer_norm.py:99"),
-    "layer_norm_residual": (layer_norm_residual, "triton",
+    "layer_norm_residual": (layer_norm_residual, "launches", "triton",
                             "npcd_tpu_torch/ops/kernels/layer_norm.py",
                             "npcd_tpu/ops/pallas/layer_norm.py:206"),
-    "knn": (knn, "cuda", "npcd_tpu_torch/csrc/knn.cu", "npcd_tpu/ops/pallas/knn.py:78"),
-    "fused_mlp_posenc_wsum": (fused_mlp_posenc_wsum, "cuda",
+    "knn": (knn, "launches", "cuda", "npcd_tpu_torch/csrc/knn.cu", "npcd_tpu/ops/pallas/knn.py:78"),
+    "fused_mlp_posenc_wsum": (fused_mlp_posenc_wsum, "launches", "cuda",
                               "npcd_tpu_torch/csrc/fused_mlp_posenc.cu",
                               "npcd_tpu/ops/pallas/fused_mlp.py:382"),
-    "fused_qkv_attention_bwd": (fused_qkv_attention_bwd, "cuda",
+    "fused_qkv_attention_bwd": (fused_qkv_attention_bwd, "launches", "cuda",
                                 "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
                                 "npcd_tpu/ops/pallas/fused_qkv_attention.py:203"),
-    "layer_norm_bwd": (layer_norm_bwd, "triton", "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_bwd": (layer_norm_bwd, "launches", "triton",
+                       "npcd_tpu_torch/ops/kernels/layer_norm.py",
                        "npcd_tpu/ops/pallas/layer_norm.py:114"),
-    "layer_norm_residual_bwd": (layer_norm_residual_bwd, "triton",
+    "layer_norm_residual_bwd": (layer_norm_residual_bwd, "launches", "triton",
                                 "npcd_tpu_torch/ops/kernels/layer_norm.py",
                                 "npcd_tpu/ops/pallas/layer_norm.py:221"),
-    "adamw_ema": (adamw_ema, "triton", "npcd_tpu_torch/ops/kernels/fused_adamw.py",
+    "adamw_ema": (adamw_ema, "launches", "triton", "npcd_tpu_torch/ops/kernels/fused_adamw.py",
                   "npcd_tpu/ops/pallas/fused_adamw.py:36"),
-    "min_d2": (min_d2, "cuda", "npcd_tpu_torch/csrc/knn.cu", "npcd_tpu/ops/pallas/knn.py:67"),
-    "fused_mlp_posenc_wsum_bwd": (fused_mlp_posenc_wsum_bwd, "cuda",
+    "min_d2": (min_d2, "launches", "cuda", "npcd_tpu_torch/csrc/knn.cu",
+               "npcd_tpu/ops/pallas/knn.py:67"),
+    "fused_mlp_posenc_wsum_bwd": (fused_mlp_posenc_wsum_bwd, "launches", "cuda",
                                   "npcd_tpu_torch/csrc/fused_mlp_posenc.cu",
                                   "npcd_tpu/ops/pallas/fused_mlp.py:430"),
+    "fused_mlp": (fused_mlp, "launches", "cuda", "npcd_tpu_torch/csrc/fused_mlp.cu",
+                  "npcd_tpu/ops/pallas/fused_mlp.py:120"),
+    "fused_mlp_bwd": (fused_mlp_bwd, "launches", "cuda", "npcd_tpu_torch/csrc/fused_mlp.cu",
+                      "npcd_tpu/ops/pallas/fused_mlp.py:130"),
+    "fused_mlp_posenc_wsum (bf16)": (fused_mlp_posenc_wsum, "launches_bf16", "cuda",
+                                     "npcd_tpu_torch/csrc/fused_mlp_posenc.cu",
+                                     "npcd_tpu/ops/pallas/fused_mlp.py:382"),
+    "fused_mlp_posenc_wsum_bwd (bf16)": (fused_mlp_posenc_wsum_bwd, "launches_bf16", "cuda",
+                                         "npcd_tpu_torch/csrc/fused_mlp_posenc.cu",
+                                         "npcd_tpu/ops/pallas/fused_mlp.py:430"),
 }
 GENERATION = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
               "fused_mlp_posenc_wsum")
 TRAINING = ("fused_qkv_attention", "fused_qkv_attention_bwd", "layer_norm",
             "layer_norm_residual", "layer_norm_bwd", "layer_norm_residual_bwd", "adamw_ema")
 STAGE1 = ("knn", "min_d2", "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum_bwd")
+FAST_STAGE1 = ("knn", "min_d2", "fused_mlp", "fused_mlp_bwd", "fused_mlp_posenc_wsum (bf16)",
+               "fused_mlp_posenc_wsum_bwd (bf16)")
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
 STAGE1_WARMUP = 2
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
-# FP32 operations/s outside the tensor cores
-HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
+# operations/s outside the tensor cores and dense BF16 tensor-core
+# operations/s (the bound of the bf16 kernels)
+HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S = 3.35e12, 67e12, 989e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
 # pairs, so it is needed once per point: sum w*h per pair, then one
@@ -163,6 +199,15 @@ K6F_FLOP = _K6_HIDDEN + 2 * 256 + _K6_LAST
 K6B_FLOP = (_K6_HIDDEN + _K6_HIDDEN + 2 * 256 + _K6_LAST
             + _K6_LAST + 256 + 3 * 2 * 256 * 256 + 2 * 256 * 32)
 DIST_FLOP = 9  # per (query, point): 3 sub, 3 mul, 2 add, 1 compare
+
+
+def _k7_flop(dims, d_in: int = 256) -> tuple:
+    """(forward, backward) operations per row of the MLP stack d_in -> dims:
+    the forward's products; the backward's recompute of the hidden layers,
+    then dW and dX of every layer."""
+    widths = list(zip((d_in,) + tuple(dims[:-1]), dims))
+    fwd = sum(2 * a * b for a, b in widths)
+    return fwd, fwd - 2 * widths[-1][0] * widths[-1][1] + 2 * fwd
 
 
 def phase_env() -> str:
@@ -215,14 +260,15 @@ def _worst(triples) -> tuple:
 
 def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_fn,
             extra: str = "", tag: str = "kernels", flops: float = 0.0, nbytes: float = 0.0,
-            library_fn=None) -> None:
+            library_fn=None, peak: float = FP32_FLOP_S, iters: int = 20) -> None:
     """Time kernel, plain version and (where there is one) the library call
-    computing the same function; print; raise when err > tol. The bound is
-    the larger of nbytes over the HBM rate and flops over the FP32 peak."""
-    ms, plain_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
-    library_ms = _time_ms(library_fn) if library_fn is not None else None
-    bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / FP32_FLOP_S else "operations"
-    bound_ms = max(nbytes / HBM_BYTES_S, flops / FP32_FLOP_S) * 1e3
+    computing the same function, ``iters`` runs each; print; raise when
+    err > tol. The bound is the larger of nbytes over the HBM rate and flops
+    over ``peak`` (operations/s)."""
+    ms, plain_ms = _time_ms(kernel_fn, iters), _time_ms(plain_fn, iters)
+    library_ms = _time_ms(library_fn, iters) if library_fn is not None else None
+    bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / peak else "operations"
+    bound_ms = max(nbytes / HBM_BYTES_S, flops / peak) * 1e3
     ok = err <= tol
     lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
     print(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
@@ -422,12 +468,12 @@ def phase_train_kernels() -> dict:
 
 
 def _reset_launches() -> None:
-    for wrapper, *_ in KERNELS.values():
-        wrapper.launches = 0
+    for wrapper, counter, *_ in KERNELS.values():
+        setattr(wrapper, counter, 0)
 
 
 def _read_launches() -> dict:
-    return {name: wrapper.launches for name, (wrapper, *_) in KERNELS.items()}
+    return {name: getattr(wrapper, counter) for name, (wrapper, counter, *_) in KERNELS.items()}
 
 
 def phase_main() -> dict:
@@ -751,6 +797,136 @@ def _bwd_plain_f64(feat_t, pos_t, weights, g, k: int, n_freqs: int, step: int = 
     return torch.cat(dfs), dws
 
 
+def phase_fast_kernels() -> dict:
+    """K7f/K7b, the bf16 K6f/K6b and K4 vs their plain versions at the shapes
+    the fast stage-1 step gives them (400 instances x 1,792 packed shading
+    points, k 8, bf16 compute)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+    check = lambda *a, **k: _record(results, *a, tag="kernels-fast", peak=BF16_FLOP_S, **k)
+    inst, cap, k = 400, 1792, 8
+    m = cap * k
+    bf16 = lambda layers: [(l["w"].bfloat16(), l["b"].bfloat16()) for l in layers]
+
+    # K4 over the packed points, f32 as in the step
+    pts = torch.rand(inst, 512, 3, generator=g, device=dev) - 0.5
+    xq = pts[:, torch.randint(0, 512, (cap,), generator=g, device=dev)] \
+        + 0.05 * torch.randn(inst, cap, 3, generator=g, device=dev)
+    _knn_check(lambda *a, **kw: _record(results, *a, tag="kernels-fast", **kw),
+               "knn (fast stage-1 aggregation)", xq, pts)
+    del pts, xq
+
+    # K6f and K6b in bf16 over the step's one launch: 400 x 14,336 pairs, F
+    # 32, the 95 -> 256 x 4 -> 256 MLP in bf16; K6b's cotangent is K6f's
+    # own output. Pairs on a bf16 leaky_relu kink (fused_mlp_posenc.
+    # leaky_kinks, checked in slices of 20 instances) get weight 0. Forward
+    # within one bf16 ulp of the element plus one of the output's scale and
+    # 99% bitwise; each backward output within 1e-2 of max(1, its largest
+    # magnitude) of the plain version, run in slices of 20 instances (the dW
+    # summed over the slices)
+    weights = bf16(init_mlp((256, 256, 256, 256), 95, 256, torch.Generator().manual_seed(0),
+                            dev))
+    feat_t = torch.randn(inst, 32, m, generator=g, device=dev).bfloat16()
+    w = torch.rand(inst, cap, k, generator=g, device=dev)
+    pos_t = torch.cat([0.32 * torch.rand(inst, 3, m, generator=g, device=dev) - 0.16,
+                       (w / w.sum(-1, keepdim=True)).reshape(inst, 1, m),
+                       torch.zeros(inst, 4, m, device=dev)], dim=1)
+    del w
+    step = 20
+    kinks = torch.cat([leaky_kinks(feat_t[i:i + step], pos_t[i:i + step], weights, 10)
+                       for i in range(0, inst, step)])
+    pos_t[:, 3][kinks] = 0.0
+    n_w = sum(t.numel() for wb in weights for t in wb)
+    fargs = (feat_t, pos_t, weights, k, 10)
+    gout = fused_mlp_posenc_wsum(*fargs)
+    want = fused_mlp_posenc_wsum_plain(*fargs)
+    err, tol, share = _bf16_err(gout, want)
+    check("fused_mlp_posenc_wsum (bf16)", err, tol, lambda: fused_mlp_posenc_wsum(*fargs),
+          lambda: fused_mlp_posenc_wsum_plain(*fargs), flops=K6F_FLOP * inst * m,
+          nbytes=feat_t.numel() * 2 + pos_t.numel() * 4 + n_w * 2 + want.numel() * 2,
+          extra=f" bitwise share {share:.4f}", iters=5)
+    del want
+    torch.cuda.empty_cache()
+    bargs = (feat_t, pos_t, weights, gout, k, 10)
+    flat = lambda df, dws: [df] + [t for wb in dws for t in wb]
+    got = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
+    dfs, dws = [], None
+    for i in range(0, inst, step):
+        sl = slice(i, i + step)
+        part = flat(*fused_mlp_posenc_wsum_bwd_plain(feat_t[sl], pos_t[sl], weights, gout[sl],
+                                                     k, 10))
+        dfs.append(part[0])
+        dws = [t.float() for t in part[1:]] if dws is None else [
+            a + b.float() for a, b in zip(dws, part[1:])]
+    plain = [torch.cat(dfs)] + dws
+    err, tol = _worst([(a, b, 1e-2) for a, b in zip(got, plain)])
+    again = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise AssertionError("fused_mlp_posenc_wsum_bwd (bf16): two runs on the same inputs "
+                             "differ")
+    del again, got, plain, dfs, dws, part
+    torch.cuda.empty_cache()
+    check("fused_mlp_posenc_wsum_bwd (bf16)", err, tol,
+          lambda: fused_mlp_posenc_wsum_bwd(*bargs),
+          lambda: fused_mlp_posenc_wsum_bwd_plain(*bargs),
+          extra=f" kinked pairs {int(kinks.sum())} of {kinks.numel()}; repeatable bitwise",
+          flops=K6B_FLOP * inst * m,
+          nbytes=2 * (2 * feat_t.numel() + gout.numel() + 2 * n_w) + 4 * pos_t.numel(), iters=3)
+    del feat_t, pos_t, bargs, kinks
+    torch.cuda.empty_cache()
+
+    # K7f and K7b for both heads over the 400 x 1,792 packed points: x is
+    # K6f's output, the cotangent standard normal in bf16; rows on a bf16
+    # leaky_relu kink (leaky_kinks_bf16) get a zero cotangent. Tolerances as
+    # K6's
+    x = gout.reshape(inst * cap, 256)
+    rows = x.shape[0]
+    for head, dims in (("channel_net", (256, 256, 256, 256, 3)), ("shape_net", (256, 1))):
+        weights = bf16(init_mlp(dims[:-1], 256, dims[-1], torch.Generator().manual_seed(1), dev))
+        n_w = sum(t.numel() for wb in weights for t in wb)
+        fwd_flop, bwd_flop = _k7_flop(dims)
+        want = fused_mlp_plain(x, weights)
+        err, tol, share = _bf16_err(fused_mlp(x, weights), want)
+        name = "fused_mlp" if head == "channel_net" else f"fused_mlp ({head})"
+        check(name, err, tol, lambda: fused_mlp(x, weights), lambda: fused_mlp_plain(x, weights),
+              flops=fwd_flop * rows, nbytes=2 * (x.numel() + n_w + want.numel()),
+              extra=f" {head}; bitwise share {share:.4f}")
+        gy = torch.randn(rows, dims[-1], generator=g, device=dev).bfloat16()
+        kinks = torch.cat([leaky_kinks_bf16(x[i:i + 65536], weights)
+                           for i in range(0, rows, 65536)])
+        gy[kinks] = 0
+        got = flat(*fused_mlp_bwd(x, weights, gy))
+        plain = flat(*fused_mlp_bwd_plain(x, weights, gy))
+        err, tol = _worst([(a, b, 1e-2) for a, b in zip(got, plain)])
+        again = flat(*fused_mlp_bwd(x, weights, gy))
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError(f"fused_mlp_bwd ({head}): two runs on the same inputs differ")
+        name = "fused_mlp_bwd" if head == "channel_net" else f"fused_mlp_bwd ({head})"
+        check(name, err, tol, lambda: fused_mlp_bwd(x, weights, gy),
+              lambda: fused_mlp_bwd_plain(x, weights, gy), flops=bwd_flop * rows,
+              nbytes=2 * (2 * x.numel() + gy.numel() + 2 * n_w),
+              extra=f" {head}; kinked rows {int(kinks.sum())} of {rows}; repeatable bitwise")
+        del want, gy, got, plain, again, kinks
+    del x, gout
+    torch.cuda.empty_cache()
+    return results
+
+
+def _bf16_err(got, want) -> tuple:
+    """A bf16 kernel's output against its plain version -> (max_abs_err, tol,
+    bitwise share): every element within one bf16 ulp of itself plus one of
+    the output's largest magnitude (a hidden rounding that flips on an f32
+    sum in another order reaches outputs that cancel), 99% bitwise equal."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    share = float((d == 0).float().mean())
+    over = float((d - 2 ** -7 * (want.abs() + float(want.abs().max()))).max())
+    if share < 0.99 or over > 0:
+        raise AssertionError(f"bf16 kernel output: bitwise share {share}, {over} past one ulp")
+    return float(d.max()), 2 ** -7 * 2 * float(want.abs().max()), share
+
+
 class _FirstObjects:
     """A dataset whose clouds (the coords table) are all of ``ds``'s and
     whose batches come from its first ``n`` objects: the stage-1 run takes
@@ -776,27 +952,41 @@ def _stage1_dataset(config, n_obj: int, num_views: int):
                              num_points=m["num_points"], seed=0)
 
 
-def phase_stage1() -> dict:
-    """python -m npcd_tpu_torch.train_pointnerf's code path, full geometry."""
-    out = OUT / "stage1"
+def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
+    """python -m npcd_tpu_torch.train_pointnerf's code path, full geometry, on
+    the config at ``path``; with a shading budget, also each instance's valid
+    sample count and the share the budget drops."""
+    out = OUT / tag
     shutil.rmtree(out, ignore_errors=True)
-    config = load_config(str(SRNCARS))
+    config = load_config(str(path))
     config["pointnerf_training"].update(max_epochs=1, print_interval=1, log_scalars_interval=1)
     m = config["model"]
     t0 = time.perf_counter()
     full = _stage1_dataset(config, m["n_obj"], 50)
     dataset = _FirstObjects(full, STAGE1_OBJECTS)
-    print(f"[stage1] seeded synthetic dataset: {m['n_obj']} clouds x {m['num_points']} points, "
+    print(f"[{tag}] seeded synthetic dataset: {m['n_obj']} clouds x {m['num_points']} points, "
           f"50 views at 128^2, batches from the first {STAGE1_OBJECTS} objects "
           f"({time.perf_counter() - t0:.1f} s)")
-    args = train_pointnerf.parse_args(["--config", str(SRNCARS), "--output", str(out),
+    args = train_pointnerf.parse_args(["--config", str(path), "--output", str(out),
                                        "--device", "cuda", "--no_tensorboard", "--seed", "0"])
+    n_valid = []  # each step's valid sample count per instance, where a budget packs
+
+    def budget_ranks(pts_mask):
+        rank, count = ranks(pts_mask)
+        n_valid.append(count)
+        return rank, count
+
+    ranks = pointnerf_module.budget_ranks
+    pointnerf_module.budget_ranks = budget_ranks
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    trainer = train_pointnerf.train(args, config, dataset)
-    torch.cuda.synchronize()
+    try:
+        trainer = train_pointnerf.train(args, config, dataset)
+        torch.cuda.synchronize()
+    finally:
+        pointnerf_module.budget_ranks = ranks
     wall = time.perf_counter() - t0
     launches = _read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -812,14 +1002,27 @@ def phase_stage1() -> dict:
             raise AssertionError(f"non-finite loss at step {h['it']}: {h}")
     steps_s = (steps - STAGE1_WARMUP) / (hist[-1]["time"] - hist[STAGE1_WARMUP - 1]["time"])
     model = trainer.model
-    rays = trainer.batch_size * 50 * model.cfg.train_rays
-    print(f"[stage1] B {trainer.batch_size} x V 50 x {model.cfg.train_rays} rays x "
-          f"{model.opts.renderer.depth_resolution} samples, validity {model.cfg.validity}, remat "
-          f"{model.cfg.resolved_train_remat()}: {steps} steps in {wall:.1f} s (with the final "
-          f"checkpoint and export): {steps_s:.4f} steps/s, {rays * steps_s:.0f} train rays/s over "
-          f"steps {STAGE1_WARMUP + 1}-{steps}; peak {peak_gib:.2f} GiB")
+    cfg = model.cfg
+    rays = trainer.batch_size * 50 * cfg.train_rays
+    print(f"[{tag}] B {trainer.batch_size} x V 50 x {cfg.train_rays} rays x "
+          f"{model.opts.renderer.depth_resolution} samples, validity {cfg.validity}, "
+          f"{str(cfg.compute_dtype).split('.')[-1]}, shading budget {cfg.shading_budget}, "
+          f"instance chunk {cfg.train_instance_chunk}, remat {cfg.resolved_train_remat()}: "
+          f"{steps} steps in {wall:.1f} s (with the final checkpoint and export): "
+          f"{steps_s:.4f} steps/s, {rays * steps_s:.0f} train rays/s over steps "
+          f"{STAGE1_WARMUP + 1}-{steps}; peak {peak_gib:.2f} GiB")
     for k in keys:
-        print(f"[stage1] {k} " + " ".join(f"{h[k]:.6g}" for h in hist))
+        print(f"[{tag}] {k} " + " ".join(f"{h[k]:.6g}" for h in hist))
+    if cfg.shading_budget is not None:
+        if len(n_valid) != steps:
+            raise AssertionError(f"the budget packed {len(n_valid)} times in {steps} steps")
+        counts = torch.stack(n_valid).float()  # [steps, instances]
+        dropped = (counts - cfg.shading_budget).clamp(min=0).sum() / counts.sum()
+        past = (counts > cfg.shading_budget).float().mean()
+        print(f"[{tag}] valid samples per instance (of {cfg.train_rays} x "
+              f"{model.opts.aggregator.max_shading_pts} slots): mean {float(counts.mean()):.1f}, "
+              f"max {int(counts.max())}; the budget of {cfg.shading_budget} drops "
+              f"{float(dropped):.4f} of them; instances past it {float(past):.4f}")
     coords = torch.as_tensor(full.get_all_coords(), device="cuda")
     if not torch.equal(model.tables.coords_table, coords):
         raise AssertionError("the frozen coords table changed")
@@ -832,7 +1035,7 @@ def phase_stage1() -> dict:
     opt_a, opt_b = a["optimizer"]["state"], b["optimizer"]["state"]
     same = same and opt_a.keys() == opt_b.keys() and all(
         torch.equal(v, opt_b[i][k]) for i, st in opt_a.items() for k, v in st.items())
-    print(f"[stage1] checkpoint restored into a fresh trainer at step {fresh.step}: "
+    print(f"[{tag}] checkpoint restored into a fresh trainer at step {fresh.step}: "
           f"{'bitwise equal' if same else 'DIFFERS'}")
     if not same:
         raise AssertionError("restored stage-1 train state differs from the saved one")
@@ -844,18 +1047,20 @@ def phase_stage1() -> dict:
             latents.get_all_feats(), model.get_all_feats().detach().cpu().numpy()
             .transpose(2, 0, 1).reshape(m["feats_dim"], -1)):
         raise AssertionError("the weights-only export does not hold the trained feats table")
-    print(f"[stage1] export {Path(export).name} loaded by train_diffusion's "
+    print(f"[{tag}] export {Path(export).name} loaded by train_diffusion's "
           f"load_pointnerf_weights: {len(latents)} objects, {len(pointnerf)} pointnerf arrays")
-    del trainer, model, full, dataset, latents
+    del trainer, model, dataset, latents
     torch.cuda.empty_cache()
     return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib}
 
 
-def phase_stage1_cpu_step() -> None:
+def phase_stage1_cpu_step(path: Path = SRNCARS, tag: str = "gpu-vs-cpu-stage1") -> None:
     """One stage-1 step at full MLP widths on 1 object x 2 views (112 rays x
-    128 samples) from the same weights and draws: the card with its kernels
-    vs the CPU with the plain versions."""
-    config = load_config(str(SRNCARS))
+    128 samples) of the config at ``path``, from the same weights and draws:
+    the card with its kernels vs the CPU with the plain versions. In bf16
+    compute the ray order is injected too, so that a shading budget packs
+    the same slots on both sides."""
+    config = load_config(str(path))
     config["model"]["n_obj"] = 2
     config["pointnerf_training"]["batch_size"] = 1
     dataset = _stage1_dataset(config, 2, 2)
@@ -872,9 +1077,12 @@ def phase_stage1_cpu_step() -> None:
              "feats_eps": rng.standard_normal((1, o.num_points, o.feat_dim), dtype=np.float32),
              "depth_jitter": rng.uniform(size=(2, o.renderer.ray_subsamples,
                                                o.renderer.depth_resolution)).astype(np.float32)}
+    bf16 = src.cfg.compute_dtype == torch.bfloat16
+    if bf16:
+        draws["ray_scores"] = rng.uniform(size=(2, o.renderer.ray_subsamples)).astype(np.float32)
     out, lr = {}, config["pointnerf_training"]["base_learning_rate"]
     for dev in ("cuda", "cpu"):
-        trainer = PointNeRFTraining(str(OUT / f"stage1_step_{dev}"),
+        trainer = PointNeRFTraining(str(OUT / f"{tag}_{dev}"),
                                     build_pointnerf(config, with_tables=True), dataset,
                                     device=dev, seed=0, verbose=False,
                                     save_checkpoint_interval_min=1e9,
@@ -897,45 +1105,63 @@ def phase_stage1_cpu_step() -> None:
     # a column of the lower layers' dW by ~1e-4 of its scale each. Adam's
     # first step moves each parameter by ~lr * sign(g), so a near-zero
     # gradient of the other sign moves it 2 lr apart: every parameter within
-    # 2 lr + 1e-6 and all but 0.1% within 1e-6
+    # 2 lr + 1e-6 and all but 0.1% within 1e-6. In bf16 a bf16 rounding
+    # flips where an f32 sum runs in another order (an ulp is 2**-8): the
+    # loss within 1e-3, each leaf within 5e-2 of its scale; a gradient near
+    # Adam's eps (the feats table's KL and TV terms, weighted 1e-7) moves its
+    # parameter by lr times the gradients' relative difference, so all but
+    # 5% of the parameters within 1e-6 (1.5% measured on an H100)
+    tol_loss, tol_leaf, tol_frac = (1e-3, 5e-2, 5e-2) if bf16 else (1e-5, 1e-3, 1e-3)
     worst = max((_err(gpu["grads"][k], g) / max(float(g.abs().max()), 1e-30), k)
                 for k, g in cpu["grads"].items())
     zero = [k for k, g in gpu["grads"].items() if float(g.abs().max()) == 0]
     diff = torch.cat([(gpu["params"][k] - v).abs().reshape(-1) for k, v in cpu["params"].items()])
     param_err, param_frac = float(diff.max()), float((diff > 1e-6).float().mean())
-    print(f"[gpu-vs-cpu-stage1] full-width step on 1 object x 2 views: loss {gpu['loss']:.6f} vs "
-          f"{cpu['loss']:.6f} (rel err {loss_err:.1e}, tol 1e-5); worst gradient leaf {worst[1]} "
-          f"rel err {worst[0]:.2e} (tol 1e-3) over {len(cpu['grads'])} leaves; updated params "
-          f"max_abs_err {param_err:.2e} (tol {2 * lr + 1e-6:.1e}), {param_frac:.1e} of them "
-          f"beyond 1e-6 (tol 1e-3)")
-    if (loss_err > 1e-5 or worst[0] > 1e-3 or zero or param_err > 2 * lr + 1e-6
-            or param_frac > 1e-3):
+    print(f"[{tag}] full-width step on 1 object x 2 views: loss {gpu['loss']:.6f} vs "
+          f"{cpu['loss']:.6f} (rel err {loss_err:.1e}, tol {tol_loss:.0e}); worst gradient leaf "
+          f"{worst[1]} rel err {worst[0]:.2e} (tol {tol_leaf:.0e}) over {len(cpu['grads'])} "
+          f"leaves; updated params max_abs_err {param_err:.2e} (tol {2 * lr + 1e-6:.1e}), "
+          f"{param_frac:.1e} of them beyond 1e-6 (tol {tol_frac:.0e})")
+    if (loss_err > tol_loss or worst[0] > tol_leaf or zero or param_err > 2 * lr + 1e-6
+            or param_frac > tol_frac):
         raise AssertionError(f"GPU and CPU stage-1 steps disagree (zero-gradient leaves {zero})")
 
 
+def _timed(name: str, fn, *args):
+    """fn(*args), then the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
-    phase_env()
-    phase_build()
-    results = phase_kernels()
-    results.update(phase_train_kernels())
-    results.update(phase_stage1_kernels())
-    gen_launches = phase_main()
-    train_launches = phase_train()["launches"]
-    stage1_launches = phase_stage1()["launches"]
-    phase_cpu_step()
-    phase_stage1_cpu_step()
-    print(f"[launches] generation {json.dumps(gen_launches)}")
-    print(f"[launches] training {json.dumps(train_launches)}")
-    print(f"[launches] stage 1 {json.dumps(stage1_launches)}")
-    missing = [n for n in GENERATION if gen_launches[n] == 0] + [
-        n for n in TRAINING if train_launches[n] == 0] + [
-        n for n in STAGE1 if stage1_launches[n] == 0]
+    t0 = time.perf_counter()
+    _timed("env", phase_env)
+    _timed("build", phase_build)
+    results = _timed("kernels", phase_kernels)
+    results.update(_timed("kernels-train", phase_train_kernels))
+    results.update(_timed("kernels-stage1", phase_stage1_kernels))
+    results.update(_timed("kernels-fast", phase_fast_kernels))
+    paths = {"generation": (_timed("main", phase_main), GENERATION),
+             "training": (_timed("train", phase_train)["launches"], TRAINING),
+             "stage 1": (_timed("stage1", phase_stage1)["launches"], STAGE1),
+             "fast stage 1": (_timed("fast-stage1", phase_stage1, FAST, "fast-stage1")["launches"],
+                              FAST_STAGE1)}
+    _timed("gpu-vs-cpu", phase_cpu_step)
+    _timed("gpu-vs-cpu-stage1", phase_stage1_cpu_step)
+    _timed("gpu-vs-cpu-fast-stage1", phase_stage1_cpu_step, FAST, "gpu-vs-cpu-fast-stage1")
+    for path, (launches, _) in paths.items():
+        print(f"[launches] {path} {json.dumps(launches)}")
+    missing = [(path, n) for path, (launches, names) in paths.items()
+               for n in names if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by their main path: {missing}")
+    print(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": gen_launches[name] + train_launches[name] + stage1_launches[name],
+                "launches": sum(launches[name] for launches, _ in paths.values()),
                 **results[name]}
-               for name, (_, route, source, replaces) in KERNELS.items()]
+               for name, (_, _, route, source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 // Posenc-fused aggregation MLP with the k-neighbour weighted sum, forward
-// (K6f) and backward (K6b, below), f32, for Hopper (sm_90a).
+// (K6f) and backward (K6b, below), for Hopper (sm_90a), in two flavours:
+// exact f32, and bf16 features and weights (T = __nv_bfloat16) with npcd_tpu's
+// bf16 rounding points.
 //
 // Replaces npcd_tpu/ops/pallas/fused_mlp.py:fused_mlp_posenc_wsum
 // (_posenc_impl_fwd -> _fwd_posenc_kernel with reduce_k). Per
@@ -14,46 +16,85 @@
 // octave j is evaluated directly where j is a multiple of 5 and by the
 // double-angle recurrence s' = 2sc, c' = 2c^2 - 1 in between.
 //
+// bf16 (npcd_tpu's _build_h0t, _layer and _wsum_reduce with bf16 feat_t and
+// weights): x and the octaves are computed in f32 and rounded to bf16 as
+// layer 1's input; each layer is z = bf16(bf16(f32 sum of exact bf16
+// products) + b), the activation max(z, bf16(z * bf16(0.01))); the w-sum over
+// a point's k pairs runs in f32 (products, then sums) and the output is bf16.
+//
 // What bounds it on the H100: ~2*(d1*256 + 4*256*256) = 573 kflop per pair
 // against ~(F + 4)*4 bytes read and 1 KB written per k pairs, so it is
-// compute-bound, on the f32 FMA pipes in this exact-f32 flavour. The TPU
-// kernel keeps every [pairs, 256] activation in VMEM; here a block of 256
+// compute-bound, on the f32 FMA pipes in both flavours (bf16 values are held
+// as f32 in shared memory; every product of two of them is exact in f32). The
+// TPU kernel keeps every [pairs, 256] activation in VMEM; here a block of 256
 // threads takes 64 pairs (8 points x k = 8), builds their 96-wide input in
 // shared memory, and walks the layers with one thread per output column
 // holding its 64 rows in registers: per 4-deep slice of the contraction a
 // thread reads 4 weights (coalesced, L2-resident: the whole stack is
-// ~0.9 MB) and 64 float4 broadcasts of the activations, for 256 FMAs. The
-// layer output overwrites its input in place after a barrier, so shared
+// ~0.9 MB in f32) and 64 float4 broadcasts of the activations, for 256 FMAs.
+// The layer output overwrites its input in place after a barrier, so shared
 // memory holds one [64, 256] activation plus the layer-1 input (~90 KB at
 // F = 32, two blocks per SM). Lanes past the last pair are zeroed before
 // sin/cos and never written back.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int HID = 256;   // width of every layer; one thread per column
 constexpr int PAIRS = 64;  // (point, neighbour) pairs per block
 constexpr int ANCHOR = 5;  // direct sin/cos every 5 octaves ('anchored')
+constexpr float LEAKY_BF16 = 0.010009765625f;  // bf16(0.01)
+
+typedef __nv_bfloat16 bf16;
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float leaky(float z) { return fmaxf(z, 0.01f * z); }
 
+// A layer-1 input value: rounded to bf16 in the bf16 flavour.
+template <typename T>
+__device__ __forceinline__ float as_input(float v) { return is_bf16<T>() ? rnd(v) : v; }
+
+// One layer's output from its f32 sum and bias: z = acc + b in f32;
+// bf16(bf16(acc) + b) in bf16, then the activation unless the layer is linear.
+template <typename T>
+__device__ __forceinline__ float layer_out(float acc, float b, bool linear) {
+  if (is_bf16<T>()) {
+    const float z = rnd(rnd(acc) + b);
+    return linear ? z : fmaxf(z, rnd(z * LEAKY_BF16));
+  }
+  const float z = acc + b;
+  return linear ? z : leaky(z);
+}
+
 // out[r][t] = sum_c in[r][c] * W[c][t] for the block's 64 rows; `in` has
 // row stride `ld` (a multiple of 4) and is zero in columns [kin, ld).
-__device__ __forceinline__ void matmul_col(const float* in, int ld, int kin,
-                                           const float* __restrict__ W, int t,
+template <typename T>
+__device__ __forceinline__ void matmul_col(const float* in, int ldi, int kin,
+                                           const T* __restrict__ W, int t,
                                            float (&acc)[PAIRS]) {
 #pragma unroll
   for (int r = 0; r < PAIRS; ++r) acc[r] = 0.f;
   for (int c = 0; c < kin; c += 4) {
-    const float w0 = W[(long)c * HID + t];
-    const float w1 = c + 1 < kin ? W[(long)(c + 1) * HID + t] : 0.f;
-    const float w2 = c + 2 < kin ? W[(long)(c + 2) * HID + t] : 0.f;
-    const float w3 = c + 3 < kin ? W[(long)(c + 3) * HID + t] : 0.f;
+    const float w0 = ld(W + (long)c * HID + t);
+    const float w1 = c + 1 < kin ? ld(W + (long)(c + 1) * HID + t) : 0.f;
+    const float w2 = c + 2 < kin ? ld(W + (long)(c + 2) * HID + t) : 0.f;
+    const float w3 = c + 3 < kin ? ld(W + (long)(c + 3) * HID + t) : 0.f;
 #pragma unroll
     for (int r = 0; r < PAIRS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * ld + c);
+      const float4 a = *reinterpret_cast<const float4*>(in + r * ldi + c);
       acc[r] = fmaf(a.x, w0, acc[r]);
       acc[r] = fmaf(a.y, w1, acc[r]);
       acc[r] = fmaf(a.z, w2, acc[r]);
@@ -63,10 +104,12 @@ __device__ __forceinline__ void matmul_col(const float* in, int ld, int kin,
 }
 
 // Builds the block's layer-1 input h0 [PAIRS][ld1] (feature rows, x, the
-// 'anchored' encoding, zero pad columns) and the pair weights wpair
-// [PAIRS] for pairs r0 .. r0 + PAIRS - 1 of one instance. Lanes past the
-// last pair are zeroed before sin/cos.
-__device__ __forceinline__ void build_input(const float* __restrict__ feat,
+// 'anchored' encoding, zero pad columns; x and the encoding rounded to bf16
+// in the bf16 flavour) and the pair weights wpair [PAIRS] for pairs r0 ..
+// r0 + PAIRS - 1 of one instance. Lanes past the last pair are zeroed before
+// sin/cos.
+template <typename T>
+__device__ __forceinline__ void build_input(const T* __restrict__ feat,
                                             const float* __restrict__ pos,
                                             float* h0, float* wpair, int r0,
                                             int m, int f_dim, int n_freqs,
@@ -74,13 +117,13 @@ __device__ __forceinline__ void build_input(const float* __restrict__ feat,
                                             int t) {
   for (int idx = t; idx < f_dim * PAIRS; idx += HID) {
     const int f = idx / PAIRS, r = idx % PAIRS;
-    h0[r * ld1 + f] = r0 + r < m ? feat[(long)f * m + r0 + r] : 0.f;
+    h0[r * ld1 + f] = r0 + r < m ? ld(feat + (long)f * m + r0 + r) : 0.f;
   }
   for (int idx = t; idx < 3 * PAIRS; idx += HID) {
     const int d = idx / PAIRS, r = idx % PAIRS;
     const float x = r0 + r < m ? pos[(long)d * m + r0 + r] : 0.f;
     float* row = h0 + r * ld1;
-    row[f_dim + d] = x;
+    row[f_dim + d] = as_input<T>(x);
     float* enc = row + f_dim + 3 + d * 2 * n_freqs;
     float s = 0.f, c = 1.f;
     for (int j = 0; j < n_freqs; ++j) {
@@ -93,8 +136,8 @@ __device__ __forceinline__ void build_input(const float* __restrict__ feat,
         c = __fsub_rn(__fmul_rn(__fmul_rn(2.f, c), c), 1.f);
         s = s2;
       }
-      enc[j] = s;
-      enc[n_freqs + j] = c;
+      enc[j] = as_input<T>(s);
+      enc[n_freqs + j] = as_input<T>(c);
     }
   }
   for (int idx = t; idx < PAIRS * (ld1 - d1); idx += HID) {
@@ -104,9 +147,10 @@ __device__ __forceinline__ void build_input(const float* __restrict__ feat,
   if (t < PAIRS) wpair[t] = r0 + t < m ? pos[3L * m + r0 + t] : 0.f;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(HID)
-mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_t,
-                const float* __restrict__ params, float* __restrict__ out,
+mlp_posenc_wsum(const T* __restrict__ feat_t, const float* __restrict__ pos_t,
+                const T* __restrict__ params, T* __restrict__ out,
                 int m, int f_dim, int pos_rows, int n_layers, int n_freqs,
                 float freq_c0, int k) {
   extern __shared__ __align__(16) float smem[];
@@ -119,7 +163,7 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
   const int t = threadIdx.x;
   const int inst = blockIdx.y;
   const int r0 = blockIdx.x * PAIRS;
-  const float* feat = feat_t + (long)inst * f_dim * m;
+  const T* feat = feat_t + (long)inst * f_dim * m;
   const float* pos = pos_t + (long)inst * pos_rows * m;
 
   build_input(feat, pos, h0, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, ld1, t);
@@ -127,11 +171,11 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
 
   // ---- layers ---------------------------------------------------------
   float acc[PAIRS];
-  const float* p = params;
+  const T* p = params;
   for (int layer = 0; layer < n_layers; ++layer) {
     const int kin = layer == 0 ? d1 : HID;
-    const float* W = p;
-    const float* bias = p + (long)kin * HID;
+    const T* W = p;
+    const T* bias = p + (long)kin * HID;
     p = bias + HID;
     if (layer == 0) {
       matmul_col(h0, ld1, kin, W, t, acc);
@@ -139,13 +183,10 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
       matmul_col(act, HID, kin, W, t, acc);
     }
     __syncthreads();  // every thread has read its input rows
-    const float bt = bias[t];
+    const float bt = ld(bias + t);
     const bool last = layer == n_layers - 1;
 #pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const float z = acc[r] + bt;
-      act[r * HID + t] = last ? z : leaky(z);
-    }
+    for (int r = 0; r < PAIRS; ++r) act[r * HID + t] = layer_out<T>(acc[r], bt, last);
     __syncthreads();
   }
 
@@ -155,8 +196,11 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
   for (int q = 0; q < PAIRS / k; ++q) {
     if (pt0 + q >= n_pts) break;
     float s = 0.f;
-    for (int j = 0; j < k; ++j) s = fmaf(wpair[q * k + j], act[(q * k + j) * HID + t], s);
-    out[((long)inst * n_pts + pt0 + q) * HID + t] = s;
+    for (int j = 0; j < k; ++j) {
+      const float a = act[(q * k + j) * HID + t], w = wpair[q * k + j];
+      s = is_bf16<T>() ? __fadd_rn(s, __fmul_rn(a, w)) : fmaf(w, a, s);
+    }
+    st(out + ((long)inst * n_pts + pt0 + q) * HID + t, s);
   }
 }
 
@@ -173,13 +217,19 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
 // needed: it is linear, and w has no gradient), keeping each activation:
 // act_0 .. act_{L-3} in a per-block global scratch (L2-resident) and
 // act_{L-2} in shared memory; (2) expands the per-point cotangent to pairs,
-// g[r] = w[r] * g_out[r / k]; (3) walks the layers back: dW_l += act^T g,
-// db_l += sum g, dh = g W_l^T (through a transposed copy of W_l, so that
+// g[r] = w[r] * g_out[r / k]; (3) walks the layers back: db_l += sum g,
+// dW_l += act^T g, dh = g W_l^T (through a transposed copy of W_l, so that
 // the reads stay coalesced), g = dh * leaky'(z), where leaky'(z) = 1 if
 // act(z) > 0 else 0.01 (act(z) > 0 exactly when z > 0); (4) writes dfeat_t
 // = g_0 W_0[:F]^T.
 //
-// The dW reduction runs over every pair (17.92M per stage-1 step) into
+// bf16 (npcd_tpu's low-precision backward, _BF16_BWD): g stays f32 and db
+// sums it; the dW and dX products take gd = bf16(g); dfeat is rounded to
+// bf16, and dW/db once at the end. The last layer's dW contracts over points
+// (npcd_tpu's fast_last): dW_last = bf16(sum_j w_j act_{L-2}[n*k + j])^T
+// g_out[n], one product per point instead of k.
+//
+// The dW reduction runs over every pair (17.92M per dense stage-1 step) into
 // ~288K weights. Blocks run in no order, so the TPU kernel's accumulation
 // in scratch across a sequential grid does not carry over, and f32
 // atomics would make the result differ from run to run. Instead the grid
@@ -192,15 +242,15 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
 // only on the inputs and the grid size.
 //
 // Bound: ~1.56 Mflop per pair (layers 0 .. L-2 recomputed, dX and dW),
-// ~28 Tflop per stage-1 step: the f32 FMA pipes. Shared memory is h0 plus
-// two [64][256] buffers (~153 KB), one block per SM.
+// ~28 Tflop per dense stage-1 step: the f32 FMA pipes. Shared memory is h0
+// plus two [64][256] buffers (~153 KB), plus (bf16) the tile's per-point
+// w-sums [64 / k][256], one block per SM.
 
 // dW[c][t] += sum_r A[r][c] * g[r] for c < kin (A has row stride ld and
-// zero columns up to the next multiple of 4); db[t] += sum_r g[r].
-__device__ __forceinline__ void accum_dw(const float* A, int ld, int kin,
+// zero columns up to the next multiple of 4).
+__device__ __forceinline__ void accum_dw(const float* A, int lda, int kin,
                                          const float (&g)[PAIRS],
-                                         float* __restrict__ dW,
-                                         float* __restrict__ db, int t) {
+                                         float* __restrict__ dW, int t) {
   for (int c = 0; c < kin; c += 4) {
     float* d = dW + (long)c * HID + t;
     const float o0 = d[0];
@@ -210,7 +260,7 @@ __device__ __forceinline__ void accum_dw(const float* A, int ld, int kin,
     float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
     for (int r = 0; r < PAIRS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * ld + c);
+      const float4 a = *reinterpret_cast<const float4*>(A + r * lda + c);
       s0 = fmaf(a.x, g[r], s0);
       s1 = fmaf(a.y, g[r], s1);
       s2 = fmaf(a.z, g[r], s2);
@@ -221,26 +271,34 @@ __device__ __forceinline__ void accum_dw(const float* A, int ld, int kin,
     if (c + 2 < kin) d[2 * HID] = o2 + s2;
     if (c + 3 < kin) d[3 * HID] = o3 + s3;
   }
+}
+
+// db[t] += sum_r g[r]
+__device__ __forceinline__ void accum_db(const float (&g)[PAIRS], float* __restrict__ db,
+                                         int t) {
   float s = 0.f;
 #pragma unroll
   for (int r = 0; r < PAIRS; ++r) s += g[r];
   db[t] += s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(HID, 1)
-mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ pos_t,
-                    const float* __restrict__ params, const float* __restrict__ params_t,
-                    const float* __restrict__ g_out, float* __restrict__ dfeat_t,
+mlp_posenc_wsum_bwd(const T* __restrict__ feat_t, const float* __restrict__ pos_t,
+                    const T* __restrict__ params, const T* __restrict__ params_t,
+                    const T* __restrict__ g_out, T* __restrict__ dfeat_t,
                     float* __restrict__ partial, float* __restrict__ scratch,
                     int inst, int m, int f_dim, int pos_rows, int n_layers,
                     int n_freqs, float freq_c0, int k, long n_params) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool BF = is_bf16<T>();
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
   const int ld1 = (d1 + 3) & ~3;
   float* h0 = smem;                  // [PAIRS][ld1] layer-1 input
   float* X = h0 + PAIRS * ld1;       // [PAIRS][HID] activation act_l
   float* Y = X + PAIRS * HID;        // [PAIRS][HID] cotangent g_l
   float* wpair = Y + PAIRS * HID;    // [PAIRS]
+  float* H = wpair + PAIRS;          // [PAIRS / k][HID] per-point w-sums (bf16)
 
   const int t = threadIdx.x;
   const int n_pts = m / k;
@@ -280,11 +338,11 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
         matmul_col(X, HID, HID, params + w_off[l], t, acc);
       }
       __syncthreads();  // every thread has read its input rows
-      const float bt = params[b_off[l] + t];
+      const float bt = ld(params + b_off[l] + t);
       float* keep = l < n_layers - 2 ? my_scratch + (long)l * PAIRS * HID : nullptr;
 #pragma unroll
       for (int r = 0; r < PAIRS; ++r) {
-        const float a = leaky(acc[r] + bt);
+        const float a = layer_out<T>(acc[r], bt, false);
         X[r * HID + t] = a;
         if (keep) keep[r * HID + t] = a;
       }
@@ -292,22 +350,62 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
     }
 
     // ---- cotangent of the last layer's output, per pair ------------------
+    const long g_row = (long)i * n_pts + r0 / k;
 #pragma unroll
     for (int r = 0; r < PAIRS; ++r) {
-      acc[r] = r0 + r < m
-          ? wpair[r] * g_out[((long)i * n_pts + (r0 + r) / k) * HID + t] : 0.f;
+      acc[r] = r0 + r < m ? wpair[r] * ld(g_out + (g_row + r / k) * HID + t) : 0.f;
     }
 
     // ---- layers L-1 .. 1: X holds act_{l-1}, acc holds g_l ---------------
     for (int l = n_layers - 1; l >= 1; --l) {
+      accum_db(acc, my_partial + b_off[l], t);
+      if (BF) {
+#pragma unroll
+        for (int r = 0; r < PAIRS; ++r) acc[r] = rnd(acc[r]);
+      }
 #pragma unroll
       for (int r = 0; r < PAIRS; ++r) Y[r * HID + t] = acc[r];
-      __syncthreads();
-      accum_dw(X, HID, HID, acc, my_partial + w_off[l], my_partial + b_off[l], t);
+      if (BF && l == n_layers - 1) {
+        // fast_last: dW_last[c][t] += sum_n bf16(sum_j w_j act[n*k+j][c]) g_out[n][t]
+        const int npts = PAIRS / k;
+        for (int q = 0; q < npts; ++q) {
+          float s = 0.f;
+          for (int j = 0; j < k; ++j)
+            s = __fadd_rn(s, __fmul_rn(X[(q * k + j) * HID + t], wpair[q * k + j]));
+          H[q * HID + t] = rnd(s);
+        }
+#pragma unroll
+        for (int q = 0; q < PAIRS; ++q) {  // acc is free until the dX product below
+          acc[q] = q < npts && r0 / k + q < n_pts ? ld(g_out + (g_row + q) * HID + t) : 0.f;
+        }
+        __syncthreads();
+        float* dW = my_partial + w_off[l];
+        for (int c = 0; c < HID; c += 4) {
+          float* d = dW + (long)c * HID + t;
+          float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+          for (int q = 0; q < PAIRS; ++q) {
+            if (q < npts) {
+              const float4 a = *reinterpret_cast<const float4*>(H + q * HID + c);
+              s0 = fmaf(a.x, acc[q], s0);
+              s1 = fmaf(a.y, acc[q], s1);
+              s2 = fmaf(a.z, acc[q], s2);
+              s3 = fmaf(a.w, acc[q], s3);
+            }
+          }
+          d[0] += s0;
+          d[HID] += s1;
+          d[2 * HID] += s2;
+          d[3 * HID] += s3;
+        }
+      } else {
+        __syncthreads();
+        accum_dw(X, HID, HID, acc, my_partial + w_off[l], t);
+      }
       matmul_col(Y, HID, HID, params_t + wt_off[l], t, acc);
 #pragma unroll
       for (int r = 0; r < PAIRS; ++r) acc[r] *= X[r * HID + t] > 0.f ? 1.f : 0.01f;
-      __syncthreads();  // X and Y are free
+      __syncthreads();  // X, Y and H are free
       if (l >= 2) {
         const float4* src =
             reinterpret_cast<const float4*>(my_scratch + (long)(l - 2) * PAIRS * HID);
@@ -317,44 +415,98 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
     }
 
     // ---- layer 0: input h0; dfeat = g_0 W_0[:F]^T -------------------------
+    accum_db(acc, my_partial + b_off[0], t);
+    if (BF) {
+#pragma unroll
+      for (int r = 0; r < PAIRS; ++r) acc[r] = rnd(acc[r]);
+    }
 #pragma unroll
     for (int r = 0; r < PAIRS; ++r) Y[r * HID + t] = acc[r];
     __syncthreads();
-    accum_dw(h0, ld1, d1, acc, my_partial + w_off[0], my_partial + b_off[0], t);
-    const float* wt0 = params_t + wt_off[0];  // [HID][d1]
+    accum_dw(h0, ld1, d1, acc, my_partial + w_off[0], t);
+    const T* wt0 = params_t + wt_off[0];  // [HID][d1]
     for (int idx = t; idx < PAIRS * f_dim; idx += HID) {
       const int r = idx / f_dim, f = idx % f_dim;
       float s = 0.f;
-      for (int c = 0; c < HID; ++c) s = fmaf(Y[r * HID + c], wt0[(long)c * d1 + f], s);
+      for (int c = 0; c < HID; ++c) s = fmaf(Y[r * HID + c], ld(wt0 + (long)c * d1 + f), s);
       X[f * PAIRS + r] = s;  // staged [f][r] for coalesced stores
     }
     __syncthreads();
-    float* df = dfeat_t + (long)i * f_dim * m;
+    T* df = dfeat_t + (long)i * f_dim * m;
     for (int idx = t; idx < PAIRS * f_dim; idx += HID) {
       const int f = idx / PAIRS, r = idx % PAIRS;
-      if (r0 + r < m) df[(long)f * m + r0 + r] = X[f * PAIRS + r];
+      if (r0 + r < m) st(df + (long)f * m + r0 + r, X[f * PAIRS + r]);
     }
     __syncthreads();  // h0, X and wpair are rebuilt by the next tile
   }
 }
 
-// out[j] = sum over blocks b (in order) of partial[b][j].
+// out[j] = sum over blocks b (in order) of partial[b][j] (rounded to T).
+template <typename T>
 __global__ void reduce_partials(const float* __restrict__ partial, int n_blocks,
-                                long n, float* __restrict__ out) {
+                                long n, T* __restrict__ out) {
   const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
-  out[j] = s;
+  st(out + j, s);
+}
+
+template <typename T>
+int launch_fwd(const void* feat_t, const void* pos_t, const void* params, void* out, int inst,
+               int m, int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0, int k,
+               void* stream) {
+  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
+  const int ld1 = (d1 + 3) & ~3;
+  const size_t smem = sizeof(float) * (PAIRS * ld1 + PAIRS * HID + PAIRS);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_posenc_wsum<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((m + PAIRS - 1) / PAIRS, inst);
+  mlp_posenc_wsum<T><<<grid, HID, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat_t), static_cast<const float*>(pos_t),
+      static_cast<const T*>(params), static_cast<T*>(out), m, f_dim,
+      pos_rows, n_layers, n_freqs, freq_c0, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* feat_t, const void* pos_t, const void* params, const void* params_t,
+               const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
+               int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs,
+               float freq_c0, int k, int n_blocks, long n_params, void* stream) {
+  if (n_layers < 2 || n_layers > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
+  const int ld1 = (d1 + 3) & ~3;
+  const int h_rows = is_bf16<T>() ? PAIRS / k : 0;
+  const size_t smem =
+      sizeof(float) * (PAIRS * ld1 + 2 * PAIRS * HID + PAIRS + h_rows * HID);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_posenc_wsum_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mlp_posenc_wsum_bwd<T><<<n_blocks, HID, smem, s>>>(
+      static_cast<const T*>(feat_t), static_cast<const float*>(pos_t),
+      static_cast<const T*>(params), static_cast<const T*>(params_t),
+      static_cast<const T*>(g_out), static_cast<T*>(dfeat_t),
+      static_cast<float*>(partial), static_cast<float*>(scratch), inst, m, f_dim,
+      pos_rows, n_layers, n_freqs, freq_c0, k, n_params);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 256;
+  reduce_partials<T><<<(int)((n_params + threads - 1) / threads), threads, 0, s>>>(
+      static_cast<const float*>(partial), n_blocks, n_params, static_cast<T*>(dparams));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// feat_t [inst, f_dim, m], pos_t [inst, pos_rows >= 4, m], out
-// [inst, m / k, 256], all f32 contiguous. params packs the layers in order
-// as W [k_in, 256] (row-major, k_in = f_dim + 3*(1 + 2*n_freqs) for the
-// first layer, 256 after) followed by b [256]. k must divide 64 and m.
-// The positional encoding is the 'anchored' method.
+// feat_t [inst, f_dim, m], pos_t [inst, pos_rows >= 4, m] (f32), out
+// [inst, m / k, 256], all contiguous; feat_t, params and out are f32
+// (fused_mlp_posenc_wsum_fwd) or bf16 (..._fwd_bf16). params packs the
+// layers in order as W [k_in, 256] (row-major, k_in = f_dim + 3*(1 +
+// 2*n_freqs) for the first layer, 256 after) followed by b [256]. k must
+// divide 64 and m. The positional encoding is the 'anchored' method.
 // Returns cudaGetLastError() after launch.
 extern "C" int fused_mlp_posenc_wsum_fwd(const void* feat_t, const void* pos_t,
                                          const void* params, void* out, int inst,
@@ -362,52 +514,43 @@ extern "C" int fused_mlp_posenc_wsum_fwd(const void* feat_t, const void* pos_t,
                                          int n_layers, int n_freqs,
                                          float freq_c0, int k,
                                          void* stream) {
-  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  const size_t smem = sizeof(float) * (PAIRS * ld1 + PAIRS * HID + PAIRS);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_posenc_wsum, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((m + PAIRS - 1) / PAIRS, inst);
-  mlp_posenc_wsum<<<grid, HID, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(feat_t), static_cast<const float*>(pos_t),
-      static_cast<const float*>(params), static_cast<float*>(out), m, f_dim,
-      pos_rows, n_layers, n_freqs, freq_c0, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<float>(feat_t, pos_t, params, out, inst, m, f_dim, pos_rows, n_layers,
+                           n_freqs, freq_c0, k, stream);
 }
 
-// Backward of fused_mlp_posenc_wsum_fwd for the same feat_t, pos_t and
-// params, with g_out [inst, m / k, 256] the output cotangent. params_t
-// packs W_l^T [256, k_in] of every layer in order (no biases). Writes
-// dfeat_t [inst, f_dim, m] and dparams (dW/db packed as params) through
-// partial [n_blocks, n_params] (zeroed by the caller) and scratch
-// [n_blocks, n_layers - 2, 64, 256]. 2 <= n_layers <= 8. Returns the first
-// CUDA error, or cudaSuccess.
+extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* pos_t,
+                                              const void* params, void* out, int inst,
+                                              int m, int f_dim, int pos_rows,
+                                              int n_layers, int n_freqs,
+                                              float freq_c0, int k,
+                                              void* stream) {
+  return launch_fwd<bf16>(feat_t, pos_t, params, out, inst, m, f_dim, pos_rows, n_layers,
+                          n_freqs, freq_c0, k, stream);
+}
+
+// Backward of fused_mlp_posenc_wsum_fwd{,_bf16} for the same feat_t, pos_t
+// and params, with g_out [inst, m / k, 256] the output cotangent (the type of
+// feat_t). params_t packs W_l^T [256, k_in] of every layer in order (no
+// biases). Writes dfeat_t [inst, f_dim, m] and dparams (dW/db packed as
+// params, the type of feat_t) through partial [n_blocks, n_params] f32
+// (zeroed by the caller) and scratch [n_blocks, n_layers - 2, 64, 256] f32.
+// 2 <= n_layers <= 8. Returns the first CUDA error, or cudaSuccess.
 extern "C" int fused_mlp_posenc_wsum_bwd(
     const void* feat_t, const void* pos_t, const void* params, const void* params_t,
     const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
     int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0,
     int k, int n_blocks, long n_params, void* stream) {
-  if (n_layers < 2 || n_layers > 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  const size_t smem = sizeof(float) * (PAIRS * ld1 + 2 * PAIRS * HID + PAIRS);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_posenc_wsum_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp_posenc_wsum_bwd<<<n_blocks, HID, smem, s>>>(
-      static_cast<const float*>(feat_t), static_cast<const float*>(pos_t),
-      static_cast<const float*>(params), static_cast<const float*>(params_t),
-      static_cast<const float*>(g_out), static_cast<float*>(dfeat_t),
-      static_cast<float*>(partial), static_cast<float*>(scratch), inst, m, f_dim,
-      pos_rows, n_layers, n_freqs, freq_c0, k, n_params);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  reduce_partials<<<(int)((n_params + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(partial), n_blocks, n_params,
-      static_cast<float*>(dparams));
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<float>(feat_t, pos_t, params, params_t, g_out, dfeat_t, dparams, partial,
+                           scratch, inst, m, f_dim, pos_rows, n_layers, n_freqs, freq_c0, k,
+                           n_blocks, n_params, stream);
 }
 
+extern "C" int fused_mlp_posenc_wsum_bwd_bf16(
+    const void* feat_t, const void* pos_t, const void* params, const void* params_t,
+    const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
+    int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0,
+    int k, int n_blocks, long n_params, void* stream) {
+  return launch_bwd<bf16>(feat_t, pos_t, params, params_t, g_out, dfeat_t, dparams, partial,
+                          scratch, inst, m, f_dim, pos_rows, n_layers, n_freqs, freq_c0, k,
+                          n_blocks, n_params, stream);
+}

@@ -1,9 +1,12 @@
 """Dense masked kNN aggregation. Port of
 npcd_tpu/models/pointnerf/aggregator.py (compact_valid_samples,
-knn_neighbors, aggregate_features through _aggregate_posenc_fused). The
-one-hot matmul gathers the TPU needed become index gathers; the per-pair
-MLP, its positional encoding and the k-neighbour weighted sum run in
-kernel K6 (ops/kernels/fused_mlp_posenc.py), forward and backward.
+knn_neighbors, aggregate_features through _aggregate_posenc_fused, and the
+training shading budget's pack_rows and gather_rows). The one-hot matmul
+gathers the TPU needed become index gathers; the per-pair MLP, its
+positional encoding and the k-neighbour weighted sum run in kernel K6
+(ops/kernels/fused_mlp_posenc.py), forward and backward, in f32 or, under
+compute_dtype bfloat16, in bf16 (kp_feat and the weights cast at use; x_rel,
+distances and the weights w stay f32).
 
 Gradient contract (npcd_tpu aggregator.py:197-211): the gradient reaches
 kp_feat (through the neighbour gather) and the MLP weights only; kp_pos,
@@ -12,7 +15,7 @@ backward is a scatter-add with atomics, so kp_feat's gradient can differ
 in its last bits from run to run."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,6 +41,46 @@ def compact_valid_samples(valid: torch.Tensor, depths: torch.Tensor,
     return depths_c[..., :m], mask[..., :m]
 
 
+def pack_rows(table: torch.Tensor, rank: torch.Tensor, cap: int) -> torch.Tensor:
+    """out[b, rank[b, n]] = table[b, n] for rank < cap: table [B, N, C], rank
+    [B, N] a permutation of 0 .. N-1 per row -> [B, cap, C]. A gather through
+    the inverse permutation, so every output row has exactly one source and
+    the backward (a scatter-add with distinct indices) is deterministic."""
+    src = torch.empty_like(rank)
+    src.scatter_(1, rank, torch.arange(rank.shape[1], device=rank.device).expand_as(rank))
+    return torch.gather(table, 1, src[:, :cap, None].expand(-1, -1, table.shape[2]))
+
+
+def gather_rows(packed: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """[B, N, C]: row n is packed[b, rank[b, n]] where rank < cap =
+    packed.shape[1], else 0 (npcd_tpu's gather_rows(packed, min(rank, cap -
+    1)) masked by rank < cap). The masked rows send exactly 0 back to the
+    row they were clamped to."""
+    cap = packed.shape[1]
+    idx = rank.clamp(max=cap - 1)[..., None].expand(-1, -1, packed.shape[2])
+    full = torch.gather(packed, 1, idx)
+    return torch.where((rank < cap)[..., None], full, torch.zeros_like(full))
+
+
+class _GatherColsBf16(torch.autograd.Function):
+    """torch.gather(table_t, 2, idx) of a bf16 table whose backward sums the
+    cotangent in f32 and rounds the table's gradient to bf16 once (npcd_tpu's
+    one-hot matmul gather), where a bf16 scatter-add would round every add."""
+
+    @staticmethod
+    def forward(ctx, table_t, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_cols = table_t.shape[2]
+        return torch.gather(table_t, 2, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dtable = g.new_zeros(g.shape[:2] + (ctx.n_cols,), dtype=torch.float32)
+        dtable.scatter_add_(2, idx, g.float())
+        return dtable.to(torch.bfloat16), None
+
+
 def knn_neighbors(shading_pts: torch.Tensor, pts_mask: torch.Tensor, kp_pos: torch.Tensor,
                   k: int, radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN indices [B, N, k] and the in-radius mask of each valid shading point."""
@@ -48,7 +91,8 @@ def knn_neighbors(shading_pts: torch.Tensor, pts_mask: torch.Tensor, kp_pos: tor
 def aggregate_features(layers: Layers, opts: AggregatorOptions,
                        shading_pts: torch.Tensor, pts_mask: torch.Tensor,
                        kp_pos: torch.Tensor, kp_feat: torch.Tensor,
-                       neighbors: Tuple[torch.Tensor, torch.Tensor]):
+                       neighbors: Tuple[torch.Tensor, torch.Tensor],
+                       compute_dtype: Optional[torch.dtype] = None):
     """shading_pts [B, N, 3], pts_mask [B, N], kp_pos [B, P, 3],
     kp_feat [B, P, F] -> (feat [B, N, out_dim], valid_pt [B, N]).
 
@@ -57,7 +101,8 @@ def aggregate_features(layers: Layers, opts: AggregatorOptions,
     mlp([feat | x_rel | posenc(x_rel)]); the point's feature is the
     w-weighted sum over its k pairs. ``neighbors``: (idx, nb_mask) [B, N, k]
     from ``knn_neighbors`` (training runs it once per step, outside its
-    recomputed chunks)."""
+    recomputed chunks). compute_dtype bfloat16: feat is bf16, and the
+    gradient reaching kp_feat and the weights is a bf16 value upcast."""
     if opts.activation != "leaky_relu":
         raise ValueError(f"the aggregation kernel applies leaky_relu; got {opts.activation!r}")
     shading_pts, kp_pos = shading_pts.detach(), kp_pos.detach()
@@ -65,8 +110,13 @@ def aggregate_features(layers: Layers, opts: AggregatorOptions,
     b, n, k = idx.shape
     flat = idx.reshape(b, 1, n * k).long()
     nb_pos_t = torch.gather(kp_pos.transpose(1, 2), 2, flat.expand(b, 3, -1))  # [B, 3, M]
-    feat_t = torch.gather(kp_feat.transpose(1, 2), 2,
-                          flat.expand(b, kp_feat.shape[-1], -1))  # [B, F, M]
+    feat_idx = flat.expand(b, kp_feat.shape[-1], -1)
+    weights = [(l["w"], l["b"]) for l in layers]
+    if compute_dtype == torch.bfloat16:
+        feat_t = _GatherColsBf16.apply(kp_feat.to(torch.bfloat16).transpose(1, 2), feat_idx)
+        weights = [(w.to(torch.bfloat16), b_.to(torch.bfloat16)) for w, b_ in weights]
+    else:
+        feat_t = torch.gather(kp_feat.transpose(1, 2), 2, feat_idx)  # [B, F, M]
     x_rel_t = (shading_pts.transpose(1, 2)[..., None]
                - nb_pos_t.reshape(b, 3, n, k)).reshape(b, 3, n * k)
     dist = torch.sqrt((x_rel_t * x_rel_t).sum(1)).reshape(b, n, k)
@@ -75,7 +125,6 @@ def aggregate_features(layers: Layers, opts: AggregatorOptions,
     w = torch.where(w_sum > 0, w / w_sum, torch.zeros_like(w))
     pos_t = torch.cat([x_rel_t, w.reshape(b, 1, n * k),
                        x_rel_t.new_zeros((b, 4, n * k))], dim=1)  # [B, 8, M]
-    feat = fused_mlp_posenc_wsum(
-        feat_t.contiguous(), pos_t, [(l["w"], l["b"]) for l in layers], k,
-        opts.n_freqs, opts.freq_mult, opts.posenc_method)
+    feat = fused_mlp_posenc_wsum(feat_t.contiguous(), pos_t, weights, k, opts.n_freqs,
+                                 opts.freq_mult, opts.posenc_method)
     return feat, pts_mask & nb_mask.any(-1)

@@ -12,6 +12,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ...ops.kernels.fused_mlp import fused_mlp
+
 Layers = List[Dict[str, torch.Tensor]]
 
 
@@ -31,8 +33,24 @@ def init_mlp(dims: Sequence[int], d_in: int, d_out: Optional[int],
 
 
 def apply_mlp(layers: Layers, x: torch.Tensor, act: str = "leaky_relu",
-              final_linear: bool = True) -> torch.Tensor:
-    """Activation after every layer except the last when final_linear."""
+              final_linear: bool = True,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Activation after every layer except the last when final_linear.
+
+    compute_dtype bfloat16 (npcd_tpu's bf16 compute, for the configs'
+    leaky-ReLU stacks with a linear last layer): x and the weights are cast
+    to bf16 and each layer is bf16(bf16(f32-accumulated h @ w) + b), through
+    kernel K7 (ops/kernels/fused_mlp.py; its plain version on the CPU). None
+    or float32: the f32 layers h @ w + b."""
+    if compute_dtype == torch.bfloat16:
+        if not (act == "leaky_relu" and final_linear):
+            raise ValueError("bf16 compute takes leaky_relu stacks with a linear last layer")
+        h = x.to(torch.bfloat16)
+        weights = [(l["w"].to(torch.bfloat16), l["b"].to(torch.bfloat16)) for l in layers]
+        out = fused_mlp(h.reshape(-1, h.shape[-1]), weights)
+        return out.reshape(*h.shape[:-1], out.shape[-1])
+    if compute_dtype not in (None, torch.float32):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if act == "leaky_relu":
         act_fn = lambda h: torch.maximum(h, 0.01 * h)
     elif act == "relu":

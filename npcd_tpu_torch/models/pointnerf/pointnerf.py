@@ -12,11 +12,14 @@ clouds. Port of npcd_tpu/models/pointnerf/pointnerf.py:
     valid sample, the kNN once for all instances, then kNN aggregation,
     field heads and ray march in chunks of ``train_instance_chunk``
     instances, recomputed in the backward pass (``torch.utils.checkpoint``)
-    when ``resolved_train_remat()`` holds.
+    when ``resolved_train_remat()`` holds; with ``shading_budget``, the valid
+    slots of each instance are packed to that fixed budget first (counting-
+    sort ranks), shaded there, and gathered back before the ray march.
 
 The sample-validity test is ``validity="knn"`` (a point within the kNN
-radius, kernel K5) or ``"voxel"`` (dilated voxel occupancy). The training
-shading budget (``render_config.shading_budget``) is not ported.
+radius, kernel K5) or ``"voxel"`` (dilated voxel occupancy).
+``compute_dtype`` bfloat16 runs the aggregation MLP (K6) and the field heads
+(K7) in bf16, in training and in ``render``; the parameters stay f32.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.knn import VoxelOccupancy, within_radius
 from ...utils.config import PointNeRFOptions, pointnerf_default_options
-from .aggregator import aggregate_features, compact_valid_samples, knn_neighbors
+from .aggregator import (aggregate_features, compact_valid_samples, gather_rows,
+                         knn_neighbors, pack_rows)
 from .embeddings import LatentTables, feats_mean_log_var_std
 from .field import field_heads
 from .math_utils import fill_invalid_ray_limits, get_ray_limits_box
@@ -41,10 +45,12 @@ from .renderer import fix_shading_depths, ray_march, sample_depths
 @dataclasses.dataclass(frozen=True)
 class PointNeRFRenderConfig:
     """Render knobs of npcd_tpu's PointNeRFRenderConfig, with the same YAML
-    ``render_config`` section. ``train_rays``, ``train_instance_chunk`` and
-    ``train_remat`` are read by ``forward`` (training); ``train_ray_chunk``
-    is kept for the YAML only (training chunks instances, as npcd_tpu's);
-    ``shading_budget`` other than None raises in training."""
+    ``render_config`` section. ``train_rays``, ``train_instance_chunk``,
+    ``shading_budget`` (the per-instance count of packed shading slots;
+    None = dense) and ``train_remat`` are read by ``forward`` (training);
+    ``train_ray_chunk`` is kept for the YAML only (training chunks
+    instances, as npcd_tpu's); ``compute_dtype`` (float32 or bfloat16) is
+    the dtype of the MLPs in training and render."""
 
     train_rays: int = 112
     train_instance_chunk: int = 50
@@ -53,12 +59,35 @@ class PointNeRFRenderConfig:
     train_ray_chunk: int = 256
     eval_ray_chunk: int = 1024
     eval_slot_block: Optional[int] = 5
+    compute_dtype: torch.dtype = torch.float32
     validity: str = "knn"
 
     def resolved_train_remat(self) -> bool:
-        """None = auto: npcd_tpu turns it on for f32 compute, the port's
-        only dtype."""
-        return True if self.train_remat is None else self.train_remat
+        """None = auto, as npcd_tpu's: off for bf16 compute, on for f32."""
+        if self.train_remat is not None:
+            return self.train_remat
+        return self.compute_dtype != torch.bfloat16
+
+
+def budget_ranks(pts_mask: torch.Tensor):
+    """The packed position of every slot of pts_mask [I, R, m] -> (rank
+    [I, R*m], a permutation of 0 .. R*m-1 per instance; n_valid [I]), by
+    npcd_tpu's counting sort (pointnerf.py:415-427): valid slots first,
+    ordered by sample index j and then ray r (a valid (r, j) lands at the
+    count of valid slots with a smaller j plus the valid rays before r at
+    j), then the invalid slots in flat order."""
+    i_dim = pts_mask.shape[0]
+    mask_i = pts_mask.long()
+    cnt_j = mask_i.sum(1)  # [I, m]
+    offset_j = torch.cumsum(cnt_j, 1) - cnt_j
+    prefix_r = torch.cumsum(mask_i, 1) - mask_i  # [I, R, m]
+    n_valid = cnt_j.sum(1)
+    inv = 1 - mask_i.reshape(i_dim, -1)
+    inv_prefix = torch.cumsum(inv, 1) - inv
+    rank = torch.where(pts_mask.reshape(i_dim, -1),
+                       (offset_j[:, None, :] + prefix_r).reshape(i_dim, -1),
+                       n_valid[:, None] + inv_prefix)
+    return rank, n_valid
 
 
 def _mlp_module(layers: Layers) -> nn.ParameterList:
@@ -87,6 +116,9 @@ class PointNeRF(nn.Module):
             ("renderer.disparity_space_sampling", o.renderer.disparity_space_sampling)) if on]
         if unported:
             raise NotImplementedError(f"options not ported yet: {unported}")
+        if self.cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                             f"{self.cfg.compute_dtype}")
         if self.cfg.validity not in ("knn", "voxel"):
             raise ValueError(f"validity must be 'knn' or 'voxel', got {self.cfg.validity!r}")
         g = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -134,14 +166,15 @@ class PointNeRF(nn.Module):
         (sigma [I, r, s], rgb [I, r, s, 3], valid [I, r, s])."""
         o = self.opts
         n_i, n_r, n_s = msk.shape
+        cd = self.cfg.compute_dtype
         feat, valid_pt = aggregate_features(
             _layers(self.local_field), o.aggregator, pts.reshape(n_i, -1, 3),
-            msk.reshape(n_i, -1), kpp, kpf, neighbors)
+            msk.reshape(n_i, -1), kpp, kpf, neighbors, cd)
         feat = feat.reshape(n_i, n_r, n_s, -1)
         valid_pt = valid_pt.reshape(n_i, n_r, n_s)
         sigma, rgb = field_heads(
             {"shape_net": _layers(self.shape_net), "channel_net": _layers(self.channel_net)},
-            o.field, feat, valid_pt)
+            o.field, feat, valid_pt, cd)
         return sigma, rgb, valid_pt
 
     def _field_chunk(self, d_c, msk, r_o, r_d, r_e, kpp, kpf):
@@ -170,6 +203,21 @@ class PointNeRF(nn.Module):
         """One chunk of instances, every slot shaded -> (mask, depth, channels)."""
         sigma, rgb, valid_pt = self._shade(pts, msk, kpp, kpf, (nb_idx, nb_mask))
         out = ray_march(sigma, fix_shading_depths(d_c, valid_pt, r_e), rgb,
+                        self.opts.renderer.white_back)
+        return out["mask"], out["depth"], out["channels"]
+
+    def _budget_chunk(self, d_c, r_e, rank, c_pts, c_mask, kpp, kpf, nb_idx, nb_mask):
+        """One chunk of instances shaded on its packed slots c_pts [I, cap, 3]
+        (mask c_mask), then gathered back to the [I, R, m] slot grid through
+        ``rank`` [I, R*m] -> (mask, depth, channels)."""
+        n_i, n_r, m = d_c.shape
+        sigma, rgb, valid_c = self._shade(c_pts[:, None], c_mask[:, None], kpp, kpf,
+                                          (nb_idx, nb_mask))
+        packed = torch.cat([sigma[:, 0, :, None], rgb[:, 0],
+                            valid_c[:, 0, :, None].to(rgb.dtype)], dim=-1)  # [I, cap, 5]
+        full = gather_rows(packed, rank).reshape(n_i, n_r, m, 5)
+        valid_f = full[..., 4] > 0.5
+        out = ray_march(full[..., 0], fix_shading_depths(d_c, valid_f, r_e), full[..., 1:4],
                         self.opts.renderer.white_back)
         return out["mask"], out["depth"], out["channels"]
 
@@ -248,18 +296,32 @@ class PointNeRF(nn.Module):
         # the kNN once for all instances, outside the recomputed chunks: its
         # indices and mask are small, re-running it in the backward is waste
         pts = rays_o[:, :, None, :] + depths_c[..., None] * rays_d[:, :, None, :]
-        nb_idx, nb_mask = self._neighbors(pts, pts_mask, kp_pos)
+        cap = self.cfg.shading_budget
+        m = pts_mask.shape[-1]
+        if cap is not None and cap < select_rays * m:
+            # pack each instance's valid slots to the fixed budget (the
+            # deepest samples drop first, evenly across rays, on overflow)
+            rank, n_valid = budget_ranks(pts_mask)
+            c_mask = torch.arange(cap, device=rank.device) < n_valid.clamp(max=cap)[:, None]
+            c_pts = pack_rows(pts.reshape(i_dim, -1, 3), rank, cap)
+            nb_idx, nb_mask = knn_neighbors(c_pts, c_mask, kp_pos, self.opts.aggregator.k,
+                                            self.opts.knn_radius)
+            chunk_fn = self._budget_chunk
+            arrays = (depths_c, ray_end, rank, c_pts, c_mask, kp_pos, kp_feat, nb_idx, nb_mask)
+        else:
+            nb_idx, nb_mask = self._neighbors(pts, pts_mask, kp_pos)
+            chunk_fn = self._train_chunk
+            arrays = (depths_c, pts_mask, pts, ray_end, kp_pos, kp_feat, nb_idx, nb_mask)
 
         ic = min(self.cfg.train_instance_chunk, i_dim)
         remat = self.cfg.resolved_train_remat()
         outs = []
         for c0 in range(0, i_dim, ic):
-            args = tuple(a[c0:c0 + ic] for a in (depths_c, pts_mask, pts, ray_end,
-                                                  kp_pos, kp_feat, nb_idx, nb_mask))
+            args = tuple(a[c0:c0 + ic] for a in arrays)
             if remat:
-                outs.append(checkpoint(self._train_chunk, *args, use_reentrant=False))
+                outs.append(checkpoint(chunk_fn, *args, use_reentrant=False))
             else:
-                outs.append(self._train_chunk(*args))
+                outs.append(chunk_fn(*args))
         mask, depth, channels = (torch.cat(c, dim=0) for c in zip(*outs))
         return {"mask": mask, "depth": depth, "channels": channels,
                 "ray_valid": pts_mask.any(-1), "sel_idx": sel_idx}
@@ -281,13 +343,11 @@ class PointNeRF(nn.Module):
         (flat pixel index of each ray) and ray_sel (its position in the pixel
         subset). The draws come from ``generator`` unless ``draws`` gives
         them: feats_eps [B, P, F] and depth_jitter [B*V, R_pre, S] in
-        [0, 1), as npcd_tpu's ``draws``. aux holds coords, feats (the means),
+        [0, 1), as npcd_tpu's ``draws``, and ray_scores [B*V, R_pre] (the
+        uniform scores whose descending order among the valid rays is the
+        selection order). aux holds coords, feats (the means),
         feats_mean, feats_log_var and feats_std [B, P, ...]."""
         o = self.opts
-        if self.cfg.shading_budget is not None:
-            raise NotImplementedError(
-                "render_config.shading_budget: the training shading budget is not ported "
-                "(ROADMAP Queue 1.2, with bf16); use shading_budget: null")
         draws = draws or {}
         b, v = extrinsics.shape[:2]
         i_dim = b * v
@@ -315,7 +375,9 @@ class PointNeRF(nn.Module):
         if jitter is None:
             jitter = torch.rand((i_dim, r_dim, o.renderer.depth_resolution),
                                 generator=generator, device=dev)
-        scores = torch.rand((i_dim, r_dim), generator=generator, device=dev)
+        scores = draws.get("ray_scores")
+        if scores is None:
+            scores = torch.rand((i_dim, r_dim), generator=generator, device=dev)
         out = self._render_core(rep(coords), rep(feats), occ, rays_o, rays_d,
                                 o.aggregator.max_shading_pts, self.cfg.eval_ray_chunk,
                                 jitter, scores, self.cfg.train_rays)

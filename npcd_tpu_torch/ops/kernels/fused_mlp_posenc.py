@@ -13,6 +13,15 @@ plain version (``fused_mlp_posenc_wsum_plain``,
 TPU kernel: feat_t [I, F, M] gathered neighbour features, pos_t [I, >=4, M]
 with x_rel on rows 0-2 and the pair weight w on row 3; pairs of one shading
 point are contiguous (pair m belongs to point m // k).
+
+Two flavours, chosen by feat_t's dtype: exact f32, and bf16 (feat_t, the
+weights, the output and the cotangent bf16; pos_t f32) with npcd_tpu's bf16
+rounding points: x and the octaves rounded to bf16 as layer 1's input, each
+layer bf16(bf16(f32 sum) + b), the w-sum in f32 and its result bf16; the
+backward keeps the cotangent chain in f32 and rounds the dW and dX operands,
+dfeat and, once at the end, dW/db to bf16, and contracts the last layer's dW
+over points (npcd_tpu's ``fast_last``). Launches count per flavour:
+``launches`` (f32) and ``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from ...models.pointnerf.nn_core import apply_mlp, positional_encoding, posenc_dim
 from . import build
+from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf16
 
 _NAME = "fused_mlp_posenc"
 HIDDEN = 256  # the kernel's layer width (one thread per output column)
@@ -43,12 +53,56 @@ def fused_mlp_posenc_wsum_plain(feat_t: torch.Tensor, pos_t: torch.Tensor,
     over the k pairs of point n, the MLP linear in its last layer and
     leaky_relu(0.01) elsewhere (nn_core.apply_mlp)."""
     inst, _, m = feat_t.shape
-    x = pos_t[:, :3].transpose(1, 2)  # [I, M, 3]
-    h = torch.cat([feat_t.transpose(1, 2),
-                   positional_encoding(x, n_freqs, freq_mult, method)], dim=-1)
+    h = _layer1_input(feat_t, pos_t, n_freqs, freq_mult, method)
+    if feat_t.dtype == torch.bfloat16:
+        out = fused_mlp_plain(h, weights).float()  # [I, M, d_out]
+        wsum = out * pos_t[:, 3, :, None]
+        return wsum.reshape(inst, m // k, k, -1).sum(2).to(torch.bfloat16)
     out = apply_mlp([{"w": w, "b": b} for w, b in weights], h)  # [I, M, d_out]
     wsum = out * pos_t[:, 3, :, None]
     return wsum.reshape(inst, m // k, k, -1).sum(2)
+
+
+def _layer1_input(feat_t: torch.Tensor, pos_t: torch.Tensor, n_freqs: int, freq_mult: float,
+                  method: str) -> torch.Tensor:
+    """[feat | x | posenc(x)] [I, M, d1] in feat_t's dtype: x and the
+    encoding are computed in f32 and cast (torch.cat would promote bf16
+    features to f32)."""
+    x = pos_t[:, :3].transpose(1, 2)  # [I, M, 3]
+    enc = positional_encoding(x, n_freqs, freq_mult, method)
+    return torch.cat([feat_t.transpose(1, 2), enc.to(feat_t.dtype)], dim=-1)
+
+
+def _bwd_plain_bf16(feat_t, pos_t, weights: Weights, g, k: int, n_freqs: int,
+                    freq_mult: float, method: str):
+    """The bf16 backward as npcd_tpu's kernel computes it (_bwd_posenc_kernel
+    with bf16 weights, need_dw=False, need_dp=False): the cotangent chain in
+    f32, gd = bf16(g) into every dW and dX product, db the f32 sum of g, and
+    the last layer's dW over points, bf16(sum_j w_j act[n*k+j])^T g_out[n]
+    (fast_last)."""
+    inst, f_dim, m = feat_t.shape
+    n_pts, n = m // k, len(weights)
+    hs = [_layer1_input(feat_t, pos_t, n_freqs, freq_mult, method).reshape(inst * m, -1)]
+    for w, b in weights[:-1]:  # each layer's bf16 input
+        hs.append(leaky_bf16(linear_bf16(hs[-1], w, b)))
+    w_pair = pos_t[:, 3].reshape(inst * m, 1)
+    g_out = g.float().reshape(inst * n_pts, -1)
+    g = g_out.repeat_interleave(k, dim=0) * w_pair  # [I*M, d_out] f32
+    dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for i in range(n - 1, -1, -1):
+        w = weights[i][0]
+        if i < n - 1:  # leaky'(z): z > 0 exactly where leaky(z) > 0
+            g = g * torch.where(hs[i + 1] > 0, 1.0, 0.01)
+        gd = g.to(torch.bfloat16).float()
+        if i == n - 1:
+            hw = (hs[i].float() * w_pair).reshape(inst * n_pts, k, -1).sum(1)
+            dw = hw.to(torch.bfloat16).float().T @ g_out
+        else:
+            dw = hs[i].float().T @ gd
+        dws.append((dw.to(torch.bfloat16), g.sum(0).to(torch.bfloat16)))
+        g = gd @ (w.float() if i else w[:f_dim].float()).T
+    dfeat_t = g.to(torch.bfloat16).reshape(inst, m, f_dim).transpose(1, 2).contiguous()
+    return dfeat_t, dws[::-1]
 
 
 def fused_mlp_posenc_wsum_bwd_plain(feat_t: torch.Tensor, pos_t: torch.Tensor,
@@ -57,7 +111,10 @@ def fused_mlp_posenc_wsum_bwd_plain(feat_t: torch.Tensor, pos_t: torch.Tensor,
                                     method: str = "anchored"):
     """The VJP of ``fused_mlp_posenc_wsum_plain`` for the output cotangent
     g [I, M // k, d_out], pos_t held constant -> (dfeat_t [I, F, M],
-    [(dW, db), ...] per layer)."""
+    [(dW, db), ...] per layer); in bf16, as the TPU kernel computes it
+    (``_bwd_plain_bf16``)."""
+    if feat_t.dtype == torch.bfloat16:
+        return _bwd_plain_bf16(feat_t, pos_t, weights, g, k, n_freqs, freq_mult, method)
     with torch.enable_grad():
         f = feat_t.detach().requires_grad_(True)
         ws = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True))
@@ -75,7 +132,15 @@ def leaky_kinks(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights, n_f
     ``delta`` of 0 (recomputed in float64). There the derivative steps from
     1 to 0.01, and two f32 forwards that differ in their last bits can take
     different slopes, so a comparison of two backwards leaves those pairs
-    out (by zeroing their weight w in pos_t)."""
+    out (by zeroing their weight w in pos_t). For bf16 feat_t, also the
+    pairs whose bf16 pre-activation can change sign with the order of an
+    f32 sum (``fused_mlp.leaky_kinks_bf16``)."""
+    if feat_t.dtype == torch.bfloat16:
+        inst, _, m = feat_t.shape
+        h = _layer1_input(feat_t, pos_t, n_freqs, freq_mult, method).reshape(inst * m, -1)
+        near = leaky_kinks_bf16(h, weights).reshape(inst, m)
+        return near | leaky_kinks(feat_t.float(), pos_t, weights, n_freqs, freq_mult, method,
+                                  delta)
     x = pos_t[:, :3].transpose(1, 2)
     h = torch.cat([feat_t.transpose(1, 2),
                    positional_encoding(x, n_freqs, freq_mult, method)], dim=-1).double()
@@ -111,29 +176,44 @@ def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int, method: st
     build.require(PAIRS_PER_BLOCK % k == 0, what, f"k must divide {PAIRS_PER_BLOCK}, got {k}")
     build.require(method == "anchored", what,
                   f"the kernel computes the 'anchored' posenc, got {method!r}")
+    dtype = feat_t.dtype
+    build.require(dtype in (torch.float32, torch.bfloat16), what,
+                  f"feat_t must be float32 or bfloat16, got {dtype}")
     for i, (w, b) in enumerate(weights):
         k_in = d1 if i == 0 else HIDDEN
         build.require(tuple(w.shape) == (k_in, HIDDEN) and tuple(b.shape) == (HIDDEN,),
                       what, f"layer {i} must be [{k_in}, {HIDDEN}] + [{HIDDEN}], got "
                             f"{tuple(w.shape)} + {tuple(b.shape)}")
-        build.require_f32_contiguous(what, aligned=False, w=w, b=b)
-    build.require_f32_contiguous(what, aligned=False, feat_t=feat_t, pos_t=pos_t)
+        build.require(w.dtype == b.dtype == dtype and w.is_contiguous() and b.is_contiguous(),
+                      what, f"layer {i} must be contiguous {dtype}, feat_t's dtype")
+    build.require(feat_t.is_contiguous(), what, "feat_t must be contiguous")
+    build.require_f32_contiguous(what, aligned=False, pos_t=pos_t)
 
 
 def _freq_c0(freq_mult: float) -> float:
     return float(np.float32(freq_mult * math.pi))
 
 
-def _lib():
-    fn = build.load(_NAME).fused_mlp_posenc_wsum_fwd
+def _suffix(dtype: torch.dtype) -> str:
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One more launch on the wrapper's counter of this flavour."""
+    name = "launches" + _suffix(dtype)
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _lib(dtype: torch.dtype):
+    fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_fwd" + _suffix(dtype))
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_lib():
-    fn = build.load(_NAME).fused_mlp_posenc_wsum_bwd
+def _bwd_lib(dtype: torch.dtype):
+    fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_bwd" + _suffix(dtype))
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -148,13 +228,13 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
     _check_kernel(what, feat_t, pos_t, weights, k, method)
     inst, f_dim, m = feat_t.shape
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
-    out = torch.empty((inst, m // k, HIDDEN), device=feat_t.device, dtype=torch.float32)
+    out = torch.empty((inst, m // k, HIDDEN), device=feat_t.device, dtype=feat_t.dtype)
     if m:
-        err = _lib()(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
-                     out.data_ptr(), inst, m, f_dim, pos_t.shape[1], len(weights),
-                     n_freqs, _freq_c0(freq_mult), k, build.stream_ptr())
+        err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
+                                 out.data_ptr(), inst, m, f_dim, pos_t.shape[1], len(weights),
+                                 n_freqs, _freq_c0(freq_mult), k, build.stream_ptr())
         build.check(err, what)
-        fused_mlp_posenc_wsum.launches += 1
+        _count(fused_mlp_posenc_wsum, feat_t.dtype)
     return out
 
 
@@ -177,8 +257,8 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                   f"the kernel takes 2 to {MAX_LAYERS} layers, got {n_layers}")
     build.require(tuple(g.shape) == (inst, m // k, HIDDEN), what,
                   f"g must be [{inst}, {m // k}, {HIDDEN}], got {tuple(g.shape)}")
-    build.require(g.device == feat_t.device, what, "g lies on another device")
-    build.require_f32_contiguous(what, aligned=False, g=g)
+    build.require(g.device == feat_t.device and g.dtype == feat_t.dtype and g.is_contiguous(),
+                  what, f"g must be a contiguous {feat_t.dtype} on feat_t's device")
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
     params_t = torch.cat([w.t().contiguous().reshape(-1) for w, _ in weights])
     dfeat_t = torch.empty_like(feat_t)
@@ -192,13 +272,13 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                               dtype=torch.float32)
         scratch = torch.empty((n_blocks * (n_layers - 2) * PAIRS_PER_BLOCK * HIDDEN,),
                               device=feat_t.device, dtype=torch.float32)
-        err = _bwd_lib()(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
+        err = _bwd_lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
                          params_t.data_ptr(), g.data_ptr(), dfeat_t.data_ptr(),
                          dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, m,
                          f_dim, pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k,
                          n_blocks, params.numel(), build.stream_ptr())
         build.check(err, what)
-        fused_mlp_posenc_wsum_bwd.launches += 1
+        _count(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
     off = 0
     for w, b in weights:
@@ -209,7 +289,7 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
     return dfeat_t, dws
 
 
-fused_mlp_posenc_wsum_bwd.launches = 0
+fused_mlp_posenc_wsum_bwd.launches = fused_mlp_posenc_wsum_bwd.launches_bf16 = 0
 
 
 class _FusedMlpPosencWsum(torch.autograd.Function):
@@ -242,4 +322,4 @@ def fused_mlp_posenc_wsum(feat_t: torch.Tensor, pos_t: torch.Tensor,
                                      *[t for wb in weights for t in wb])
 
 
-fused_mlp_posenc_wsum.launches = 0
+fused_mlp_posenc_wsum.launches = fused_mlp_posenc_wsum.launches_bf16 = 0

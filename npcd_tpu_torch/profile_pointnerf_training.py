@@ -1,20 +1,22 @@
 """Where the device time of a stage-1 training step goes, on one GPU.
 
-    python -m npcd_tpu_torch.profile_pointnerf_training
+    python -m npcd_tpu_torch.profile_pointnerf_training [--config CONFIG]
 
 Builds the trainer as ``python -m npcd_tpu_torch.train_pointnerf`` does on
-configs/npcd_srncars.yaml (B 8 objects x V 50 views, 112 rays x 128
-samples, validity 'knn', remat on, exact f32) over a seeded synthetic
-dataset of the config's 2347 clouds at 128^2 (no SRN data is in the
-repository), runs WARMUP steps, then times WINDOWS windows of STEPS steps
-each (host clock after a device synchronize: the spread between windows),
-and profiles PROFILED steps with torch.profiler: wall time, summed device
-time, device busy share and the TOP kernels by self device time. Writes
-nothing outside runs/profile_pointnerf_training. Run it from the
-repository root.
+CONFIG (default configs/npcd_srncars.yaml: B 8 objects x V 50 views, 112
+rays x 128 samples, validity 'knn', remat on, exact f32;
+configs/npcd_srncars_fast.yaml adds bf16 compute, the shading budget of
+1792 and one instance chunk, remat off) over a seeded synthetic dataset of
+the config's 2347 clouds at 128^2 (no SRN data is in the repository), runs
+WARMUP steps, then times WINDOWS windows of STEPS steps each (host clock
+after a device synchronize: the spread between windows), and profiles
+PROFILED steps with torch.profiler: wall time, summed device time, device
+busy share and the TOP kernels by self device time. Writes nothing outside
+runs/profile_pointnerf_training. Run it from the repository root.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -30,11 +32,14 @@ from .utils.config import load_config
 WARMUP, WINDOWS, STEPS, PROFILED = 2, 3, 3, 2
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default="configs/npcd_srncars.yaml")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pointnerf_training needs a GPU")
     exact_f32()
-    config = load_config("configs/npcd_srncars.yaml")
+    config = load_config(args.config)
     m = config["model"]
     model = build_pointnerf(config, torch.Generator().manual_seed(0), with_tables=True)
     dataset = SyntheticNPCTrain(n_obj=m["n_obj"], num_views=50,
@@ -53,8 +58,8 @@ def main() -> None:
             trainer.train_step(next(batches))
         torch.cuda.synchronize()
         rates.append(STEPS / (time.perf_counter() - t0))
-    print(f"[stage1 x{STEPS}] steps/s per window: " + " ".join(f"{r:.4f}" for r in rates)
-          + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[stage1 {args.config} x{STEPS}] steps/s per window: "
+          + " ".join(f"{r:.4f}" for r in rates) + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()

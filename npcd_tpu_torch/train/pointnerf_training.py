@@ -137,8 +137,8 @@ class PointNeRFTraining:
         """One step on ``batch`` {obj_idx [B], images [B, V, H*W, 3],
         intrinsics [B, V, 3, 3], extrinsics [B, V, 4, 4]}: presample ->
         forward -> loss -> backward -> Adam. ``draws`` replaces draws of this
-        step (pixel_idx, feats_eps, depth_jitter; see PointNeRF.forward).
-        Returns the metrics as device tensors (no sync)."""
+        step (pixel_idx, feats_eps, depth_jitter, ray_scores; see
+        PointNeRF.forward). Returns the metrics as device tensors (no sync)."""
         dev = self.device
         draws = dict(draws or {})
         images = np.asarray(batch["images"])

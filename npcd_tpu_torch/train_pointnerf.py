@@ -1,7 +1,10 @@
 """Stage-1 CLI: train the PointNeRF autodecoder with the PyTorch port.
 
 Port of train_pointnerf.py (same flags and config schema), plus
-``--device`` (default cuda). Runs in exact f32 (TF32 off). The final
+``--device`` (default cuda). TF32 is off; the MLPs run in the config's
+``render_config.compute_dtype`` (bfloat16 in configs/npcd_srncars_fast.yaml,
+whose SRNCarsTrain data the port does not read yet), the parameters, Adam's
+state, checkpoints and exports in f32. The final
 weights-only export, ``<output>/weights_only_checkpoints_dir/
 pointnerf-iter-<n>.npz``, is the bridged ``.npz`` that stage 2 and
 generation read:

@@ -9,6 +9,9 @@ from typing import Any, Dict
 
 from .config import PointNeRFOptions, pointnerf_default_options
 
+# the dtype names render_config.compute_dtype takes (torch's names)
+DTYPES = ("float32", "bfloat16")
+
 
 def _apply_flat_overrides(opts: PointNeRFOptions, overrides: Dict[str, Any]) -> PointNeRFOptions:
     """Route flat override keys to the sub-dataclass(es) that have them."""
@@ -46,9 +49,22 @@ def build_pointnerf(config: Dict[str, Any], generator=None, with_tables: bool = 
 
     render_config = None
     if "render_config" in config:
-        render_config = PointNeRFRenderConfig(**dict(config["render_config"]))
+        kwargs = dict(config["render_config"])
+        if "compute_dtype" in kwargs:
+            kwargs["compute_dtype"] = torch_dtype(kwargs["compute_dtype"])
+        render_config = PointNeRFRenderConfig(**kwargs)
     n_obj = config["model"]["n_obj"] if with_tables else None
     return PointNeRF(build_pointnerf_options(config), render_config, generator, n_obj)
+
+
+def torch_dtype(name: str):
+    """A YAML dtype name, "float32" or "bfloat16" -> the torch dtype; any
+    other name raises."""
+    import torch
+
+    if name not in DTYPES:
+        raise ValueError(f"compute_dtype must be one of {DTYPES}, got {name!r}")
+    return getattr(torch, name)
 
 
 def build_dataset(config: Dict[str, Any]):

@@ -8,8 +8,11 @@ dk and dv), the LayerNorm backward in both forms, and the AdamW + EMA pass
 over a length that does not fill its last block; and stage 1's: the
 minimum squared distance (bitwise equal), the aggregation MLP's backward
 (through autograd, ragged tiles, more tiles than blocks) and one stage-1
-training step on the card against the same step on the CPU. Imports no
-JAX, so it runs where the card is:
+training step on the card against the same step on the CPU; and the bf16
+kernels of the fast stage-1 config: the field heads' MLP stack forward and
+backward (K7f/K7b) and the bf16 aggregation MLP (K6f/K6b), with one fast
+(bf16, shading budget) step against the CPU. Imports no JAX, so it runs
+where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -19,11 +22,19 @@ distances 1e-6 with indices equal except at exact ties; AdamW + EMA 1e-6 of
 each buffer's scale (elementwise f32, the kernel may contract into FMAs);
 the MLP backward 1e-5 of max(1, each output's largest magnitude), with the
 pairs on a leaky_relu kink (a pre-activation within 1e-5 of 0, where an
-ulp decides the slope) given weight 0."""
+ulp decides the slope) given weight 0. The bf16 kernels against their
+plain versions (f32 sums in cuBLAS's order there): forward at least 99% of
+elements bitwise equal and each within one bf16 ulp of itself plus one of
+a quarter of the output's scale (a flipped rounding of a hidden activation
+reaches outputs that cancel); backward outputs within 1e-2 of max(1, their
+largest magnitude) (a flipped rounding of gd moves a product by an ulp,
+2**-8)."""
 import pytest
 import torch
 
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp
+from npcd_tpu_torch.ops.kernels.fused_mlp import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, \
+    fused_mlp_plain
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc_wsum,
                                                         fused_mlp_posenc_wsum_bwd,
                                                         fused_mlp_posenc_wsum_bwd_plain,
@@ -304,3 +315,138 @@ def test_stage1_kernels_refuse_what_they_do_not_build(dev):
     with pytest.raises(ValueError):
         min_d2(torch.zeros(1, 4, 3, device=dev), torch.zeros(1, 5000, 3, device=dev))
 
+
+
+def _bf16_close(got, want):
+    """At least 99% bitwise equal; each element within one bf16 ulp of itself
+    plus one of a quarter of the output's scale."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    assert float((d == 0).float().mean()) >= 0.99
+    assert bool((d <= 2 ** -7 * (want.abs() + 0.25 * float(want.abs().max()))).all())
+
+
+def _bf16_weights(dims, d_in, seed, dev):
+    layers = init_mlp(dims[:-1], d_in, dims[-1], torch.Generator().manual_seed(seed), dev)
+    return [(l["w"].bfloat16(), l["b"].bfloat16()) for l in layers]
+
+
+@pytest.mark.parametrize("dims", [(256, 1), (256, 256, 256, 256, 3), (256, 256)])
+@pytest.mark.parametrize("rows", [1000, 132 * 64 * 2 + 37])
+def test_fused_mlp_kernels(dev, dims, rows):
+    # a partial last tile; more tiles than the backward's blocks
+    g = _gen(dev, 6)
+    weights = _bf16_weights(dims, 256, 0, dev)
+    x = torch.randn(rows, 256, generator=g, device=dev).bfloat16()
+    _bf16_close(fused_mlp(x, weights), fused_mlp_plain(x, weights))
+    gy = torch.randn(rows, dims[-1], generator=g, device=dev).bfloat16()
+    dx, dws = fused_mlp_bwd(x, weights, gy)
+    dx_p, dws_p = fused_mlp_bwd_plain(x, weights, gy)
+    _close_rel(dx.float(), dx_p.float(), 1e-2)
+    for (a, b), (c, d) in zip(dws, dws_p):
+        _close_rel(a.float(), c.float(), 1e-2)
+        _close_rel(b.float(), d.float(), 1e-2)
+    again = fused_mlp_bwd(x, weights, gy)
+    assert torch.equal(again[0], dx) and all(torch.equal(a, c) for a, c in
+                                             zip(sum(again[1], ()), sum(dws, ())))
+    # through autograd: the Function's backward is the kernel
+    xr = x.clone().requires_grad_(True)
+    ws = [(a.clone().requires_grad_(True), b.clone().requires_grad_(True)) for a, b in weights]
+    launches = fused_mlp_bwd.launches
+    fused_mlp(xr, ws).backward(gy)
+    assert fused_mlp_bwd.launches == launches + 1 and torch.equal(xr.grad, dx)
+    for (a, b), (c, d) in zip(ws, dws):
+        assert torch.equal(a.grad, c) and torch.equal(b.grad, d)
+
+
+@pytest.mark.parametrize("n_pts,inst", [(13, 2), (700, 3)])
+def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst):
+    g = _gen(dev, 7)
+    k, f = 8, 32
+    weights = _bf16_weights((256,) * 5, f + 63, 0, dev)
+    m = n_pts * k
+    w = torch.rand(inst, n_pts, k, generator=g, device=dev)
+    pos_t = torch.cat([torch.rand(inst, 3, m, generator=g, device=dev) * 0.3 - 0.15,
+                       (w / w.sum(-1, keepdim=True)).reshape(inst, 1, -1),
+                       torch.zeros(inst, 4, m, device=dev)], dim=1)
+    feat_t = torch.randn(inst, f, m, generator=g, device=dev).bfloat16()
+    pos_t[:, 3][leaky_kinks(feat_t, pos_t, weights, 10)] = 0.0
+    args = (feat_t, pos_t, weights, k, 10)
+    launches = fused_mlp_posenc_wsum.launches
+    out = fused_mlp_posenc_wsum(*args)
+    assert out.dtype == torch.bfloat16 and fused_mlp_posenc_wsum.launches == launches
+    _bf16_close(out, fused_mlp_posenc_wsum_plain(*args))
+    gout = torch.randn(inst, n_pts, 256, generator=g, device=dev).bfloat16()
+    df, dws = fused_mlp_posenc_wsum_bwd(*args[:3], gout, k, 10)
+    df_p, dws_p = fused_mlp_posenc_wsum_bwd_plain(*args[:3], gout, k, 10)
+    _close_rel(df.float(), df_p.float(), 1e-2)
+    for (a, b), (c, d) in zip(dws, dws_p):
+        assert a.dtype == torch.bfloat16
+        _close_rel(a.float(), c.float(), 1e-2)
+        _close_rel(b.float(), d.float(), 1e-2)
+
+
+def test_fused_mlp_refuses_what_it_does_not_build(dev):
+    x = torch.zeros(70, 256, device=dev).bfloat16()
+    for dims in ((128, 3), (256, 2)):  # a hidden width other than 256; an output width of 2
+        with pytest.raises(ValueError):
+            fused_mlp(x, _bf16_weights(dims, 256, 0, dev))
+    with pytest.raises(ValueError):  # f32 input
+        fused_mlp(x.float(), _bf16_weights((256, 3), 256, 0, dev))
+
+
+def test_fast_stage1_step_matches_the_cpu(dev, tmp_path):
+    """One stage-1 step of the tiny config with the fast config's render
+    settings (bf16 compute, a shading budget below the valid count, remat
+    off) on the card and on the CPU from the same weights and draws: the
+    loss within 1e-3 relative, every gradient leaf within 5e-2 of its scale
+    (bf16 roundings that flip on f32 sums in another order; the feats
+    table's sums of bf16 per-pair gradients landed at 2.7e-2 on an H100),
+    parameters within 2 lr (Adam's first step is ~lr * sign(g))."""
+    import numpy as np
+
+    from npcd_tpu_torch.data import SyntheticNPCTrain
+    from npcd_tpu_torch.train import PointNeRFTraining
+    from npcd_tpu_torch.utils.builders import build_pointnerf
+    from npcd_tpu_torch.utils.config import load_config
+
+    config = load_config("configs/npcd_synthetic_tiny.yaml")
+    config["render_config"] = {**config["render_config"], "compute_dtype": "bfloat16",
+                               "shading_budget": 48, "train_instance_chunk": 8}
+    ds = SyntheticNPCTrain(**config["dataset_kwargs"])
+    src = build_pointnerf(config, torch.Generator().manual_seed(0), with_tables=True)
+    assert not src.cfg.resolved_train_remat()
+    src.set_all_coords(ds.get_all_coords())
+    with torch.no_grad():
+        src.tables.feats_table.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
+    state = {k: v.clone() for k, v in src.state_dict().items()}
+    o = src.opts
+    rng = np.random.default_rng(0)
+    batch = ds.batch([0, 3, 5, 6])
+    draws = {"pixel_idx": rng.choice(256, o.renderer.ray_subsamples, replace=False),
+             "feats_eps": rng.standard_normal((4, o.num_points, o.feat_dim), dtype=np.float32),
+             "depth_jitter": rng.uniform(size=(8, o.renderer.ray_subsamples,
+                                               o.renderer.depth_resolution)).astype(np.float32),
+             "ray_scores": rng.uniform(size=(8, o.renderer.ray_subsamples)).astype(np.float32)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        trainer = PointNeRFTraining(str(tmp_path / device),
+                                    build_pointnerf(config, with_tables=True), ds,
+                                    device=device, verbose=False,
+                                    **config["pointnerf_training"])
+        trainer.model.load_state_dict(state)
+        bf16 = (fused_mlp.launches, fused_mlp_posenc_wsum_bwd.launches_bf16)
+        loss = float(trainer.train_step(batch, draws=draws)["loss"])
+        if device == "cuda":  # the step went through the bf16 kernels
+            assert fused_mlp.launches == bf16[0] + 2
+            assert fused_mlp_posenc_wsum_bwd.launches_bf16 == bf16[1] + 1
+        named = dict(trainer.model.named_parameters())
+        out[device] = (loss, {k: p.grad.cpu() for k, p in named.items()},
+                       {k: p.detach().cpu() for k, p in named.items()})
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    assert abs(lg / lc - 1) <= 1e-3
+    for name in gc:
+        assert float(gg[name].abs().max()) > 0, name
+        scale = float(gc[name].abs().max())
+        assert float((gg[name] - gc[name]).abs().max()) <= 5e-2 * scale, name
+        assert float((pg[name] - pc[name]).abs().max()) <= 2 * 1e-3 + 1e-6, name

@@ -26,7 +26,6 @@ gradient tolerances below allow for that; the kernel tests
 backward at 1e-5.
 
 Tolerances are stated where they are used."""
-import dataclasses
 import os
 import subprocess
 import sys
@@ -374,14 +373,6 @@ def test_host_presample_draws_match_jax(tmp_path, setup):
         trainer.train_step(batch)
         trainer.model.forward = model_forward
         np.testing.assert_array_equal(seen["pixel_idx"], want)
-
-
-def test_shading_budget_is_refused(setup):
-    model = _port_model(setup)
-    model.cfg = dataclasses.replace(model.cfg, shading_budget=64)
-    batch, draws = _batch(setup, 0, seed=10)
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
-        _forward(model, batch, draws)
 
 
 def _run(args, cwd):
