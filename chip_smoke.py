@@ -67,9 +67,27 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      sample count (mean, max) and the share the budget drops;
  13. GPU vs CPU, fast stage 1: phase 10 on the fast config, the ray order
      injected so that both sides pack the same slots;
- 14. launch counts: every kernel must have launched during phase 5, 6, 9 or
-     12, each kernel of a path during that path; the bf16 launches of K6 are
-     counted apart from the f32 ones.
+ 14. kernels, bf16 stage 2, at the shapes the bf16 step (--dtype float16)
+     launches them: the LayerNorm forward with its mean/rstd and its
+     backward in both forms over [16,640, 1024] bf16, and the attention
+     forward with its log-sum-exp and its backward over qkv [32*520, 3072]
+     bf16, each against its bf16 plain version (the TPU kernels' rounding
+     points), timed, with F.layer_norm's and scaled_dot_product_attention's
+     bf16 times beside them;
+ 15. attention: ops.attention.multi_head_attention(impl="auto") forward and
+     backward over [32, 513, 16, 64] in f32 and in bf16 (the launch counts
+     of its path), then the flash attention kernels forward and backward in
+     each dtype against their plain versions, timed, with
+     scaled_dot_product_attention's time beside them;
+ 16. main path, bf16 training: phase 6 with the CLI's default --dtype
+     (float16: bf16 compute over f32 master weights, every block recomputed
+     in the backward);
+ 17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
+     card's step in f32 against the CPU's bf16 step, a control that must
+     fail at least one of the bf16 limits;
+ 18. launch counts: every kernel must have launched during phase 5, 6, 9,
+     12, 15 or 16, each kernel of a path during that path; the bf16 launches
+     of K1, K2, K6 and K8 are counted apart from the f32 ones.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -109,16 +127,21 @@ from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain  #
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (  # noqa: E402
     fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc_wsum_bwd_plain,
     fused_mlp_posenc_wsum_plain, leaky_kinks)
+from npcd_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
+from npcd_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_plain)
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (  # noqa: E402
-    fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
-    fused_qkv_attention_fwd, fused_qkv_attention_plain, split_grouped_qkv)
+    fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
+    fused_qkv_attention_bwd_bf16_plain, fused_qkv_attention_bwd_plain, fused_qkv_attention_fwd,
+    fused_qkv_attention_plain, split_grouped_qkv)
 from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain, min_d2, min_d2_plain  # noqa: E402
 from npcd_tpu_torch.ops.kernels.layer_norm import (  # noqa: E402
     layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd, layer_norm_fwd_plain,
     layer_norm_plain, layer_norm_residual, layer_norm_residual_bwd)
 from npcd_tpu_torch.train import DiffusionTraining, PointNeRFTraining  # noqa: E402
 from npcd_tpu_torch.utils.builders import (  # noqa: E402
-    build_diffusion_model, build_pointnerf, build_pointnerf_options)
+    build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
 
@@ -171,11 +194,46 @@ KERNELS = {
     "fused_mlp_posenc_wsum_bwd (bf16)": (fused_mlp_posenc_wsum_bwd, "launches_bf16", "cuda",
                                          "npcd_tpu_torch/csrc/fused_mlp_posenc.cu",
                                          "npcd_tpu/ops/pallas/fused_mlp.py:430"),
+    "fused_qkv_attention (bf16)": (fused_qkv_attention, "launches_bf16", "cuda",
+                                   "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
+                                   "npcd_tpu/ops/pallas/fused_qkv_attention.py:131"),
+    "fused_qkv_attention_bwd (bf16)": (fused_qkv_attention_bwd, "launches_bf16", "cuda",
+                                       "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
+                                       "npcd_tpu/ops/pallas/fused_qkv_attention.py:203"),
+    "layer_norm (bf16)": (layer_norm, "launches_bf16", "triton",
+                          "npcd_tpu_torch/ops/kernels/layer_norm.py",
+                          "npcd_tpu/ops/pallas/layer_norm.py:99"),
+    "layer_norm_residual (bf16)": (layer_norm_residual, "launches_bf16", "triton",
+                                   "npcd_tpu_torch/ops/kernels/layer_norm.py",
+                                   "npcd_tpu/ops/pallas/layer_norm.py:206"),
+    "layer_norm_bwd (bf16)": (layer_norm_bwd, "launches_bf16", "triton",
+                              "npcd_tpu_torch/ops/kernels/layer_norm.py",
+                              "npcd_tpu/ops/pallas/layer_norm.py:114"),
+    "layer_norm_residual_bwd (bf16)": (layer_norm_residual_bwd, "launches_bf16", "triton",
+                                       "npcd_tpu_torch/ops/kernels/layer_norm.py",
+                                       "npcd_tpu/ops/pallas/layer_norm.py:221"),
+    "flash_attention": (flash_attention, "launches", "cuda",
+                        "npcd_tpu_torch/csrc/flash_attention.cu",
+                        "npcd_tpu/ops/pallas/flash_attention.py:34"),
+    "flash_attention_bwd": (flash_attention_bwd, "launches", "cuda",
+                            "npcd_tpu_torch/csrc/flash_attention.cu",
+                            "npcd_tpu/ops/pallas/flash_attention.py:95"),
+    "flash_attention (bf16)": (flash_attention, "launches_bf16", "cuda",
+                               "npcd_tpu_torch/csrc/flash_attention.cu",
+                               "npcd_tpu/ops/pallas/flash_attention.py:34"),
+    "flash_attention_bwd (bf16)": (flash_attention_bwd, "launches_bf16", "cuda",
+                                   "npcd_tpu_torch/csrc/flash_attention.cu",
+                                   "npcd_tpu/ops/pallas/flash_attention.py:95"),
 }
 GENERATION = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
               "fused_mlp_posenc_wsum")
 TRAINING = ("fused_qkv_attention", "fused_qkv_attention_bwd", "layer_norm",
             "layer_norm_residual", "layer_norm_bwd", "layer_norm_residual_bwd", "adamw_ema")
+TRAINING_BF16 = ("fused_qkv_attention (bf16)", "fused_qkv_attention_bwd (bf16)",
+                 "layer_norm (bf16)", "layer_norm_residual (bf16)", "layer_norm_bwd (bf16)",
+                 "layer_norm_residual_bwd (bf16)", "adamw_ema")
+ATTENTION = ("flash_attention", "flash_attention_bwd", "flash_attention (bf16)",
+             "flash_attention_bwd (bf16)")
 STAGE1 = ("knn", "min_d2", "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum_bwd")
 FAST_STAGE1 = ("knn", "min_d2", "fused_mlp", "fused_mlp_bwd", "fused_mlp_posenc_wsum (bf16)",
                "fused_mlp_posenc_wsum_bwd (bf16)")
@@ -250,12 +308,16 @@ def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def _furthest(pairs) -> tuple:
+    """(max_abs_err, tol) per output -> the pair furthest past its own tol."""
+    return max(pairs, key=lambda p: p[0] / p[1])
+
+
 def _worst(triples) -> tuple:
     """(got, want, rel) per output, each output's tolerance rel x max(1,
     max|want|) -> (max_abs_err, tol) of the output furthest past its own."""
-    pairs = [(_err(got, want), rel * max(1.0, float(want.abs().max())))
-             for got, want, rel in triples]
-    return max(pairs, key=lambda p: p[0] / p[1])
+    return _furthest([(_err(got, want), rel * max(1.0, float(want.abs().max())))
+                      for got, want, rel in triples])
 
 
 def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_fn,
@@ -537,9 +599,10 @@ def _seeded_pointnerf_npz(config, path: Path) -> None:
     save_npz(str(path), flat)
 
 
-def phase_train() -> dict:
-    """python -m npcd_tpu_torch.train_diffusion's code path, full size."""
-    out = OUT / "train"
+def phase_train(dtype: str | None = "float32", tag: str = "train") -> dict:
+    """python -m npcd_tpu_torch.train_diffusion's code path, full size, with
+    ``--dtype dtype`` (None: the CLI's default, float16 = bf16 with remat)."""
+    out = OUT / tag
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     config = load_config(str(SRNCARS))
@@ -547,13 +610,14 @@ def phase_train() -> dict:
                                         log_scalars_interval=1)
     t0 = time.perf_counter()
     _seeded_pointnerf_npz(config, out / "pointnerf.npz")
-    print(f"[train] seeded latent tables {config['model']['n_obj']} x "
+    print(f"[{tag}] seeded latent tables {config['model']['n_obj']} x "
           f"{config['model']['num_points']} x (3 + {config['model']['feats_dim']}) "
           f"written in {time.perf_counter() - t0:.1f} s")
     args = train_diffusion.parse_args([
         "--config", str(SRNCARS), "--output", str(out / "run"), "--pointnerf_weights",
-        str(out / "pointnerf.npz"), "--dtype", "float32", "--device", "cuda",
-        "--no_tensorboard", "--seed", "0"])
+        str(out / "pointnerf.npz"), "--device", "cuda", "--no_tensorboard", "--seed", "0"]
+        + (["--dtype", dtype] if dtype is not None else []))
+    compute, remat = train_diffusion.DTYPES[args.dtype]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -573,44 +637,51 @@ def phase_train() -> dict:
     timed = TRAIN_STEPS - WARMUP_STEPS
     steps_s = timed / (hist[-1]["time"] - hist[WARMUP_STEPS - 1]["time"])
     n_params = trainer.flat.offsets[-1]
-    print(f"[train] denoiser {n_params / 1e6:.1f}M params, batch {trainer.batch_size}, "
+    print(f"[{tag}] denoiser {n_params / 1e6:.1f}M params, batch {trainer.batch_size}, --dtype "
+          f"{args.dtype} (compute {compute}, remat {remat}), "
           f"{TRAIN_STEPS} steps in {wall:.1f} s (with the final checkpoint and exports): "
           f"{steps_s:.4f} steps/s over steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}; "
           f"peak {peak_gib:.2f} GiB")
-    print("[train] loss " + " ".join(f"{h['loss']:.5f}" for h in hist))
-    print("[train] grad_norm " + " ".join(f"{h['grad_norm']:.5f}" for h in hist))
+    print(f"[{tag}] loss " + " ".join(f"{h['loss']:.5f}" for h in hist))
+    print(f"[{tag}] grad_norm " + " ".join(f"{h['grad_norm']:.5f}" for h in hist))
     # output_proj starts at zero: eps_hat = 0 and the first loss is
     # (mean(n_c^2) + mean(n_f^2)) / 2 over 32 x 512 x 35 normals, ~1
     if abs(hist[0]["loss"] - 1.0) > 0.05:
         raise AssertionError(f"first loss {hist[0]['loss']} is not ~1 with a zero output_proj")
 
-    fresh = DiffusionTraining(str(out / "run"), build_diffusion_model(config), trainer.dataset,
-                              device="cuda", verbose=False, **config["diffusion_training"])
+    fresh = DiffusionTraining(str(out / "run"),
+                              build_diffusion_model(config, torch_dtype(compute), remat),
+                              trainer.dataset, device="cuda", verbose=False,
+                              **config["diffusion_training"])
     a, b = trainer.state_dict(), fresh.state_dict()
     same = all(torch.equal(a[k], b[k]) for k in ("params", "mu", "nu", "emas"))
     same = same and (a["count"], a["step"]) == (b["count"], b["step"]) == (TRAIN_STEPS,) * 2
-    print(f"[train] checkpoint restored into a fresh trainer at step {fresh.step}: "
+    print(f"[{tag}] checkpoint restored into a fresh trainer at step {fresh.step}: "
           f"{'bitwise equal' if same else 'DIFFERS'}")
     if not same:
         raise AssertionError("restored train state differs from the saved one")
     del fresh, a, b
     ema_path = trainer.weights_only_paths(TRAIN_STEPS)[1]
-    npcd = NPCD.from_config(config, seed=1)
+    npcd = NPCD.from_config(config, seed=1)  # generate_samples's model: f32
     load_npz(npcd, ema_path)
     ema = trainer.flat.as_dict(trainer.emas[0].cpu())
     if not all(torch.equal(p.detach(), ema[n])
                for n, p in npcd.diffusion.denoiser.named_parameters()):
         raise AssertionError("the EMA export does not hold the trainer's EMA")
-    print(f"[train] EMA export {Path(ema_path).name} loaded through load_npz: equal")
+    print(f"[{tag}] EMA export {Path(ema_path).name} loaded through load_npz: equal")
     del trainer, npcd, ema
+    shutil.rmtree(out, ignore_errors=True)  # the 4.8 GB checkpoint
     torch.cuda.empty_cache()
     return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib}
 
 
-def phase_cpu_step() -> None:
+def phase_cpu_step(dtype: torch.dtype = torch.float32, tag: str = "gpu-vs-cpu") -> None:
     """One training step of a full-width 2-layer denoiser at batch 2 from the
     same weights and draws: the card with its kernels vs the CPU with the
-    plain versions."""
+    plain versions; in bf16 with the blocks recomputed, as --dtype float16
+    trains, and then the card's step in f32, a control that must fall past
+    the bf16 limits."""
+    bf16 = dtype == torch.bfloat16
     config = load_config(str(SRNCARS))
     m = dict(config["model"])
     kw = {k: m[k] for k in ("coords_dim", "feats_dim", "num_points", "width", "heads")}
@@ -627,9 +698,11 @@ def phase_cpu_step() -> None:
     draws = (torch.randint(0, 1000, (2,), generator=gen),
              torch.randn((2, 3, p), generator=gen), torch.randn((2, m["feats_dim"], p),
                                                                   generator=gen))
-    out, lr = {}, 7e-5
-    for dev in ("cuda", "cpu"):
-        trainer = DiffusionTraining(str(OUT / f"step_{dev}"), DiffusionModel(layers=2, **kw), ds,
+    lr = 7e-5
+
+    def step(dev: str, compute: torch.dtype) -> dict:
+        model = DiffusionModel(layers=2, dtype=compute, remat=compute == torch.bfloat16, **kw)
+        trainer = DiffusionTraining(str(OUT / f"{tag}_{dev}"), model, ds,
                                     batch_size=2, base_learning_rate=lr, weight_decay=0.01,
                                     max_iterations=1, use_ema=True,
                                     ema_params=[(1, 0.9999, 0.9999, False)], device=dev,
@@ -638,31 +711,64 @@ def phase_cpu_step() -> None:
         with torch.no_grad():
             trainer.emas.copy_(trainer.flat.params[None])
         metrics = trainer.train_step(batch, draws=tuple(t.to(dev) for t in draws))
-        out[dev] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                    "grads": {k: v.cpu() for k, v in trainer.flat.as_dict(trainer.flat.grads).items()},
-                    "params": trainer.flat.params.cpu()}
-    gpu, cpu = out["cuda"], out["cpu"]
-    loss_err = abs(gpu["loss"] / cpu["loss"] - 1)
+        return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "grads": {k: v.cpu() for k, v in trainer.flat.as_dict(trainer.flat.grads).items()},
+                "params": trainer.flat.params.cpu()}
+
+    def readings(gpu: dict, cpu: dict) -> dict:
+        """The GPU step against the CPU step: the loss's and grad_norm's
+        relative errors, the worst gradient leaf's error over its largest
+        magnitude, the updated parameters' largest difference and the share
+        of them more than 1e-6 apart."""
+        leaf = max((_err(gpu["grads"][k], g) / max(float(g.abs().max()), 1e-30), k)
+                   for k, g in cpu["grads"].items())
+        diff = (gpu["params"] - cpu["params"]).abs()
+        return {"loss": abs(gpu["loss"] / cpu["loss"] - 1),
+                "grad_norm": abs(gpu["grad_norm"] / cpu["grad_norm"] - 1),
+                "leaf": leaf[0], "leaf_name": leaf[1],
+                "param_err": float(diff.max()), "param_frac": float((diff > 1e-6).float().mean())}
+
+    def line(r: dict) -> str:
+        return (f"loss rel err {r['loss']:.2e} (tol {limits['loss']:.1e}), grad_norm rel err "
+                f"{r['grad_norm']:.2e} (tol {limits['grad_norm']:.1e}); worst gradient leaf "
+                f"{r['leaf_name']} rel err {r['leaf']:.2e} (tol {limits['leaf']:.1e}); "
+                f"updated params max_abs_err {r['param_err']:.2e} "
+                f"(tol {2 * lr + 1e-6:.1e}), {r['param_frac']:.2e} of them beyond 1e-6 "
+                f"(tol {limits['param_frac']:.1e})")
+
     # f32 sums of up to 4096 terms and the attention softmax in another
     # order (cuBLAS, the kernels) than on the CPU: every gradient leaf within
-    # 1e-4 of its largest magnitude, the loss within 1e-5 relative. The first
-    # Adam step moves each parameter by lr * sign(g): a near-zero gradient
-    # with another sign on the two sides moves it 2 lr apart, so every
-    # parameter within 2 lr + 1e-6 and all but 0.1% within 1e-6
-    worst = max((_err(gpu["grads"][k], g) / max(float(g.abs().max()), 1e-30), k)
-                for k, g in cpu["grads"].items())
+    # 1e-4 of its largest magnitude, the loss and grad_norm within 1e-5
+    # relative. The first Adam step moves each parameter by lr * sign(g): a
+    # near-zero gradient with another sign on the two sides moves it 2 lr
+    # apart, so every parameter within 2 lr + 1e-6 and all but 0.1% within
+    # 1e-6. In bf16 a rounding flips where an f32 sum runs in another order,
+    # and the sums over tokens carry it; a gradient whose terms nearly cancel
+    # may take the other sign on one side only. The bf16 limits lie between
+    # the sound step's readings on an H100 (loss 7.3e-6, grad_norm 1.2e-5,
+    # worst leaf 8.15e-3, 0.98% of the parameters) and those of a control
+    # that computes the card's step in f32 on the same inputs (loss 1.9e-5,
+    # grad_norm 1.03e-4, worst leaf 1.04e-2, 2.2%): the control must fail at
+    # least one, so that a step that quietly ran in f32 fails
+    limits = ({"loss": 1.2e-5, "grad_norm": 3.7e-5, "leaf": 9.2e-3, "param_frac": 1.5e-2}
+              if bf16 else {"loss": 1e-5, "grad_norm": 1e-5, "leaf": 1e-4, "param_frac": 1e-3})
+    past = lambda r: [k for k, v in limits.items() if r[k] > v] + (
+        ["param_err"] if r["param_err"] > 2 * lr + 1e-6 else [])
+    gpu, cpu = step("cuda", dtype), step("cpu", dtype)
     zero = [k for k, g in gpu["grads"].items() if float(g.abs().max()) == 0]
-    diff = (gpu["params"] - cpu["params"]).abs()
-    param_err, param_frac = float(diff.max()), float((diff > 1e-6).float().mean())
-    print(f"[gpu-vs-cpu] 2-layer full-width step at batch 2: loss {gpu['loss']:.6f} vs "
-          f"{cpu['loss']:.6f} (rel err {loss_err:.1e}, tol 1e-5); grad_norm "
-          f"{gpu['grad_norm']:.6f} vs {cpu['grad_norm']:.6f}; worst gradient leaf {worst[1]} "
-          f"rel err {worst[0]:.2e} (tol 1e-4) over {len(cpu['grads'])} leaves; updated "
-          f"params max_abs_err {param_err:.2e} (tol {2 * lr + 1e-6:.1e}), "
-          f"{param_frac:.1e} of them beyond 1e-6 (tol 1e-3)")
-    if (loss_err > 1e-5 or worst[0] > 1e-4 or zero or param_err > 2 * lr + 1e-6
-            or param_frac > 1e-3):
-        raise AssertionError(f"GPU and CPU training steps disagree (zero-gradient leaves {zero})")
+    sound = readings(gpu, cpu)
+    print(f"[{tag}] 2-layer full-width {str(dtype).split('.')[-1]} step at batch 2: loss "
+          f"{gpu['loss']:.6f} vs {cpu['loss']:.6f}, grad_norm {gpu['grad_norm']:.6f} vs "
+          f"{cpu['grad_norm']:.6f} over {len(cpu['grads'])} leaves: {line(sound)}")
+    if past(sound) or zero:
+        raise AssertionError(f"GPU and CPU training steps disagree: past {past(sound)}, "
+                             f"zero-gradient leaves {zero}")
+    if bf16:
+        control = readings(step("cuda", torch.float32), cpu)
+        print(f"[{tag}] control, the card's step in f32 against the CPU's in bf16: "
+              f"{line(control)}; past {past(control)}")
+        if not past(control):
+            raise AssertionError("the bf16 step's limits do not tell bf16 compute from f32")
 
 
 def _knn_check(check, name: str, xq, pts) -> None:
@@ -927,6 +1033,208 @@ def _bf16_err(got, want) -> tuple:
     return float(d.max()), 2 ** -7 * 2 * float(want.abs().max()), share
 
 
+def _bf16_grads_err(got, want) -> tuple:
+    """A bf16 backward's dq, dk and dv against the plain version's, each held
+    by ``_bf16_err`` at its own scale -> (max_abs_err, tol) of the one
+    furthest past its tolerance, and the three bitwise shares."""
+    res = [_bf16_err(a, w) for a, w in zip(got, want)]
+    err, tol = _furthest([r[:2] for r in res])
+    return err, tol, [r[2] for r in res]
+
+
+def phase_bf16_train_kernels() -> dict:
+    """The bf16 stage-2 step's kernels, K2a-d and K1f/K1b in bf16, vs their
+    bf16 plain versions at the step's shapes (batch 32 x 520 tokens, width
+    1024, 16 heads of D 64, G 2) -> {name: result}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    results = {}
+    check = lambda *a, **k: _record(results, *a, tag="kernels-bf16", peak=BF16_FLOP_S, **k)
+    b, s, h, w, valid = 32, 520, 16, 1024, 513
+    bf = torch.bfloat16
+
+    # K2a/K2b with the saved statistics, then K2c/K2d, over [32*520, 1024]
+    # in bf16 (gamma, beta f32); each side's backward reads its own forward's
+    # r, mean and rstd. r = bf16(x + delta) bitwise equal; y within one bf16
+    # ulp of itself plus one of its scale, 99% bitwise; mean and rstd (f32)
+    # within 1e-5 of max(1, their scale); dx (bf16, rounded once) within
+    # 1e-2 and the f32 dgamma/dbeta (sums over 16,640 rows) within 1e-4 of
+    # max(1, their scale)
+    x, d, gy, gr = (randn(b * s, w).to(bf) for _ in range(4))
+    gamma, beta = 1 + 0.1 * randn(w), 0.1 * randn(w)
+    n_el, rows = x.numel(), x.shape[0]
+    for name, delta in (("layer_norm", None), ("layer_norm_residual", d)):
+        fwd = lambda: layer_norm_fwd(x, gamma, beta, delta=delta)
+        fwd_plain = lambda: layer_norm_fwd_plain(x, gamma, beta, delta=delta)
+        (r_k, y_k, mean_k, rstd_k), (r_p, y_p, mean_p, rstd_p) = fwd(), fwd_plain()
+        if not torch.equal(r_k, r_p):
+            raise AssertionError(f"{name} (bf16): r differs from bf16(x + delta)")
+        y_err, y_tol, share = _bf16_err(y_k, y_p)
+        err, tol = _furthest([(y_err, y_tol),
+                              _worst([(mean_k, mean_p, 1e-5), (rstd_k, rstd_p, 1e-5)])])
+        library_fn = None
+        if delta is None:  # the library call: F.layer_norm in bf16
+            g16, b16 = gamma.to(bf), beta.to(bf)
+            library_fn = lambda: F.layer_norm(x, (w,), g16, b16, 1e-5)
+        check(f"{name} (bf16)", err, tol, fwd, fwd_plain,
+              extra=f" y bitwise share {share:.4f}, r bitwise equal",
+              flops=(8 if delta is None else 9) * n_el,
+              nbytes=2 * n_el * (2 if delta is None else 4) + 8 * rows + 8 * w,
+              library_fn=library_fn)
+        if delta is None:
+            bwd = lambda: layer_norm_bwd(x, gamma, mean_k, rstd_k, gy)
+            bwd_plain = lambda: layer_norm_bwd_plain(x, gamma, mean_p, rstd_p, gy)
+        else:
+            bwd = lambda: layer_norm_residual_bwd(r_k, gamma, mean_k, rstd_k, gr, gy)
+            bwd_plain = lambda: layer_norm_bwd_plain(r_p, gamma, mean_p, rstd_p, gy, gr)
+        got, want = bwd(), bwd_plain()
+        if got[0].dtype != bf or not torch.isfinite(got[0]).all():
+            raise AssertionError(f"{name}_bwd (bf16): dx is {got[0].dtype} or not finite")
+        err, tol = _worst([(got[0], want[0], 1e-2), (got[1], want[1], 1e-4),
+                           (got[2], want[2], 1e-4)])
+        library_fn = None
+        if delta is None:  # the library call: autograd's backward of F.layer_norm in bf16
+            xg, gg, bg = (t.clone().requires_grad_(True) for t in (x, gamma.to(bf), beta.to(bf)))
+            y_lib = F.layer_norm(xg, (w,), gg, bg, 1e-5)
+            library_fn = lambda: torch.autograd.grad(y_lib, (xg, gg, bg), gy, retain_graph=True)
+        check(f"{name}_bwd (bf16)", err, tol, bwd, bwd_plain, flops=10 * n_el,
+              nbytes=2 * n_el * (3 if delta is None else 4) + 8 * rows + 12 * w,
+              library_fn=library_fn)
+        library_fn = y_lib = None
+    del x, d, gy, gr, r_k, y_k, mean_k, rstd_k, r_p, y_p, mean_p, rstd_p, got, want
+    torch.cuda.empty_cache()
+
+    # K1f with its base-2 lse, then K1b, in bf16: qkv [32*520, 3072], G 2, 513
+    # valid keys, the cotangent zero on pad-query rows; each side's backward
+    # reads its own forward's lse. out over every row within one bf16 ulp of
+    # itself plus one of its scale, 99% bitwise; the lse (f32, ~10) within
+    # 2**-8 / ln 2 (an e whose bf16 rounding flips moves l by an ulp of e);
+    # dq, dk and dv (bf16) each as the output, at its own scale (dq and dk
+    # ~1e-2 here, so that a dropped delta term, ~5e-4, moves most of their
+    # elements off the plain version's), pad-key rows of dk/dv and pad-query
+    # rows of dq exactly 0
+    qkv = (0.5 * randn(b * s, 3 * w)).to(bf)
+    dout = randn(b * s, w).to(bf)
+    dout.reshape(b, s, w)[:, valid:] = 0
+    fargs = (qkv, h, b, s, valid, 2)
+    fwd = lambda: fused_qkv_attention_fwd(*fargs)
+    fwd_plain = lambda: fused_qkv_attention_bf16_plain(*fargs, return_lse=True)
+    (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
+    out_err, out_tol, share = _bf16_err(out_k, out_p)
+    lse_err = _err(lse_k, lse_p)
+    if out_k.dtype != bf or lse_err > 2 ** -8 / np.log(2):
+        raise AssertionError(f"fused_qkv_attention (bf16): out {out_k.dtype}, lse err {lse_err}")
+    q, k, v = _bhsd(qkv, b, s, h, 2)
+    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
+    check("fused_qkv_attention (bf16)", out_err, out_tol, fwd, fwd_plain,
+          extra=f" bitwise share {share:.4f}, lse max_abs_err {lse_err:.3e} (tol "
+                f"{2 ** -8 / np.log(2):.1e})",
+          flops=4 * b * h * s * valid * 64, nbytes=2 * (qkv.numel() + out_k.numel())
+          + 4 * lse_k.numel(),
+          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
+    del q, k, v
+    bwd = lambda: fused_qkv_attention_bwd(qkv, None, lse_k, dout, h, b, s, valid, 2)
+    bwd_plain = lambda: fused_qkv_attention_bwd_bf16_plain(qkv, lse_p, dout, h, b, s, valid, 2)
+    got, want = bwd(), bwd_plain()
+    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, 2)
+    pad_nonzero = int((dq[:, valid:] != 0).sum() + (dk[:, valid:] != 0).sum()
+                      + (dv[:, valid:] != 0).sum())
+    if got.dtype != bf or pad_nonzero or not torch.isfinite(got).all():
+        raise AssertionError(f"fused_qkv_attention_bwd (bf16): {got.dtype}, {pad_nonzero} "
+                             "nonzero pad-row dq/dk/dv values or non-finite dqkv")
+    err, tol, shares = _bf16_grads_err(
+        (dq, dk, dv), split_grouped_qkv(want.reshape(b, s, -1), h, 2))
+    q, k, v = _bhsd(qkv, b, s, h, 2, grad=True)
+    o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
+    check("fused_qkv_attention_bwd (bf16)", err, tol, bwd, bwd_plain,
+          extra=" dq/dk/dv bitwise shares " + " ".join(f"{x:.4f}" for x in shares)
+          + ", pad-row dq/dk/dv all 0", flops=10 * b * h * s * valid * 64,
+          nbytes=2 * (2 * qkv.numel() + dout.numel()) + 4 * lse_k.numel(),
+          library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
+    del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_attention() -> tuple:
+    """K8f/K8b, the flash attention over [B, S, H, D] = [32, 513, 16, 64] in
+    f32 and bf16. First the path: ops.attention.multi_head_attention(impl=
+    "auto") forward and backward under autograd in each dtype, with the
+    launch counts reset before and read after; then each kernel vs its plain
+    version, timed, with scaled_dot_product_attention's time beside it ->
+    (launches, {name: result})."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    shape = (32, 513, 16, 64)
+    b, s, h, d = shape
+    inputs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs[dtype] = [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4)]
+    torch.cuda.synchronize()
+    _reset_launches()
+    for dtype, (q, k, v, dout) in inputs.items():
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = multi_head_attention(*ts, impl="auto")
+        out.backward(dout)
+        if out.dtype != dtype or not all(torch.isfinite(t.grad).all() for t in ts):
+            raise AssertionError(f"multi_head_attention({dtype}): {out.dtype} or non-finite grads")
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    del ts, out
+
+    results = {}
+    n = b * s * h * d
+    for dtype, (q, k, v, dout) in inputs.items():
+        bf16 = dtype == torch.bfloat16
+        suffix, size = (" (bf16)", 2) if bf16 else ("", 4)
+        check = lambda *a, **kw: _record(results, *a, tag="kernels-attention",
+                                         peak=BF16_FLOP_S if bf16 else FP32_FLOP_S, **kw)
+        # f32: out within 1e-4 of max(1, its scale) and the base-e lse within
+        # 1e-5 (online softmax vs torch's, sums over 513 keys); bf16: out
+        # within one bf16 ulp of itself plus one of its scale, 99% bitwise,
+        # the lse (f32 math on the upcast inputs) within 1e-5
+        fwd = lambda: flash_attention_fwd(q, k, v)
+        fwd_plain = lambda: flash_attention_plain(q, k, v, return_lse=True)
+        (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
+        extra = ""
+        if bf16:
+            out_err, out_tol, share = _bf16_err(out_k, out_p)
+            err, tol = _furthest([(out_err, out_tol), _worst([(lse_k, lse_p, 1e-5)])])
+            extra = f" bitwise share {share:.4f}"
+        else:
+            err, tol = _worst([(out_k, out_p, 1e-4), (lse_k, lse_p, 1e-5)])
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        check(f"flash_attention{suffix}", err, tol, fwd, fwd_plain, extra=extra,
+              flops=4 * b * h * s * s * d, nbytes=size * 4 * n + 4 * b * h * s,
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        # the backward from each side's own forward (the plain version
+        # recomputes the softmax): f32 within 1e-4 of max(1, each gradient's
+        # scale); bf16 dq, dk and dv each as the bf16 output, at its own scale
+        bwd = lambda: flash_attention_bwd(q, k, v, lse_k, dout)
+        bwd_plain = lambda: flash_attention_bwd_plain(q, k, v, dout)
+        got, want = bwd(), bwd_plain()
+        if any(t.dtype != dtype or not torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"flash_attention_bwd{suffix}: wrong dtype or non-finite")
+        extra = ""
+        if bf16:
+            err, tol, shares = _bf16_grads_err(got, want)
+            extra = " dq/dk/dv bitwise shares " + " ".join(f"{x:.4f}" for x in shares)
+        else:
+            err, tol = _worst([(a, w, 1e-4) for a, w in zip(got, want)])
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl)
+        do_lib = dout.transpose(1, 2)
+        check(f"flash_attention_bwd{suffix}", err, tol, bwd, bwd_plain, extra=extra,
+              flops=10 * b * h * s * s * d, nbytes=size * 7 * n + 4 * b * h * s,
+              library_fn=lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do_lib,
+                                                     retain_graph=True))
+        del out_k, lse_k, out_p, lse_p, got, want, ql, kl, vl, o_lib, do_lib
+        torch.cuda.empty_cache()
+    return launches, results
+
+
 class _FirstObjects:
     """A dataset whose clouds (the coords table) are all of ``ds``'s and
     whose batches come from its first ``n`` objects: the stage-1 run takes
@@ -1143,12 +1451,19 @@ def main() -> None:
     results.update(_timed("kernels-train", phase_train_kernels))
     results.update(_timed("kernels-stage1", phase_stage1_kernels))
     results.update(_timed("kernels-fast", phase_fast_kernels))
+    results.update(_timed("kernels-bf16", phase_bf16_train_kernels))
+    attention_launches, attention_results = _timed("attention", phase_attention)
+    results.update(attention_results)
     paths = {"generation": (_timed("main", phase_main), GENERATION),
              "training": (_timed("train", phase_train)["launches"], TRAINING),
+             "bf16 training": (_timed("train-bf16", phase_train, None, "train-bf16")["launches"],
+                               TRAINING_BF16),
              "stage 1": (_timed("stage1", phase_stage1)["launches"], STAGE1),
              "fast stage 1": (_timed("fast-stage1", phase_stage1, FAST, "fast-stage1")["launches"],
-                              FAST_STAGE1)}
+                              FAST_STAGE1),
+             "attention": (attention_launches, ATTENTION)}
     _timed("gpu-vs-cpu", phase_cpu_step)
+    _timed("gpu-vs-cpu-bf16", phase_cpu_step, torch.bfloat16, "gpu-vs-cpu-bf16")
     _timed("gpu-vs-cpu-stage1", phase_stage1_cpu_step)
     _timed("gpu-vs-cpu-fast-stage1", phase_stage1_cpu_step, FAST, "gpu-vs-cpu-fast-stage1")
     for path, (launches, _) in paths.items():

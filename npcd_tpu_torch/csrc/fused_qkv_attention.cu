@@ -1,4 +1,4 @@
-// Fused-qkv attention, forward and backward, f32, for Hopper (sm_90a).
+// Fused-qkv attention, forward and backward, f32 and bf16, for Hopper (sm_90a).
 //
 // Replaces npcd_tpu/ops/pallas/fused_qkv_attention.py:fused_qkv_attention_2d:
 // the forward (_fwd_impl -> _fwd_kernel, K1f) and its custom_vjp backward
@@ -13,25 +13,44 @@
 // TPU kernel, and the forward writes the base-2 log-sum-exp [B, H, S] when
 // the backward needs it.
 //
-// What bounds it on the H100: at the denoiser's shapes (S 520, D 64, f32)
-// the forward is 4*S*S*D flops per (sequence, head) and the backward 14*S*S*D
-// (QK^T and dO V^T recomputed twice, then dQ, dK, dV), against a few reads
-// of the [B*S, 3W] qkv: both are compute-bound, on the f32 FMA pipes (no
-// tensor cores in the exact-f32 flavour). One (sequence, head)'s K and V in
-// f32 are 2*520*64*4 = 266 KB, above the 227 KB of shared memory a block can
-// hold, so every kernel streams tiles of the other side through shared memory
-// and keeps its own rows in registers:
+// Two flavours, one template on the IO type T: exact f32 (T = float), and
+// bf16 (T = __nv_bfloat16) with the TPU kernel's rounding points. Loads are
+// bf16, arithmetic f32 (bf16 values are held as f32, products of two are
+// exact), and values are rounded to bf16 where npcd_tpu's kernel casts:
+//   * forward: c2 = bf16(scale * log2 e) (passed in), q_s = bf16(q * c2);
+//     s = q_s . k in f32; m = the row max over all valid keys; e =
+//     bf16(exp2(s - m)); l = the f32 sum of the bf16 e (the TPU's sum-dot
+//     at D 64); out = bf16((sum_j e_j v_j) / l); lse = m + log2(l) in f32.
+//     The TPU takes m before any exponent, so the bf16 forward makes two
+//     passes over the keys (the max, then e, l and o) instead of the f32
+//     flavour's online softmax, whose running max would round e elsewhere;
+//   * backward: p = exp2(s - lse) in f32 from the same q_s; dV sums
+//     bf16(p) dO; delta = rowsum(p * dp) over the keys, as the TPU computes
+//     it (the f32 flavour's rowsum(dO * O) would read the bf16-rounded
+//     output); ds = bf16(p (dp - delta)); dQ = bf16(scale * sum ds k), dK =
+//     bf16(scale * sum ds q) with the unscaled q, dV rounded to bf16.
+//
+// What bounds it on the H100: at the denoiser's shapes (S 520, D 64) the
+// forward is 4*S*S*D flops per (sequence, head) (6*S*S*D in bf16, whose
+// first pass recomputes Q K^T) and the backward 14*S*S*D (18 in bf16, whose
+// dQ pass sweeps the keys twice), against a few reads of the [B*S, 3W] qkv:
+// both are compute-bound, on the f32 FMA pipes (no tensor cores: bf16 values
+// are multiplied in f32). One (sequence, head)'s K and V in f32 are 2*520*64*4
+// = 266 KB, above the 227 KB of shared memory a block can hold, so every
+// kernel streams tiles of the other side through shared memory (as f32) and
+// keeps its own rows in registers:
 //   * forward: one block per (sequence, head, 64-query tile), two threads per
 //     query that split the 64 head dims in interleaved float4 chunks (the
 //     pair reads 32 contiguous bytes of shared memory per load) and combine
 //     partial dot products with one shuffle per key; K/V tiles of 32 keys,
-//     online softmax (running max and sum); the 32 keys' scores are
+//     online softmax (running max and sum) in f32; the 32 keys' scores are
 //     accumulated side by side, so the FMAs form 32 independent chains.
-//   * backward, dQ: the same layout over query tiles. Each pair computes
-//     delta = rowsum(dO * O) from the saved output (the same number as the
-//     TPU kernel's rowsum(P * dP), cheaper, and memory allows keeping O),
-//     writes it for the dK/dV pass, then streams K/V tiles: p = exp2(s - lse),
-//     dp = dO . v, ds = p (dp - delta), dq += ds k.
+//   * backward, dQ: the same layout over query tiles. In f32 each pair
+//     computes delta = rowsum(dO * O) from the saved output (the same number
+//     as the TPU kernel's rowsum(P * dP), cheaper); in bf16 a first sweep
+//     over the keys sums p * dp. It writes delta for the dK/dV pass, then
+//     streams K/V tiles: p = exp2(s - lse), dp = dO . v, ds = p (dp - delta),
+//     dq += ds k.
 //   * backward, dK/dV: one block per (sequence, head, 64-key tile), two
 //     threads per key, streaming Q/dO tiles of 16 queries (all S queries, pad
 //     queries included): dv += p dO, dk += ds q.
@@ -41,8 +60,11 @@
 // computed (0 when their dO rows are 0, as in the denoiser, whose pad rows
 // are sliced off). The next weight gradient dW_qkv = X^T dqkv reads every row.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,17 +76,58 @@ constexpr int QB = 16;           // queries per shared-memory tile (dK/dV)
 constexpr int CH = D / 8;        // float4 chunks per thread: half h owns chunks 2c + h
 constexpr int THREADS = 128;     // two threads per query (or key)
 
+typedef __nv_bfloat16 bf16;
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
+
+__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// Elements [4 c4, 4 c4 + 4) of a row as f32 (16-byte loads in f32, 8-byte in
+// bf16, whose f32 value is its bits shifted up).
+__device__ __forceinline__ float4 ld4(const float* row, int c4) {
+  return reinterpret_cast<const float4*>(row)[c4];
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* row, int c4) {
+  const uint2 u = reinterpret_cast<const uint2*>(row)[c4];
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void st4(float* row, int c4, float4 v) {
+  reinterpret_cast<float4*>(row)[c4] = v;
+}
+
+__device__ __forceinline__ void st4(bf16* row, int c4, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&a);
+  u.y = *reinterpret_cast<unsigned*>(&b);
+  reinterpret_cast<uint2*>(row)[c4] = u;
+}
+
+template <typename T>
 struct Layout {
-  const float* base;  // qkv rows of this sequence
+  const T* base;      // qkv rows of this sequence
   long row_stride;    // 3W
   int col;            // this head's Q column; K at +wg, V at +2wg
   int wg;
   int w;
 };
 
-__device__ __forceinline__ Layout layout(const float* qkv, int b, int h, int seq,
-                                         int heads, int groups) {
-  Layout l;
+template <typename T>
+__device__ __forceinline__ Layout<T> layout(const T* qkv, int b, int h, int seq, int heads,
+                                            int groups) {
+  Layout<T> l;
   l.w = heads * D;
   l.wg = l.w / groups;
   const int hg = heads / groups;
@@ -88,46 +151,80 @@ __device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
   y.w = fmaf(s, x.w, y.w);
 }
 
-// Stage keys [k0, k0 + nk) of K and V into shared memory (zeros past nk).
-__device__ __forceinline__ void load_kv_tile(const Layout& l, int k0, int nk,
+// Stage keys [k0, k0 + nk) of K (and V unless vs is null) into shared memory
+// as f32 (zeros past nk).
+template <typename T>
+__device__ __forceinline__ void load_kv_tile(const Layout<T>& l, int k0, int nk,
                                              float (*ks)[D], float (*vs)[D]) {
   for (int idx = threadIdx.x; idx < KT * D / 4; idx += THREADS) {
     const int j = idx / (D / 4), c4 = idx % (D / 4);
     float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
     if (j < nk) {
-      const float* r = l.base + (long)(k0 + j) * l.row_stride + l.col;
-      kv = reinterpret_cast<const float4*>(r + l.wg)[c4];
-      vv = reinterpret_cast<const float4*>(r + 2 * l.wg)[c4];
+      const T* r = l.base + (long)(k0 + j) * l.row_stride + l.col;
+      kv = ld4(r + l.wg, c4);
+      if (vs != nullptr) vv = ld4(r + 2 * l.wg, c4);
     }
     reinterpret_cast<float4*>(&ks[j][0])[c4] = kv;
-    reinterpret_cast<float4*>(&vs[j][0])[c4] = vv;
+    if (vs != nullptr) reinterpret_cast<float4*>(&vs[j][0])[c4] = vv;
   }
 }
 
+// The 32 keys' scores of this thread's query (the pair's halves combined),
+// keys past nk at -inf.
+__device__ __forceinline__ void tile_scores(const float4 (&q)[CH], const float4* k4, int half,
+                                            int nk, float (&s)[KT]) {
+#pragma unroll
+  for (int j = 0; j < KT; ++j) s[j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) s[j] = dot4(q[c], k4[j * (D / 4) + 2 * c + half], s[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    const float sj = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 1);
+    s[j] = j < nk ? sj : -INFINITY;
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fqa_fwd(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ lse,
+fqa_fwd(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse,
         int seq, int heads, int groups, int valid_len, float scale_log2) {
+  constexpr bool BF = is_bf16<T>();
   __shared__ __align__(16) float ks[KT][D];
   __shared__ __align__(16) float vs[KT][D];
 
   const int half = threadIdx.x & 1;
   const int qi = blockIdx.x * QT + (threadIdx.x >> 1);
   const int h = blockIdx.y, b = blockIdx.z;
-  const Layout l = layout(qkv, b, h, seq, heads, groups);
+  const Layout<T> l = layout(qkv, b, h, seq, heads, groups);
 
   const bool q_ok = qi < seq;
-  const float4* qrow = reinterpret_cast<const float4*>(
-      l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col);
+  const T* qrow = l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col;
   float4 q[CH], o[CH];
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    const float4 t = qrow[2 * c + half];
-    q[c] = make_float4(t.x * scale_log2, t.y * scale_log2, t.z * scale_log2, t.w * scale_log2);
+    const float4 t = scale4(ld4(qrow, 2 * c + half), scale_log2);
+    q[c] = BF ? rnd4(t) : t;
     o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = -INFINITY, lsum = 0.f;
   const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
   const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
+
+  if constexpr (BF) {  // first pass: the row max over all valid keys
+    for (int k0 = 0; k0 < valid_len; k0 += KT) {
+      const int nk = min(KT, valid_len - k0);
+      __syncthreads();
+      load_kv_tile(l, k0, nk, ks, nullptr);
+      __syncthreads();
+      float s[KT];
+      tile_scores(q, k4, half, nk, s);
+#pragma unroll
+      for (int j = 0; j < KT; ++j) m = fmaxf(m, s[j]);
+    }
+  }
 
   for (int k0 = 0; k0 < valid_len; k0 += KT) {
     const int nk = min(KT, valid_len - k0);
@@ -136,90 +233,89 @@ fqa_fwd(const float* __restrict__ qkv, float* __restrict__ out, float* __restric
     __syncthreads();
 
     float s[KT];
+    tile_scores(q, k4, half, nk, s);
+    if constexpr (BF) {
 #pragma unroll
-    for (int j = 0; j < KT; ++j) s[j] = 0.f;
+      for (int j = 0; j < KT; ++j) {
+        const float e = rnd(exp2f(s[j] - m));  // masked keys give exp2(-inf) = 0
+        lsum += e;
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
+        for (int c = 0; c < CH; ++c) axpy4(e, v4[j * (D / 4) + 2 * c + half], o[c]);
+      }
+    } else {
+      float mt = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < KT; ++j) s[j] = dot4(q[c], k4[j * (D / 4) + 2 * c + half], s[j]);
+      for (int j = 0; j < KT; ++j) mt = fmaxf(mt, s[j]);
+      const float m_new = fmaxf(m, mt);
+      const float alpha = exp2f(m - m_new);  // 0 on the first tile
+      lsum *= alpha;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        o[c].x *= alpha; o[c].y *= alpha; o[c].z *= alpha; o[c].w *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float p = exp2f(s[j] - m_new);  // masked keys give exp2(-inf) = 0
+        lsum += p;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) axpy4(p, v4[j * (D / 4) + 2 * c + half], o[c]);
+      }
+      m = m_new;
     }
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float sj = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 1);
-      s[j] = j < nk ? sj : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = exp2f(m - m_new);  // 0 on the first tile
-    lsum *= alpha;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      o[c].x *= alpha; o[c].y *= alpha; o[c].z *= alpha; o[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float p = exp2f(s[j] - m_new);  // masked keys give exp2(-inf) = 0
-      lsum += p;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(p, v4[j * (D / 4) + 2 * c + half], o[c]);
-    }
-    m = m_new;
   }
 
   if (q_ok) {
+    T* orow = out + ((long)b * seq + qi) * l.w + h * D;
     const float inv = 1.f / lsum;
-    float4* orow = reinterpret_cast<float4*>(out + ((long)b * seq + qi) * l.w + h * D);
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
-      orow[2 * c + half] = make_float4(o[c].x * inv, o[c].y * inv, o[c].z * inv, o[c].w * inv);
+    for (int c = 0; c < CH; ++c) {
+      if constexpr (BF)  // o / l, rounded once
+        st4(orow, 2 * c + half, make_float4(o[c].x / lsum, o[c].y / lsum, o[c].z / lsum,
+                                            o[c].w / lsum));
+      else
+        st4(orow, 2 * c + half, scale4(o[c], inv));
+    }
     if (lse != nullptr && half == 0) lse[((long)b * heads + h) * seq + qi] = m + log2f(lsum);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fqa_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ out,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           float* __restrict__ delta, float* __restrict__ dqkv, int seq, int heads,
+fqa_bwd_dq(const T* __restrict__ qkv, const T* __restrict__ out,
+           const T* __restrict__ dout, const float* __restrict__ lse,
+           float* __restrict__ delta, T* __restrict__ dqkv, int seq, int heads,
            int groups, int valid_len, float scale_log2, float scale) {
+  constexpr bool BF = is_bf16<T>();
   __shared__ __align__(16) float ks[KT][D];
   __shared__ __align__(16) float vs[KT][D];
 
   const int half = threadIdx.x & 1;
   const int qi = blockIdx.x * QT + (threadIdx.x >> 1);
   const int h = blockIdx.y, b = blockIdx.z;
-  const Layout l = layout(qkv, b, h, seq, heads, groups);
+  const Layout<T> l = layout(qkv, b, h, seq, heads, groups);
 
   const bool q_ok = qi < seq;
   const long row = (long)b * seq + (q_ok ? qi : 0);
-  const float4* qrow = reinterpret_cast<const float4*>(
-      l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col);
-  const float4* grow = reinterpret_cast<const float4*>(dout + row * l.w + h * D);
-  const float4* orow = reinterpret_cast<const float4*>(out + row * l.w + h * D);
+  const T* qrow = l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col;
+  const T* grow = dout + row * l.w + h * D;
   float4 q[CH], g[CH], dq[CH];
   float dl = 0.f;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    const float4 t = qrow[2 * c + half];
-    q[c] = make_float4(t.x * scale_log2, t.y * scale_log2, t.z * scale_log2, t.w * scale_log2);
-    g[c] = grow[2 * c + half];
-    dl = dot4(g[c], orow[2 * c + half], dl);
+    const float4 t = scale4(ld4(qrow, 2 * c + half), scale_log2);
+    q[c] = BF ? rnd4(t) : t;
+    g[c] = ld4(grow, 2 * c + half);
+    if constexpr (!BF) dl = dot4(g[c], ld4(out + row * l.w + h * D, 2 * c + half), dl);
     dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+  if constexpr (!BF) dl += __shfl_xor_sync(0xffffffffu, dl, 1);
   const long stat = ((long)b * heads + h) * seq + qi;
   const float lse_i = q_ok ? lse[stat] : INFINITY;  // rows past seq: p = 0
-  if (q_ok && half == 0) delta[stat] = dl;
   const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
   const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
 
-  for (int k0 = 0; k0 < valid_len; k0 += KT) {
-    const int nk = min(KT, valid_len - k0);
-    __syncthreads();
-    load_kv_tile(l, k0, nk, ks, vs);
-    __syncthreads();
-
-    float s[KT], dp[KT];
+  // s = q . k (the pair's halves combined) and dp = dO . v for a tile
+  auto scores = [&](int nk, float (&s)[KT], float (&dp)[KT]) {
 #pragma unroll
     for (int j = 0; j < KT; ++j) s[j] = dp[j] = 0.f;
 #pragma unroll
@@ -233,53 +329,83 @@ fqa_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       const float sj = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 1);
-      const float dpj = dp[j] + __shfl_xor_sync(0xffffffffu, dp[j], 1);
-      const float p = j < nk ? exp2f(sj - lse_i) : 0.f;
-      s[j] = p * (dpj - dl);  // ds
+      dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], 1);
+      s[j] = j < nk ? exp2f(sj - lse_i) : 0.f;  // p
+    }
+  };
+
+  if constexpr (BF) {  // first sweep: delta = rowsum(p * dp), the TPU kernel's formula
+    for (int k0 = 0; k0 < valid_len; k0 += KT) {
+      const int nk = min(KT, valid_len - k0);
+      __syncthreads();
+      load_kv_tile(l, k0, nk, ks, vs);
+      __syncthreads();
+      float p[KT], dp[KT];
+      scores(nk, p, dp);
+#pragma unroll
+      for (int j = 0; j < KT; ++j) dl = fmaf(p[j], dp[j], dl);
+    }
+  }
+  if (q_ok && half == 0) delta[stat] = dl;
+
+  for (int k0 = 0; k0 < valid_len; k0 += KT) {
+    const int nk = min(KT, valid_len - k0);
+    __syncthreads();
+    load_kv_tile(l, k0, nk, ks, vs);
+    __syncthreads();
+
+    float p[KT], dp[KT];
+    scores(nk, p, dp);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const float ds = p[j] * (dp[j] - dl);
+      p[j] = BF ? rnd(ds) : ds;
     }
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(s[j], k4[j * (D / 4) + 2 * c + half], dq[c]);
+      for (int c = 0; c < CH; ++c) axpy4(p[j], k4[j * (D / 4) + 2 * c + half], dq[c]);
     }
   }
 
   if (q_ok) {
-    float4* drow = reinterpret_cast<float4*>(dqkv + row * l.row_stride + l.col);
+    T* drow = dqkv + row * l.row_stride + l.col;
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
-      drow[2 * c + half] = make_float4(dq[c].x * scale, dq[c].y * scale, dq[c].z * scale,
-                                       dq[c].w * scale);
+    for (int c = 0; c < CH; ++c) st4(drow, 2 * c + half, scale4(dq[c], scale));
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fqa_bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
+fqa_bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dqkv, int seq, int heads, int groups, int valid_len,
+             T* __restrict__ dqkv, int seq, int heads, int groups, int valid_len,
              float scale_log2, float scale) {
+  constexpr bool BF = is_bf16<T>();
+  // f32: qs holds q and the scale multiplies the score; bf16: qs holds
+  // bf16(q * c2) for the score and qr the unscaled q for dk
   __shared__ __align__(16) float qs[QB][D];
+  __shared__ __align__(16) float qr[BF ? QB : 1][D];
   __shared__ __align__(16) float gs[QB][D];
   __shared__ float lses[QB], dls[QB];
 
   const int half = threadIdx.x & 1;
   const int kj = blockIdx.x * KB + (threadIdx.x >> 1);
   const int h = blockIdx.y, b = blockIdx.z;
-  const Layout l = layout(qkv, b, h, seq, heads, groups);
+  const Layout<T> l = layout(qkv, b, h, seq, heads, groups);
   const long stat0 = ((long)b * heads + h) * seq;
 
   const bool k_ok = kj < valid_len;  // a real key; pad keys get dk = dv = 0
-  const float* krow = l.base + (long)(k_ok ? kj : 0) * l.row_stride + l.col;
-  const float4* k4g = reinterpret_cast<const float4*>(krow + l.wg);
-  const float4* v4g = reinterpret_cast<const float4*>(krow + 2 * l.wg);
+  const T* krow = l.base + (long)(k_ok ? kj : 0) * l.row_stride + l.col;
   float4 k[CH], v[CH], dk[CH], dv[CH];
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    k[c] = k4g[2 * c + half];
-    v[c] = v4g[2 * c + half];
+    k[c] = ld4(krow + l.wg, 2 * c + half);
+    v[c] = ld4(krow + 2 * l.wg, 2 * c + half);
     dk[c] = dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const float4* q4 = reinterpret_cast<const float4*>(&qs[0][0]);
+  const float4* r4 = reinterpret_cast<const float4*>(BF ? &qr[0][0] : &qs[0][0]);
   const float4* g4 = reinterpret_cast<const float4*>(&gs[0][0]);
 
   if (blockIdx.x * KB < valid_len) {  // uniform over the block
@@ -291,8 +417,12 @@ fqa_bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
         float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), gv = qv;
         if (i < nq) {
           const long r = (long)b * seq + q0 + i;
-          qv = reinterpret_cast<const float4*>(l.base + (long)(q0 + i) * l.row_stride + l.col)[c4];
-          gv = reinterpret_cast<const float4*>(dout + r * l.w + h * D)[c4];
+          qv = ld4(l.base + (long)(q0 + i) * l.row_stride + l.col, c4);
+          gv = ld4(dout + r * l.w + h * D, c4);
+        }
+        if constexpr (BF) {
+          reinterpret_cast<float4*>(&qr[i][0])[c4] = qv;
+          qv = rnd4(scale4(qv, scale_log2));
         }
         reinterpret_cast<float4*>(&qs[i][0])[c4] = qv;
         reinterpret_cast<float4*>(&gs[i][0])[c4] = gv;
@@ -317,18 +447,20 @@ fqa_bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
       }
 #pragma unroll
       for (int i = 0; i < QB; ++i) {
-        const float si = (s[i] + __shfl_xor_sync(0xffffffffu, s[i], 1)) * scale_log2;
+        float si = s[i] + __shfl_xor_sync(0xffffffffu, s[i], 1);
+        if constexpr (!BF) si *= scale_log2;
         const float dpi = dp[i] + __shfl_xor_sync(0xffffffffu, dp[i], 1);
         const float p = exp2f(si - lses[i]);
-        s[i] = p;
-        dp[i] = p * (dpi - dls[i]);  // ds
+        const float ds = p * (dpi - dls[i]);
+        s[i] = BF ? rnd(p) : p;
+        dp[i] = BF ? rnd(ds) : ds;
       }
 #pragma unroll
       for (int i = 0; i < QB; ++i) {
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
           axpy4(s[i], g4[i * (D / 4) + 2 * c + half], dv[c]);
-          axpy4(dp[i], q4[i * (D / 4) + 2 * c + half], dk[c]);
+          axpy4(dp[i], r4[i * (D / 4) + 2 * c + half], dk[c]);
         }
       }
     }
@@ -336,31 +468,64 @@ fqa_bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
 
   if (kj < seq) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float* drow = dqkv + ((long)b * seq + kj) * l.row_stride + l.col;
-    float4* dk4 = reinterpret_cast<float4*>(drow + l.wg);
-    float4* dv4 = reinterpret_cast<float4*>(drow + 2 * l.wg);
+    T* drow = dqkv + ((long)b * seq + kj) * l.row_stride + l.col;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      dk4[2 * c + half] = k_ok ? make_float4(dk[c].x * scale, dk[c].y * scale,
-                                             dk[c].z * scale, dk[c].w * scale) : zero;
-      dv4[2 * c + half] = k_ok ? dv[c] : zero;
+      st4(drow + l.wg, 2 * c + half, k_ok ? scale4(dk[c], scale) : zero);
+      st4(drow + 2 * l.wg, 2 * c + half, k_ok ? dv[c] : zero);
     }
   }
+}
+
+template <typename T>
+int launch_fwd(const void* qkv, void* out, void* lse, int batch, int seq, int heads, int groups,
+               int valid_len, float scale_log2, void* stream) {
+  dim3 grid((seq + QT - 1) / QT, heads, batch);
+  fqa_fwd<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), static_cast<float*>(lse),
+      seq, heads, groups, valid_len, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* qkv, const void* out, const void* dout, const void* lse, void* delta,
+               void* dqkv, int batch, int seq, int heads, int groups, int valid_len,
+               float scale_log2, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid_q((seq + QT - 1) / QT, heads, batch);
+  fqa_bwd_dq<T><<<grid_q, THREADS, 0, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(out), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dqkv), seq,
+      heads, groups, valid_len, scale_log2, scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  dim3 grid_k((seq + KB - 1) / KB, heads, batch);
+  fqa_bwd_dkdv<T><<<grid_k, THREADS, 0, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dqkv), seq, heads, groups, valid_len,
+      scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // qkv [batch*seq, 3*heads*64] f32, out [batch*seq, heads*64] f32, lse
 // [batch, heads, seq] f32 or null; all contiguous and 16-byte aligned.
-// Returns cudaGetLastError() after launch.
+// scale_log2 = log2(e) / sqrt(64). Returns cudaGetLastError() after launch.
 extern "C" int fused_qkv_attention_fwd(const void* qkv, void* out, void* lse, int batch,
                                        int seq, int heads, int groups, int valid_len,
                                        float scale_log2, void* stream) {
-  dim3 grid((seq + QT - 1) / QT, heads, batch);
-  fqa_fwd<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse),
-      seq, heads, groups, valid_len, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<float>(qkv, out, lse, batch, seq, heads, groups, valid_len, scale_log2,
+                           stream);
+}
+
+// The same with qkv and out in bf16 (lse f32); scale_log2 = c2, the bf16
+// value of log2(e) / sqrt(64).
+extern "C" int fused_qkv_attention_fwd_bf16(const void* qkv, void* out, void* lse, int batch,
+                                            int seq, int heads, int groups, int valid_len,
+                                            float scale_log2, void* stream) {
+  return launch_fwd<bf16>(qkv, out, lse, batch, seq, heads, groups, valid_len, scale_log2,
+                          stream);
 }
 
 // The backward: qkv, out and lse as saved by the forward, dout [batch*seq,
@@ -371,19 +536,16 @@ extern "C" int fused_qkv_attention_bwd(const void* qkv, const void* out, const v
                                        const void* lse, void* delta, void* dqkv, int batch,
                                        int seq, int heads, int groups, int valid_len,
                                        float scale_log2, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_q((seq + QT - 1) / QT, heads, batch);
-  fqa_bwd_dq<<<grid_q, THREADS, 0, s>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(out),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<float*>(dqkv), seq, heads, groups, valid_len,
-      scale_log2, scale);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  dim3 grid_k((seq + KB - 1) / KB, heads, batch);
-  fqa_bwd_dkdv<<<grid_k, THREADS, 0, s>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dqkv), seq, heads, groups, valid_len, scale_log2, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<float>(qkv, out, dout, lse, delta, dqkv, batch, seq, heads, groups,
+                           valid_len, scale_log2, scale, stream);
+}
+
+// The same in bf16 (qkv, dout, dqkv bf16; lse, delta f32); out is not read
+// (delta = rowsum(p * dp)) and may be null.
+extern "C" int fused_qkv_attention_bwd_bf16(const void* qkv, const void* out, const void* dout,
+                                            const void* lse, void* delta, void* dqkv, int batch,
+                                            int seq, int heads, int groups, int valid_len,
+                                            float scale_log2, float scale, void* stream) {
+  return launch_bwd<bf16>(qkv, out, dout, lse, delta, dqkv, batch, seq, heads, groups,
+                          valid_len, scale_log2, scale, stream);
 }

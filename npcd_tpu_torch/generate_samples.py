@@ -51,9 +51,11 @@ def parse_args(argv=None):
 
 
 def exact_f32() -> None:
-    """The 'highest' numerics of record: no TF32 anywhere."""
+    """The 'highest' numerics of record: no TF32 anywhere, and bf16 GEMMs
+    reduce in f32 (as XLA's bf16 dots accumulate)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _device(name: str) -> torch.device:

@@ -39,11 +39,15 @@ class DiffusionState:
 class DiffusionModel(nn.Module):
     def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
                  width: int = 1024, layers: int = 24, heads: int = 16,
-                 qkv_groups: Optional[int] = None):
+                 qkv_groups: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
+        """``dtype`` (float32 or bfloat16) and ``remat`` are the denoiser's
+        (models/diffusion/transformer.py); the parameters are f32 in either
+        dtype."""
         super().__init__()
         self.coords_dim, self.feats_dim, self.num_points = coords_dim, feats_dim, num_points
         self.denoiser = NPCDTransformer(coords_dim, feats_dim, num_points, width, layers,
-                                        heads, qkv_groups)
+                                        heads, qkv_groups, dtype, remat)
         self.process = GaussianDiffusion()
 
     def fit_normalizers(self, all_coords, all_feats) -> DiffusionState:

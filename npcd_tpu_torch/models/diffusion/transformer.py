@@ -10,6 +10,18 @@ mlp.c_proj}, ln_post, output_proj) so utils/from_jax.py maps one onto the
 other. c_qkv's output channels keep npcd_tpu's grouped [Q|K|V] order.
 LayerNorms run through kernel K2 and attention through kernel K1, forward
 and, under autograd, backward (their wrappers' autograd Functions).
+
+``dtype`` is the compute dtype, float32 or bfloat16, as npcd_tpu's
+``NPCDTransformer.dtype``: the parameters stay f32 and are cast at use. In
+bf16 every dense layer but output_proj follows flax's nn.Dense,
+bf16(bf16(x) @ bf16(W)) + bf16(b) with one rounding after the product and
+one after the bias; the input, the timestep embedding and the pad zeros are
+bf16, the residual stream and every sublayer's input bf16 (K1 and K2 run
+their bf16 flavours), and ln_post's output goes to output_proj in f32.
+The blocks' GELU takes the tanh form in bf16 and the exact (erf) form in
+f32, npcd_tpu's gelu="auto"; time_embed keeps erf. ``remat`` recomputes
+each whole block in the backward (torch.utils.checkpoint), so K1's and K2's
+forwards run again there.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import default_qkv_groups, fused_qkv_attention
 from ...ops.kernels.layer_norm import layer_norm, layer_norm_residual
@@ -52,26 +65,44 @@ class FusedLayerNorm(nn.Module):
         return layer_norm_residual(x, delta, self.weight, self.bias, self.eps)
 
 
-class TransformerMLP(nn.Module):
-    """4x MLP with the exact (erf) GELU, npcd_tpu's choice for f32 compute
-    (its bf16 flavour takes the tanh form; the port is f32 only so far)."""
+class Dense(nn.Linear):
+    """nn.Linear with a compute dtype: f32 as nn.Linear; bf16 as flax's
+    nn.Dense(dtype=bfloat16) over f32 parameters, bf16(bf16(x) @ bf16(W))
+    + bf16(b), the product and the sum each rounded to bf16."""
 
-    def __init__(self, width: int):
-        super().__init__()
-        self.c_fc = nn.Linear(width, 4 * width)
-        self.c_proj = nn.Linear(4 * width, width)
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x)))
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class TransformerMLP(nn.Module):
+    """4x MLP with the exact (erf) GELU, or its tanh form."""
+
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32, tanh: bool = False):
+        super().__init__()
+        self.c_fc = Dense(width, 4 * width, dtype)
+        self.c_proj = Dense(4 * width, width, dtype)
+        self.approximate = "tanh" if tanh else "none"
+
+    def forward(self, x):
+        return self.c_proj(F.gelu(self.c_fc(x), approximate=self.approximate))
 
 
 class MultiheadAttention(nn.Module):
     """Attention over 2D token matrices [N*seq, W] (rows batch-major)."""
 
-    def __init__(self, width: int, heads: int, seq: int, valid_len: int, qkv_groups: int):
+    def __init__(self, width: int, heads: int, seq: int, valid_len: int, qkv_groups: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c_qkv = nn.Linear(width, 3 * width)
-        self.c_proj = nn.Linear(width, width)
+        self.c_qkv = Dense(width, 3 * width, dtype)
+        self.c_proj = Dense(width, width, dtype)
         self.heads, self.seq, self.valid_len, self.qkv_groups = heads, seq, valid_len, qkv_groups
 
     def forward(self, x):
@@ -86,12 +117,12 @@ class ResidualAttentionBlock(nn.Module):
     pending is the previous sublayer's un-added output, and returns
     (x', mlp_out) with the MLP output left pending for the next LayerNorm."""
 
-    def __init__(self, width, heads, seq, valid_len, qkv_groups):
+    def __init__(self, width, heads, seq, valid_len, qkv_groups, dtype=torch.float32):
         super().__init__()
         self.ln_1 = FusedLayerNorm(width)
-        self.attn = MultiheadAttention(width, heads, seq, valid_len, qkv_groups)
+        self.attn = MultiheadAttention(width, heads, seq, valid_len, qkv_groups, dtype)
         self.ln_2 = FusedLayerNorm(width)
-        self.mlp = TransformerMLP(width)
+        self.mlp = TransformerMLP(width, dtype, tanh=dtype == torch.bfloat16)
 
     def forward(self, x, pending=None):
         if pending is None:
@@ -108,19 +139,23 @@ class NPCDTransformer(nn.Module):
 
     def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
                  width: int = 1024, layers: int = 24, heads: int = 16,
-                 qkv_groups: Optional[int] = None):
+                 qkv_groups: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.coords_dim, self.feats_dim, self.width = coords_dim, feats_dim, width
+        self.dtype, self.remat = dtype, remat
         self.qkv_groups = (qkv_groups if qkv_groups is not None
                            else default_qkv_groups(heads, width // heads))
         self.valid = num_points + 1  # points + the time token
         self.seq = -(-self.valid // 8) * 8
         in_ch = coords_dim + feats_dim
-        self.input_proj = nn.Linear(in_ch, width)
-        self.time_embed = TransformerMLP(width)
+        self.input_proj = Dense(in_ch, width, dtype)
+        self.time_embed = TransformerMLP(width, dtype)
         self.ln_pre = FusedLayerNorm(width)
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, self.seq, self.valid, self.qkv_groups)
+            ResidualAttentionBlock(width, heads, self.seq, self.valid, self.qkv_groups, dtype)
             for _ in range(layers))
         self.ln_post = FusedLayerNorm(width)
         self.output_proj = nn.Linear(width, in_ch)
@@ -155,9 +190,10 @@ class NPCDTransformer(nn.Module):
 
     def forward(self, coords: torch.Tensor, feats: torch.Tensor, t: torch.Tensor):
         n, _, p = coords.shape
+        dt = self.dtype
         x = torch.cat([coords, feats], dim=1)  # [N, C, P]
-        h = self.input_proj(x.transpose(1, 2).reshape(n * p, -1))
-        t_embed = self.time_embed(timestep_embedding(t, self.width))  # [N, W]
+        h = self.input_proj(x.transpose(1, 2).to(dt).reshape(n * p, -1))
+        t_embed = self.time_embed(timestep_embedding(t, self.width).to(dt))  # [N, W]
         parts = [t_embed[:, None, :], h.reshape(n, p, self.width)]
         if self.seq != self.valid:
             parts.append(h.new_zeros((n, self.seq - self.valid, self.width)))
@@ -165,8 +201,11 @@ class NPCDTransformer(nn.Module):
         h = self.ln_pre(h)
         pending = None
         for block in self.resblocks:
-            h, pending = block(h, pending)
+            if self.remat and torch.is_grad_enabled():
+                h, pending = checkpoint(block, h, pending, use_reentrant=False)
+            else:
+                h, pending = block(h, pending)
         _, h = self.ln_post(h, pending)
-        h = self.output_proj(h).reshape(n, self.seq, -1)[:, 1:self.valid]
+        h = self.output_proj(h.float()).reshape(n, self.seq, -1)[:, 1:self.valid]
         pred = h.transpose(1, 2)  # [N, C, P]
         return pred[:, :self.coords_dim], pred[:, self.coords_dim:]

@@ -115,11 +115,26 @@ def require_f32_contiguous(what: str, aligned: bool = True, **tensors) -> None:
     aligned."""
     import torch
 
+    require_contiguous(what, torch.float32, aligned, **tensors)
+
+
+def require_contiguous(what: str, dtype, aligned: bool = True, **tensors) -> None:
+    """Of ``dtype``, contiguous and, where the kernel reads 16-byte vectors,
+    16-byte aligned."""
     for name, t in tensors.items():
-        require(t.dtype == torch.float32, what, f"{name} must be float32, got {t.dtype}")
+        require(t.dtype == dtype, what, f"{name} must be {dtype}, got {t.dtype}")
         require(t.is_contiguous(), what, f"{name} must be contiguous")
         require(not aligned or t.data_ptr() % 16 == 0, what,
                 f"{name} must be 16-byte aligned")
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One more launch on ``wrapper``'s counter: ``launches_bf16`` for a
+    bf16 launch, ``launches`` for any other."""
+    import torch
+
+    name = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def stream_ptr() -> int:

@@ -198,11 +198,6 @@ def _suffix(dtype: torch.dtype) -> str:
     return "_bf16" if dtype == torch.bfloat16 else ""
 
 
-def _count(wrapper, dtype: torch.dtype) -> None:
-    """One more launch on the wrapper's counter of this flavour."""
-    name = "launches" + _suffix(dtype)
-    setattr(wrapper, name, getattr(wrapper, name) + 1)
-
 
 def _lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_fwd" + _suffix(dtype))
@@ -234,7 +229,7 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
                                  out.data_ptr(), inst, m, f_dim, pos_t.shape[1], len(weights),
                                  n_freqs, _freq_c0(freq_mult), k, build.stream_ptr())
         build.check(err, what)
-        _count(fused_mlp_posenc_wsum, feat_t.dtype)
+        build.count_launch(fused_mlp_posenc_wsum, feat_t.dtype)
     return out
 
 
@@ -278,7 +273,7 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                          f_dim, pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k,
                          n_blocks, params.numel(), build.stream_ptr())
         build.check(err, what)
-        _count(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
+        build.count_launch(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
     off = 0
     for w, b in weights:

@@ -27,6 +27,15 @@ the rows and writes them once. The sequence-pad rows of the denoiser are
 all zeros: their variance is 0, rsqrt(eps) stays finite, y = beta, and with
 a zero cotangent their dx is exactly 0.
 
+In bf16 (x, delta and the cotangents bf16, gamma and beta f32) every
+kernel loads into f32 and stores in the element type, as npcd_tpu's bf16
+kernels do: r = bf16(x + delta) is what the forward writes and the
+backward reads, while mean and rstd are those of the unrounded f32 sum, so
+the backward recomputes rhat from the bf16 r with the f32 statistics; dx
+(dr) is rounded to bf16 once, after gr is added in f32; dgamma and dbeta
+are summed in f32. The plain versions do the same. Launches on bf16 inputs
+are counted apart, in each wrapper's ``launches_bf16``.
+
 ``layer_norm`` / ``layer_norm_residual`` launch the forward kernel for CUDA
 tensors and run the plain PyTorch versions for CPU tensors; under autograd
 they go through a ``torch.autograd.Function`` whose backward calls
@@ -178,10 +187,7 @@ def _launch_fwd(x, gamma, beta, eps, delta, save_stats):
                     stats[0] if save_stats else y, stats[1] if save_stats else y,
                     width, eps, HAS_RESIDUAL=delta is not None, SAVE_STATS=save_stats,
                     BLOCK=block, num_warps=_num_warps(block))
-    if delta is None:
-        layer_norm.launches += 1
-    else:
-        layer_norm_residual.launches += 1
+    build.count_launch(layer_norm if delta is None else layer_norm_residual, x.dtype)
     return r, y, stats[0], stats[1]
 
 
@@ -207,8 +213,8 @@ def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
     tensors = (x, gamma, mean, rstd, gy) + ((gr,) if gr is not None else ())
     if build.route(what, *tensors) == "cpu":
         return layer_norm_bwd_plain(x, gamma, mean, rstd, gy, gr)
-    build.require(x.dtype == torch.float32 and gamma.dtype == torch.float32, what,
-                  "the backward kernel is built for float32")
+    build.require(x.dtype in (torch.float32, torch.bfloat16) and gamma.dtype == torch.float32,
+                  what, f"unsupported dtypes x {x.dtype}, gamma {gamma.dtype}")
     width = x.shape[-1]
     rows = x.numel() // width
     build.require(mean.shape == (rows,) and rstd.shape == (rows,), what,
@@ -228,7 +234,7 @@ def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
     kernel[(n_prog,)](x, gamma, mean, rstd, gy, gr if gr is not None else gy, dx, dg, db,
                       rows, width, HAS_GR=gr is not None, ROWS=BWD_ROWS, BLOCK=block,
                       num_warps=_num_warps(block))
-    wrapper.launches += 1
+    build.count_launch(wrapper, x.dtype)
     return dx, dg.sum(0), db.sum(0)
 
 
@@ -291,7 +297,7 @@ def layer_norm_residual(x: torch.Tensor, delta: torch.Tensor, gamma: torch.Tenso
     return r, y
 
 
-layer_norm.launches = 0
-layer_norm_residual.launches = 0
-layer_norm_bwd.launches = 0
-layer_norm_residual_bwd.launches = 0
+layer_norm.launches = layer_norm.launches_bf16 = 0
+layer_norm_residual.launches = layer_norm_residual.launches_bf16 = 0
+layer_norm_bwd.launches = layer_norm_bwd.launches_bf16 = 0
+layer_norm_residual_bwd.launches = layer_norm_residual_bwd.launches_bf16 = 0

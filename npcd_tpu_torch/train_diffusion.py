@@ -2,20 +2,24 @@
 PyTorch port.
 
 Port of train_diffusion.py (same flags and config schema), plus
-``--device`` (default cuda). Runs in exact f32 (TF32 off).
+``--device`` (default cuda). ``--dtype float16`` (the default) and
+``bfloat16`` train with bf16 compute over f32 master weights and every
+denoiser block recomputed in the backward, as the JAX CLI maps them;
+``float32`` trains in exact f32 (TF32 off). Parameters, Adam state, EMAs,
+checkpoints and exports are f32 either way.
 ``--pointnerf_weights`` is a bridged ``.npz`` (utils/from_jax.py) holding
 the stage-1 latent tables ``latents.coords_table`` [n_obj, P, 3] and
 ``latents.feats_table`` [n_obj, P, F] and the ``pointnerf.*`` weights,
 which every weights-only export carries on, so that
 
     python -m npcd_tpu_torch.train_diffusion --config configs/npcd_srncars.yaml \\
-        --output runs/diffusion --pointnerf_weights weights/pointnerf.npz --dtype float32
+        --output runs/diffusion --pointnerf_weights weights/pointnerf.npz
     python -m npcd_tpu_torch.generate_samples --config configs/npcd_srncars.yaml \\
         --out runs/samples --weights \\
         runs/diffusion/weights_only_checkpoints_dir/npcd-ema_<...>-iter-<n>.npz
 
-generates from what it trained. ``--dtype float16/bfloat16``, ``--tp > 1``
-and ``--mesh`` are not ported yet and raise NotImplementedError.
+generates from what it trained (sampling in f32). ``--tp > 1`` and
+``--mesh`` are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,6 +30,11 @@ import sys
 
 import numpy as np
 
+# --dtype -> (compute dtype name, remat), as the JAX CLI maps it: float16
+# requests the low precision, which is bf16 (train_diffusion.py:42-47, 60)
+DTYPES = {"float32": ("float32", False), "float16": ("bfloat16", True),
+          "bfloat16": ("bfloat16", True)}
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -33,8 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--config", help="Path to config file.", required=True)
     p.add_argument("--pointnerf_weights", required=True,
                    help="Bridged .npz with the stage-1 latent tables and pointnerf weights.")
-    p.add_argument("--dtype", type=str, default="float16",
-                   help="float32 (float16 and bfloat16 are not ported yet). Default: float16.")
+    p.add_argument("--dtype", type=str, default="float16", choices=sorted(DTYPES),
+                   help="float32, or float16 / bfloat16 (both bf16 compute with block remat). "
+                        "Default: float16.")
     p.add_argument("--seed", type=int, default=42, help="Random seed. Default: 42.")
     p.add_argument("--num_workers", type=int, default=8,
                    help="Accepted for flag parity; batches are collated in-process.")
@@ -72,13 +82,9 @@ def train(args, config=None):
     from .generate_samples import _device, exact_f32
     from .train import DiffusionTraining
     from .utils import logging, writer
-    from .utils.builders import build_diffusion_model
+    from .utils.builders import build_diffusion_model, torch_dtype
     from .utils.config import load_config, print_config
 
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype}: the port trains in float32 only so far (bf16 with remat is "
-            "the 'bf16 and TF32 flavours' item of ROADMAP Queue 1); pass --dtype float32")
     if args.tp > 1 or args.mesh:
         raise NotImplementedError("--tp > 1 and --mesh: multi-GPU training is the 'Data "
                                   "parallelism' item of ROADMAP Queue 1; tensor parallelism is "
@@ -98,7 +104,9 @@ def train(args, config=None):
         dataset, pointnerf = load_pointnerf_weights(args.pointnerf_weights, m["num_points"],
                                                     m["feats_dim"])
         logging.info(f"Loaded latent tables and pointnerf weights from {args.pointnerf_weights}")
-        training = DiffusionTraining(out_dir=args.output, model=build_diffusion_model(config),
+        dtype, remat = DTYPES[args.dtype]
+        model = build_diffusion_model(config, dtype=torch_dtype(dtype), remat=remat)
+        training = DiffusionTraining(out_dir=args.output, model=model,
                                      dataset=dataset, seed=args.seed, device=device,
                                      export_extra=pointnerf, **config["diffusion_training"])
         training()

@@ -76,11 +76,16 @@ def build_dataset(config: Dict[str, Any]):
     return DATASETS[name](**dict(config.get("dataset_kwargs", {})))
 
 
-def build_diffusion_model(config: Dict[str, Any]):
+def build_diffusion_model(config: Dict[str, Any], dtype=None, remat: bool = False):
+    """The diffusion model of ``config``; ``dtype`` is the denoiser's compute
+    dtype (None: float32), ``remat`` recomputes its blocks in the backward."""
+    import torch
+
     from ..models.diffusion.diffusion_model import DiffusionModel
 
     m = config["model"]
     return DiffusionModel(
         coords_dim=m["coords_dim"], feats_dim=m["feats_dim"], num_points=m["num_points"],
         width=m["width"], layers=m["layers"], heads=m["heads"],
-        qkv_groups=m.get("qkv_groups"))
+        qkv_groups=m.get("qkv_groups"), dtype=dtype if dtype is not None else torch.float32,
+        remat=remat)

@@ -12,8 +12,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from npcd_tpu.ops import attention as jax_attention
 from npcd_tpu.ops.pallas.fused_qkv_attention import fused_qkv_attention_2d
-from npcd_tpu_torch.ops.attention import (default_qkv_groups, fused_qkv_attention,
-                                          split_grouped_qkv)
+from npcd_tpu_torch.ops.attention import default_qkv_groups, split_grouped_qkv
+from npcd_tpu_torch.ops.kernels.fused_qkv_attention import fused_qkv_attention
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, H, D, G, VALID = 2, 24, 4, 64, 2, 21

@@ -14,8 +14,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from npcd_tpu.ops.pallas.fused_qkv_attention import fused_qkv_attention_2d
-from npcd_tpu_torch.ops.attention import fused_qkv_attention, split_grouped_qkv
-from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (fused_qkv_attention_bwd,
+from npcd_tpu_torch.ops.attention import split_grouped_qkv
+from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (fused_qkv_attention,
+                                                           fused_qkv_attention_bwd,
                                                            fused_qkv_attention_plain,
                                                            merge_grouped_qkv)
 

@@ -28,7 +28,16 @@ elements bitwise equal and each within one bf16 ulp of itself plus one of
 a quarter of the output's scale (a flipped rounding of a hidden activation
 reaches outputs that cancel); backward outputs within 1e-2 of max(1, their
 largest magnitude) (a flipped rounding of gd moves a product by an ulp,
-2**-8)."""
+2**-8). The bf16 stage-2 kernels (K1f/K1b and K2a-d in bf16) and K8f/K8b
+(flash attention over [B, S, H, D], f32 and bf16, head dims 64 and 128) are
+held the same way: bf16 outputs as above, and so are the bf16 dq, dk and dv
+of K1b and K8b, each at its own scale (a dropped delta term moves most of
+dq and dk by several ulps), f32 statistics (lse, mean, rstd)
+and K8's f32 outputs within 1e-5, the LayerNorm's f32 dgamma/dbeta within
+1e-4 of their scale (sums of per-row terms that each side computes from its
+own forward's statistics)."""
+import math
+
 import pytest
 import torch
 
@@ -40,9 +49,15 @@ from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc_wsum,
                                                         fused_mlp_posenc_wsum_bwd_plain,
                                                         fused_mlp_posenc_wsum_plain, leaky_kinks)
 from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain
+from npcd_tpu_torch.ops.attention import multi_head_attention
+from npcd_tpu_torch.ops.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                        flash_attention_bwd_plain,
+                                                        flash_attention_fwd,
+                                                        flash_attention_plain)
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (
-    fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
-    fused_qkv_attention_fwd, fused_qkv_attention_plain, split_grouped_qkv)
+    fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
+    fused_qkv_attention_bwd_bf16_plain, fused_qkv_attention_bwd_plain, fused_qkv_attention_fwd,
+    fused_qkv_attention_plain, split_grouped_qkv)
 from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain, min_d2, min_d2_plain
 from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_bwd,
                                                   layer_norm_bwd_plain, layer_norm_fwd,
@@ -450,3 +465,115 @@ def test_fast_stage1_step_matches_the_cpu(dev, tmp_path):
         scale = float(gc[name].abs().max())
         assert float((gg[name] - gc[name]).abs().max()) <= 5e-2 * scale, name
         assert float((pg[name] - pc[name]).abs().max()) <= 2 * 1e-3 + 1e-6, name
+
+
+def _lse_bf16_close(got, want):
+    """The bf16 forward's base-2 lse = m + log2(l), l the f32 sum of bf16 e:
+    at least 99% of the rows within 1e-5 of it, every row within 2**-8 /
+    ln 2 (an e whose rounding flips moves l by one ulp of e <= 2**-8, l >= 1)."""
+    d = (got - want).abs()
+    assert float((d <= 1e-5 * want.abs().clamp(min=1)).float().mean()) >= 0.99
+    assert float(d.max()) <= 2 ** -8 / math.log(2)
+
+
+@pytest.mark.parametrize("groups,valid", [(1, None), (2, 70), (4, 33)])
+def test_fused_qkv_attention_bf16_kernels(dev, groups, valid):
+    b, s, h = 3, 72, 4  # two query and two key tiles, the second partial
+    g = _gen(dev, 8)
+    qkv = (0.5 * torch.randn(b * s, 3 * h * 64, generator=g, device=dev)).bfloat16()
+    dout = torch.randn(b * s, h * 64, generator=g, device=dev).bfloat16()
+    n = valid or s
+    dout.reshape(b, s, -1)[:, n:] = 0
+    launches = fused_qkv_attention.launches_bf16
+    out, lse = fused_qkv_attention_fwd(qkv, h, b, s, n, groups)
+    assert out.dtype == torch.bfloat16 and fused_qkv_attention.launches_bf16 == launches + 1
+    want_out, want_lse = fused_qkv_attention_bf16_plain(qkv, h, b, s, n, groups, return_lse=True)
+    _bf16_close(out, want_out)
+    _lse_bf16_close(lse, want_lse)
+    got = fused_qkv_attention_bwd(qkv, None, lse, dout, h, b, s, n, groups)
+    want = fused_qkv_attention_bwd_bf16_plain(qkv, want_lse, dout, h, b, s, n, groups)
+    assert got.dtype == torch.bfloat16
+    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, groups)
+    for a, w in zip((dq, dk, dv), split_grouped_qkv(want.reshape(b, s, -1), h, groups)):
+        _bf16_close(a, w)  # each gradient at its own scale
+    assert (dq[:, n:] == 0).all() and (dk[:, n:] == 0).all() and (dv[:, n:] == 0).all()
+    # through autograd: the Function's backward is the bf16 kernel
+    a = qkv.clone().requires_grad_(True)
+    launches = fused_qkv_attention_bwd.launches_bf16
+    fused_qkv_attention(a, h, b, s, n, groups).backward(dout)
+    assert fused_qkv_attention_bwd.launches_bf16 == launches + 1 and torch.equal(a.grad, got)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_bf16_kernels(dev, residual):
+    g = _gen(dev, 9)
+    rows, width = 70, 1024
+    x, d, gy, gr = (torch.randn(rows, width, generator=g, device=dev).bfloat16()
+                    for _ in range(4))
+    for t in (x, d, gy, gr):
+        t[-2:] = 0
+    gamma, beta = 1 + 0.1 * torch.randn(width, generator=g, device=dev), \
+        0.1 * torch.randn(width, generator=g, device=dev)
+    delta = d if residual else None
+    r_k, y_k, mean_k, rstd_k = layer_norm_fwd(x, gamma, beta, delta=delta)
+    r_p, y_p, mean_p, rstd_p = layer_norm_fwd_plain(x, gamma, beta, delta=delta)
+    assert y_k.dtype == r_k.dtype == torch.bfloat16 and torch.equal(r_k, r_p)
+    _bf16_close(y_k, y_p)
+    for a, w in ((mean_k, mean_p), (rstd_k, rstd_p)):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    wrapper = layer_norm_residual_bwd if residual else layer_norm_bwd
+    launches = wrapper.launches_bf16
+    if residual:
+        got = layer_norm_residual_bwd(r_k, gamma, mean_k, rstd_k, gr, gy)
+        want = layer_norm_bwd_plain(r_p, gamma, mean_p, rstd_p, gy, gr)
+    else:
+        got = layer_norm_bwd(x, gamma, mean_k, rstd_k, gy)
+        want = layer_norm_bwd_plain(x, gamma, mean_p, rstd_p, gy)
+    assert wrapper.launches_bf16 == launches + 1 and got[0].dtype == torch.bfloat16
+    _close_rel(got[0].float(), want[0].float(), 1e-2)
+    assert (got[0][-2:] == 0).all()
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        _close_rel(a, w, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernels(dev, dtype, d):
+    g = _gen(dev, 10)
+    shape = (2, 77, 3, d)  # partial query and key tiles
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    want_out, want_lse = flash_attention_plain(q, k, v, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    got = flash_attention_bwd(q, k, v, lse, dout)
+    want = flash_attention_bwd_plain(q, k, v, dout)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+        for a, w in zip(got, want):
+            _close_rel(a, w, 1e-5)
+    else:
+        _bf16_close(out, want_out)
+        for a, w in zip(got, want):  # dq, dk, dv, each at its own scale
+            assert a.dtype == torch.bfloat16
+            _bf16_close(a, w)
+    # through multi_head_attention(impl="auto") and autograd: the kernels
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    counts = (flash_attention.launches + flash_attention.launches_bf16,
+              flash_attention_bwd.launches + flash_attention_bwd.launches_bf16)
+    multi_head_attention(*ts, impl="auto").backward(dout)
+    assert (flash_attention.launches + flash_attention.launches_bf16,
+            flash_attention_bwd.launches + flash_attention_bwd.launches_bf16) == (
+        counts[0] + 1, counts[1] + 1)
+    for t, w in zip(ts, got):
+        assert torch.equal(t.grad, w)
+
+
+def test_flash_attention_refuses_other_head_dims(dev):
+    x = torch.zeros(1, 8, 2, 32, device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)
+    with pytest.raises(NotImplementedError):  # valid_len: einsum only
+        multi_head_attention(x, x, x, impl="pallas", valid_len=4)
+    torch.testing.assert_close(multi_head_attention(x, x, x, impl="auto"),
+                               multi_head_attention(x, x, x, impl="einsum"))
