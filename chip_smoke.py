@@ -6,7 +6,10 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
   1. environment: card name and power limit (nvidia-smi), torch, CUDA,
      Triton and nvcc; fails without a GPU;
-  2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc;
+  2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc,
+     then counts the tensor-core instructions (HMMA, HGMMA) in each K1
+     kernel's SASS (cuobjdump): every bf16 K1 kernel must have some, every
+     f32 one none;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events;
@@ -18,7 +21,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      version at the stage-2 step's shapes, timed;
   5. main path, generation: python -m npcd_tpu_torch.generate_samples's code
      path on configs/npcd_srncars.yaml (302M denoiser, 1000 DDPM steps) with
-     seeded weights and validity 'voxel': 2 samples, each rendered from 4
+     seeded weights, written first as the bridged .npz its required
+     --weights reads, and validity 'voxel': 2 samples, each rendered from 4
      SRN test poses at 128x128; checks finite outputs and images in [0, 1],
      renders one object x one pose again on the CPU with the plain versions
      and compares the channels;
@@ -100,6 +104,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -115,7 +120,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from npcd_tpu_torch import train_diffusion, train_pointnerf  # noqa: E402
 from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
-from npcd_tpu_torch.generate_samples import exact_f32, parse_args, run  # noqa: E402
+from npcd_tpu_torch.generate_samples import (  # noqa: E402
+    exact_f32, parse_args, run, write_seeded_weights)
 from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # noqa: E402
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
 from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
@@ -286,10 +292,50 @@ def phase_env() -> str:
     return smi.splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """tc::fwd of _ZN<len>_GLOBAL__N_...<len>tc<len>fwdE... (the nested name
+    without its anonymous namespace)."""
+    parts, i = [], 3
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return "::".join(p for p in parts if not p.startswith("_GLOBAL"))
+
+
+def _sass_mma_counts(name: str) -> dict:
+    """{(kernel, 'bf16' or 'f32'): tensor-core instructions (HMMA, HGMMA)
+    in its SASS} of the built csrc/<name>.cu, read with cuobjdump."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.so_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            key = (_kernel_name(fn), "bf16" if "bfloat16" in fn else "f32")
+            counts[key] = 0
+        elif key is not None and re.search(r"\bHG?MMA\.", line):
+            counts[key] += 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
+    # the bf16 K1 runs its products on the tensor cores, the f32 K1 (exact
+    # f32, no TF32) on the CUDA cores
+    counts = _sass_mma_counts("fused_qkv_attention")
+    print("[build] fused_qkv_attention SASS tensor-core instructions: "
+          + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
+    wrong = [k for k, n in counts.items() if (n > 0) != (k[1] == "bf16")]
+    if len(counts) != 6 or wrong:
+        raise AssertionError(f"fused_qkv_attention: tensor-core use differs from the design: "
+                             f"{wrong or counts}")
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -539,8 +585,9 @@ def _read_launches() -> dict:
 
 
 def phase_main() -> dict:
+    weights = write_seeded_weights(str(SRNCARS), str(OUT / "seeded_npcd.npz"), seed=0)
     args = parse_args([
-        "--config", str(ROOT / "configs/npcd_srncars.yaml"), "--out", str(OUT),
+        "--config", str(SRNCARS), "--out", str(OUT), "--weights", weights,
         "--num", "2", "--batch-size", "2", "--seed", "0", "--render", "2",
         "--render-poses", "4", "--poses", str(ROOT / "data/srncars_test_poses.npy"),
         "--intrinsics", str(ROOT / "data/srncars_test_intrinsics.npy"),

@@ -10,9 +10,11 @@ side). Runs in exact f32 (TF32 off for matmuls and convolutions).
         --out runs/samples --num 2 --batch-size 2 --render 2 \\
         --poses data/srncars_test_poses.npy --intrinsics data/srncars_test_intrinsics.npy
 
-``--weights PATH.npz`` loads parameters bridged from the JAX package
-(utils/from_jax.py); without it the weights and normalizer stats are seeded
-(models/npcd.py: NPCD.from_config, NPCD.seeded_state).
+``--weights PATH.npz`` (required, as in the JAX CLI) holds the parameters
+and normalizer stats bridged from the JAX package or exported by the port's
+trainers (utils/from_jax.py). Samples render with the config's
+``render_config.validity`` ('knn' unless it says otherwise); ``--validity``
+overrides it.
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True)
     p.add_argument("--out", required=True)
-    p.add_argument("--weights", default=None,
-                   help="bridged parameters (.npz); default: seeded weights")
+    p.add_argument("--weights", required=True, help="bridged parameters (.npz)")
     p.add_argument("--num", type=int, default=16)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--seed", type=int, default=42)
@@ -43,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--render-poses", type=int, default=4, help="poses per rendered object")
     p.add_argument("--resolution", type=int, default=128)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--validity", choices=["voxel", "knn"], default="voxel")
+    p.add_argument("--validity", choices=["voxel", "knn"], default=None,
+                   help="the render's sample-validity test; default: the config's")
     args = p.parse_args(argv)
     if args.render > 0 and not (args.poses and args.intrinsics):
         p.error("--render requires --poses and --intrinsics")
@@ -70,6 +72,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def write_seeded_weights(config_path: str, path: str, seed: int = 0) -> str:
+    """Seeded weights (``NPCD.from_config``) and normalizer stats
+    (``NPCD.seeded_state``) of the config's model, written to ``path`` as
+    the bridged .npz ``--weights`` reads, for runs without trained weights
+    -> path."""
+    from .models.npcd import NPCD
+    from .utils.config import load_config
+    from .utils.from_jax import npcd_flat, save_npz
+
+    model = NPCD.from_config(load_config(config_path), seed=seed)
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    save_npz(path, npcd_flat(model, model.seeded_state(seed)))
+    return path
+
+
 def run(args) -> dict:
     """Build, sample and render as the CLI does, without writing files:
     -> {model, state, coords, feats, channels [n, V, R, 3] or None,
@@ -81,10 +98,7 @@ def run(args) -> dict:
     exact_f32()
     device = _device(args.device)
     model = NPCD.from_config(load_config(args.config), validity=args.validity, seed=args.seed)
-    if args.weights:
-        state = load_npz(model, args.weights)
-    else:
-        state = model.seeded_state(args.seed)
+    state = load_npz(model, args.weights)
     model = model.to(device).eval()
 
     generator = torch.Generator(device=device).manual_seed(args.seed)

@@ -36,7 +36,7 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-def _so_path(name: str) -> Path:
+def so_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
@@ -44,7 +44,7 @@ def _so_path(name: str) -> Path:
 
 def _compile(names: Iterable[str]) -> None:
     """Compile the named sources that are not built yet, in parallel."""
-    todo = [n for n in names if not _so_path(n).exists()]
+    todo = [n for n in names if not so_path(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,7 +63,7 @@ def _compile(names: Iterable[str]) -> None:
             os.unlink(tmp)
             errors.append(f"nvcc failed on {name}.cu:\n{log}")
         else:
-            os.replace(tmp, _so_path(name))
+            os.replace(tmp, so_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -82,7 +82,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         _compile([name])
-        lib = ctypes.CDLL(str(_so_path(name)))
+        lib = ctypes.CDLL(str(so_path(name)))
         _loaded[name] = lib
     return lib
 

@@ -3,8 +3,8 @@
     python -m npcd_tpu_torch.profile_generation
 
 Runs generate_samples at chip_smoke.py's main-path shapes
-(configs/npcd_srncars.yaml, seeded weights, batch 2, validity 'voxel',
-exact f32), which also warms up every kernel, then profiles with
+(configs/npcd_srncars.yaml, seeded weights written first as the bridged
+.npz --weights reads, batch 2, validity 'voxel', exact f32), which also warms up every kernel, then profiles with
 torch.profiler (1) STEPS sampler steps at that batch and (2) one render of
 the generated clouds from 4 SRN test poses at 128². For each window it
 prints the wall time, the summed device time of its kernels, their share
@@ -19,10 +19,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .generate_samples import parse_args, render, run
+from .generate_samples import parse_args, render, run, write_seeded_weights
 
-ARGV = ["--config", "configs/npcd_srncars.yaml", "--out", "runs/profile_generation",
-        "--num", "2", "--batch-size", "2", "--seed", "0", "--render", "2",
+OUT = "runs/profile_generation"
+WEIGHTS = f"{OUT}/seeded_npcd.npz"
+ARGV = ["--config", "configs/npcd_srncars.yaml", "--out", OUT, "--weights", WEIGHTS,
+        "--validity", "voxel", "--num", "2", "--batch-size", "2", "--seed", "0", "--render", "2",
         "--render-poses", "4", "--poses", "data/srncars_test_poses.npy",
         "--intrinsics", "data/srncars_test_intrinsics.npy", "--resolution", "128"]
 STEPS = 5  # sampler steps in the profiled window
@@ -46,6 +48,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_generation needs a GPU")
     args = parse_args(ARGV)
+    write_seeded_weights(args.config, WEIGHTS, args.seed)
     out = run(args)  # the model, the warm-up and the clouds to render
     model, state, dm = out["model"], out["state"], out["model"].diffusion
     dev = torch.device("cuda")

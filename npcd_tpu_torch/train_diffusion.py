@@ -19,7 +19,8 @@ which every weights-only export carries on, so that
         runs/diffusion/weights_only_checkpoints_dir/npcd-ema_<...>-iter-<n>.npz
 
 generates from what it trained (sampling in f32). ``--tp > 1`` and
-``--mesh`` are not ported yet and raise NotImplementedError.
+``--mesh`` are not ported yet and raise NotImplementedError; ``--platform``
+chooses a JAX backend and is refused.
 """
 from __future__ import annotations
 
@@ -56,6 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--comment", type=str, help="Comment for the experiment.")
     p.add_argument("--tp", type=int, default=1, help="Tensor-parallel degree (1 only).")
     p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--platform", type=str, default=None,
+                   help="A JAX backend flag; the port refuses it (use --device).")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -85,6 +88,9 @@ def train(args, config=None):
     from .utils.builders import build_diffusion_model, torch_dtype
     from .utils.config import load_config, print_config
 
+    if args.platform:
+        raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
+                         "takes --device cuda or --device cpu")
     if args.tp > 1 or args.mesh:
         raise NotImplementedError("--tp > 1 and --mesh: multi-GPU training is the 'Data "
                                   "parallelism' item of ROADMAP Queue 1; tensor parallelism is "

@@ -172,6 +172,15 @@ def pointnerf_train_state_from_jax(params, opt_state, step) -> Dict[str, Any]:
             "step": int(np.asarray(step))}
 
 
+def npcd_flat(model: torch.nn.Module, state: DiffusionState) -> Dict[str, np.ndarray]:
+    """An ``NPCD``'s parameters and ``state``'s normalizer stats -> the flat
+    dict ``load_flat`` reads back."""
+    flat = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    for name, stats in zip(_NORMS, (state.coords_norm, state.feats_norm)):
+        flat.update({f"{name}.{f}": v for f, v in _norm_dict(stats).items()})
+    return flat
+
+
 def save_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:
     np.savez(path, **{k: np.asarray(v, np.float32) for k, v in flat.items()})
 

@@ -35,7 +35,9 @@ of K1b and K8b, each at its own scale (a dropped delta term moves most of
 dq and dk by several ulps), f32 statistics (lse, mean, rstd)
 and K8's f32 outputs within 1e-5, the LayerNorm's f32 dgamma/dbeta within
 1e-4 of their scale (sums of per-row terms that each side computes from its
-own forward's statistics)."""
+own forward's statistics). The bf16 K1f/K1b (tensor cores) are also held at
+sequences that cut their 64-row tiles raggedly on both sides, and two of
+their launches must agree bitwise."""
 import math
 
 import pytest
@@ -476,9 +478,14 @@ def _lse_bf16_close(got, want):
     assert float(d.max()) <= 2 ** -8 / math.log(2)
 
 
-@pytest.mark.parametrize("groups,valid", [(1, None), (2, 70), (4, 33)])
-def test_fused_qkv_attention_bf16_kernels(dev, groups, valid):
-    b, s, h = 3, 72, 4  # two query and two key tiles, the second partial
+# S 72: two query and two key tiles of 64, the second partial; S 130: three,
+# the third 2 rows deep, with the valid keys ending in the first tile's first
+# row (1), at its end (64) and one row into the third (129); batch 1
+@pytest.mark.parametrize("b,s,groups,valid", [(3, 72, 1, None), (3, 72, 2, 70), (3, 72, 4, 33),
+                                              (2, 130, 2, 1), (2, 130, 4, 64),
+                                              (2, 130, 1, 129), (1, 130, 2, 129)])
+def test_fused_qkv_attention_bf16_kernels(dev, b, s, groups, valid):
+    h = 4
     g = _gen(dev, 8)
     qkv = (0.5 * torch.randn(b * s, 3 * h * 64, generator=g, device=dev)).bfloat16()
     dout = torch.randn(b * s, h * 64, generator=g, device=dev).bfloat16()
@@ -502,6 +509,21 @@ def test_fused_qkv_attention_bf16_kernels(dev, groups, valid):
     launches = fused_qkv_attention_bwd.launches_bf16
     fused_qkv_attention(a, h, b, s, n, groups).backward(dout)
     assert fused_qkv_attention_bwd.launches_bf16 == launches + 1 and torch.equal(a.grad, got)
+
+
+@pytest.mark.parametrize("b,s,h,valid", [(2, 130, 4, 129), (32, 520, 16, 513)])
+def test_fused_qkv_attention_bf16_kernels_are_repeatable(dev, b, s, h, valid):
+    """Two launches give bitwise equal out, lse and dqkv (no atomics, fixed
+    summation orders), at a ragged shape and at the bf16 stage-2 step's."""
+    g = _gen(dev, 9)
+    qkv = (0.5 * torch.randn(b * s, 3 * h * 64, generator=g, device=dev)).bfloat16()
+    dout = torch.randn(b * s, h * 64, generator=g, device=dev).bfloat16()
+    dout.reshape(b, s, -1)[:, valid:] = 0
+    (out0, lse0), (out1, lse1) = (fused_qkv_attention_fwd(qkv, h, b, s, valid, 2)
+                                  for _ in range(2))
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    grads = [fused_qkv_attention_bwd(qkv, None, lse0, dout, h, b, s, valid, 2) for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.parametrize("residual", [False, True])
