@@ -7,9 +7,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   1. environment: card name and power limit (nvidia-smi), torch, CUDA,
      Triton and nvcc; fails without a GPU;
   2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc,
-     then counts the tensor-core instructions (HMMA, HGMMA) in each K1
-     kernel's SASS (cuobjdump): every bf16 K1 kernel must have some, every
-     f32 one none;
+     then counts the tensor-core instructions (HMMA, HGMMA) in each K1 and
+     K8 kernel's SASS (cuobjdump): every bf16 kernel of the two must have
+     some, every f32 one none;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events;
@@ -79,10 +79,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      points), timed, with F.layer_norm's and scaled_dot_product_attention's
      bf16 times beside them;
  15. attention: ops.attention.multi_head_attention(impl="auto") forward and
-     backward over [32, 513, 16, 64] in f32 and in bf16 (the launch counts
-     of its path), then the flash attention kernels forward and backward in
-     each dtype against their plain versions, timed, with
-     scaled_dot_product_attention's time beside them;
+     backward over [32, 513, 16, 64] in f32 and in bf16, and over [32, 513,
+     8, 128] in bf16 (the launch counts of its path), then the flash
+     attention kernels forward and backward in each case against their
+     plain versions, timed, with scaled_dot_product_attention's time beside
+     them;
  16. main path, bf16 training: phase 6 with the CLI's default --dtype
      (float16: bf16 compute over f32 master weights, every block recomputed
      in the backward);
@@ -294,7 +295,8 @@ def phase_env() -> str:
 
 def _kernel_name(mangled: str) -> str:
     """tc::fwd of _ZN<len>_GLOBAL__N_...<len>tc<len>fwdE... (the nested name
-    without its anonymous namespace)."""
+    without its anonymous namespace), tc::fwd<64> of ...<len>fwdILi64EEE...
+    (a template's integer arguments)."""
     parts, i = [], 3
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -302,7 +304,11 @@ def _kernel_name(mangled: str) -> str:
             j += 1
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    return "::".join(p for p in parts if not p.startswith("_GLOBAL"))
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL"))
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
 
 
 def _sass_mma_counts(name: str) -> dict:
@@ -327,15 +333,17 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
-    # the bf16 K1 runs its products on the tensor cores, the f32 K1 (exact
-    # f32, no TF32) on the CUDA cores
-    counts = _sass_mma_counts("fused_qkv_attention")
-    print("[build] fused_qkv_attention SASS tensor-core instructions: "
-          + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
-    wrong = [k for k, n in counts.items() if (n > 0) != (k[1] == "bf16")]
-    if len(counts) != 6 or wrong:
-        raise AssertionError(f"fused_qkv_attention: tensor-core use differs from the design: "
-                             f"{wrong or counts}")
+    # the bf16 K1 and K8 run their products on the tensor cores, the f32
+    # ones (exact f32, no TF32) on the CUDA cores; K1 has 6 kernels, K8 12
+    # (3 per flavour at D 64 and 128)
+    for name, n_kernels in (("fused_qkv_attention", 6), ("flash_attention", 12)):
+        counts = _sass_mma_counts(name)
+        print(f"[build] {name} SASS tensor-core instructions: "
+              + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
+        wrong = [k for k, n in counts.items() if (n > 0) != (k[1] == "bf16")]
+        if len(counts) != n_kernels or wrong:
+            raise AssertionError(f"{name}: tensor-core use differs from the design: "
+                                 f"{wrong or counts}")
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -1207,21 +1215,22 @@ def phase_bf16_train_kernels() -> dict:
 
 def phase_attention() -> tuple:
     """K8f/K8b, the flash attention over [B, S, H, D] = [32, 513, 16, 64] in
-    f32 and bf16. First the path: ops.attention.multi_head_attention(impl=
-    "auto") forward and backward under autograd in each dtype, with the
-    launch counts reset before and read after; then each kernel vs its plain
-    version, timed, with scaled_dot_product_attention's time beside it ->
-    (launches, {name: result})."""
+    f32 and bf16, and over [32, 513, 8, 128] (the same width of 1024) in
+    bf16. First the path: ops.attention.multi_head_attention(impl="auto")
+    forward and backward under autograd in each case, with the launch counts
+    reset before and read after; then each kernel vs its plain version,
+    timed, with scaled_dot_product_attention's time beside it -> (launches,
+    {name: result}); the D-128 lines are printed and kept apart from the
+    D-64 entries of the kernels line."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
-    shape = (32, 513, 16, 64)
-    b, s, h, d = shape
-    inputs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        inputs[dtype] = [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4)]
+    cases = [(torch.float32, (32, 513, 16, 64), ""), (torch.bfloat16, (32, 513, 16, 64), " (bf16)"),
+             (torch.bfloat16, (32, 513, 8, 128), " (bf16, D 128)")]
+    inputs = [[torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4)]
+              for dtype, shape, _ in cases]
     torch.cuda.synchronize()
     _reset_launches()
-    for dtype, (q, k, v, dout) in inputs.items():
+    for (dtype, _, _), (q, k, v, dout) in zip(cases, inputs):
         ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = multi_head_attention(*ts, impl="auto")
         out.backward(dout)
@@ -1232,10 +1241,9 @@ def phase_attention() -> tuple:
     del ts, out
 
     results = {}
-    n = b * s * h * d
-    for dtype, (q, k, v, dout) in inputs.items():
+    for (dtype, (b, s, h, d), suffix), (q, k, v, dout) in zip(cases, inputs):
         bf16 = dtype == torch.bfloat16
-        suffix, size = (" (bf16)", 2) if bf16 else ("", 4)
+        size, n = (2 if bf16 else 4), b * s * h * d
         check = lambda *a, **kw: _record(results, *a, tag="kernels-attention",
                                          peak=BF16_FLOP_S if bf16 else FP32_FLOP_S, **kw)
         # f32: out within 1e-4 of max(1, its scale) and the base-e lse within

@@ -11,8 +11,12 @@ CUDA tensors (head dim 64 or 128; anything else raises) and runs
 ``torch.autograd.Function`` that keeps q, k, v and the forward's base-e
 log-sum-exp [B, H, S], and whose backward calls ``flash_attention_bwd``
 (kernel on CUDA, ``flash_attention_bwd_plain`` on the CPU, which recomputes
-the softmax as the TPU kernel does). Launches on bf16 inputs are counted
-apart, in each wrapper's ``launches_bf16``. It is reached through
+the softmax as the TPU kernel does). f32 inputs run exact f32 on the CUDA
+cores; bf16 inputs run on the tensor cores (mma.sync), with P and dS, f32
+in the TPU kernel, fed to each product as a bf16 pair hi = bf16(x), lo =
+bf16(x - hi) so that the outputs keep the f32 contract (see the source's
+note). Launches on bf16 inputs are counted apart, in each wrapper's
+``launches_bf16``. It is reached through
 ``ops.attention.multi_head_attention(impl="pallas" | "auto")``; the
 denoiser takes kernel K1.
 """

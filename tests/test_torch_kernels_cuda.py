@@ -37,7 +37,8 @@ and K8's f32 outputs within 1e-5, the LayerNorm's f32 dgamma/dbeta within
 1e-4 of their scale (sums of per-row terms that each side computes from its
 own forward's statistics). The bf16 K1f/K1b (tensor cores) are also held at
 sequences that cut their 64-row tiles raggedly on both sides, and two of
-their launches must agree bitwise."""
+their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
+P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513."""
 import math
 
 import pytest
@@ -559,11 +560,17 @@ def test_layer_norm_bf16_kernels(dev, residual):
         _close_rel(a, w, 1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# S 77: partial query and key tiles; bf16 (the tensor-core kernels, 64-row
+# tiles, 32-key steps) also at S 1, 64 (one full tile), 65 (a second tile
+# one row deep), 130 (three, the third 2 rows deep; batch 1 too) and 513
+@pytest.mark.parametrize("dtype,b,s", [(torch.float32, 2, 77), (torch.bfloat16, 2, 77),
+                                       (torch.bfloat16, 2, 1), (torch.bfloat16, 2, 64),
+                                       (torch.bfloat16, 2, 65), (torch.bfloat16, 2, 130),
+                                       (torch.bfloat16, 1, 130), (torch.bfloat16, 2, 513)])
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_attention_kernels(dev, dtype, d):
+def test_flash_attention_kernels(dev, dtype, b, s, d):
     g = _gen(dev, 10)
-    shape = (2, 77, 3, d)  # partial query and key tiles
+    shape = (b, s, 3, d)
     q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
     out, lse = flash_attention_fwd(q, k, v)
     want_out, want_lse = flash_attention_plain(q, k, v, return_lse=True)
@@ -589,6 +596,21 @@ def test_flash_attention_kernels(dev, dtype, d):
         counts[0] + 1, counts[1] + 1)
     for t, w in zip(ts, got):
         assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 130, 3, 64), (2, 130, 3, 128), (32, 513, 16, 64),
+                                     (32, 513, 8, 128)])
+def test_flash_attention_bf16_kernels_are_repeatable(dev, b, s, h, d):
+    """Two launches of the bf16 K8f and K8b give bitwise equal out, lse,
+    dq, dk and dv (no atomics, fixed summation orders), at a ragged shape
+    and at phase 15's."""
+    g = _gen(dev, 11)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+                     for _ in range(4))
+    (out0, lse0), (out1, lse1) = (flash_attention_fwd(q, k, v) for _ in range(2))
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    grads = [flash_attention_bwd(q, k, v, lse0, dout) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
 
 
 def test_flash_attention_refuses_other_head_dims(dev):
