@@ -8,11 +8,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      Triton and nvcc; fails without a GPU;
   2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc,
      then counts the tensor-core instructions (HMMA, HGMMA) in each K1 and
-     K8 kernel's SASS (cuobjdump): every bf16 kernel of the two must have
-     some, every f32 one none;
+     K8 kernel's SASS (cuobjdump): every bf16 kernel of the two and the f32
+     K8b's (tf::bwd_dq, tf::bwd_dkdv: 3xTF32) must have some, the f32 K1
+     kernels and the f32 K8f (fa_fwd, exact f32 on the CUDA cores) none;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
-     the stated tolerance, and both timed with CUDA events;
+     the stated tolerance, and both timed with CUDA events; the LayerNorm
+     forwards also by replaying a CUDA graph of 20 launches (device time
+     without the host's launch cost) against their HBM bound;
   4. kernels, training: the attention forward with its log-sum-exp and its
      backward (pad rows of dq/dk/dv exactly 0), the LayerNorm forward with
      its mean/rstd and its backward in both forms, each backward fed its own
@@ -76,14 +79,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      backward in both forms over [16,640, 1024] bf16, and the attention
      forward with its log-sum-exp and its backward over qkv [32*520, 3072]
      bf16, each against its bf16 plain version (the TPU kernels' rounding
-     points), timed, with F.layer_norm's and scaled_dot_product_attention's
-     bf16 times beside them;
+     points), timed (the LayerNorm forwards also as a replayed CUDA graph),
+     with F.layer_norm's and scaled_dot_product_attention's bf16 times
+     beside them;
  15. attention: ops.attention.multi_head_attention(impl="auto") forward and
      backward over [32, 513, 16, 64] in f32 and in bf16, and over [32, 513,
      8, 128] in bf16 (the launch counts of its path), then the flash
      attention kernels forward and backward in each case against their
      plain versions, timed, with scaled_dot_product_attention's time beside
-     them;
+     them; the f32 backward (3xTF32 on the tensor cores) also against a
+     float64 evaluation of its plain version, beside the f32 plain
+     version's own error against it, and with its bound at the 3xTF32 rate;
  16. main path, bf16 training: phase 6 with the CLI's default --dtype
      (float16: bf16 compute over f32 master weights, every block recomputed
      in the backward);
@@ -96,7 +102,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
-BF16 tensor-core peak), whichever is larger, at the measured shape) and,
+BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
+K8b also at 495 / 3 TFLOP/s, the TF32 peak over its three products) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
@@ -166,10 +173,10 @@ KERNELS = {
     "fused_qkv_attention": (fused_qkv_attention, "launches", "cuda",
                             "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
                             "npcd_tpu/ops/pallas/fused_qkv_attention.py:131"),
-    "layer_norm": (layer_norm, "launches", "triton", "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm": (layer_norm, "launches", "cuda", "npcd_tpu_torch/csrc/layer_norm.cu",
                    "npcd_tpu/ops/pallas/layer_norm.py:99"),
-    "layer_norm_residual": (layer_norm_residual, "launches", "triton",
-                            "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_residual": (layer_norm_residual, "launches", "cuda",
+                            "npcd_tpu_torch/csrc/layer_norm.cu",
                             "npcd_tpu/ops/pallas/layer_norm.py:206"),
     "knn": (knn, "launches", "cuda", "npcd_tpu_torch/csrc/knn.cu", "npcd_tpu/ops/pallas/knn.py:78"),
     "fused_mlp_posenc_wsum": (fused_mlp_posenc_wsum, "launches", "cuda",
@@ -207,11 +214,11 @@ KERNELS = {
     "fused_qkv_attention_bwd (bf16)": (fused_qkv_attention_bwd, "launches_bf16", "cuda",
                                        "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
                                        "npcd_tpu/ops/pallas/fused_qkv_attention.py:203"),
-    "layer_norm (bf16)": (layer_norm, "launches_bf16", "triton",
-                          "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm (bf16)": (layer_norm, "launches_bf16", "cuda",
+                          "npcd_tpu_torch/csrc/layer_norm.cu",
                           "npcd_tpu/ops/pallas/layer_norm.py:99"),
-    "layer_norm_residual (bf16)": (layer_norm_residual, "launches_bf16", "triton",
-                                   "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_residual (bf16)": (layer_norm_residual, "launches_bf16", "cuda",
+                                   "npcd_tpu_torch/csrc/layer_norm.cu",
                                    "npcd_tpu/ops/pallas/layer_norm.py:206"),
     "layer_norm_bwd (bf16)": (layer_norm_bwd, "launches_bf16", "triton",
                               "npcd_tpu_torch/ops/kernels/layer_norm.py",
@@ -247,9 +254,10 @@ FAST_STAGE1 = ("knn", "min_d2", "fused_mlp", "fused_mlp_bwd", "fused_mlp_posenc_
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
 STAGE1_WARMUP = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
-# operations/s outside the tensor cores and dense BF16 tensor-core
-# operations/s (the bound of the bf16 kernels)
-HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S = 3.35e12, 67e12, 989e12
+# operations/s outside the tensor cores, dense BF16 tensor-core
+# operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
+# operations/s (over 3, the rate of the f32 K8b's split products)
+HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 989e12, 495e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
 # pairs, so it is needed once per point: sum w*h per pair, then one
@@ -333,14 +341,16 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
-    # the bf16 K1 and K8 run their products on the tensor cores, the f32
-    # ones (exact f32, no TF32) on the CUDA cores; K1 has 6 kernels, K8 12
-    # (3 per flavour at D 64 and 128)
+    # the bf16 K1 and K8 and the f32 K8b (namespace tf: 3xTF32) run their
+    # products on the tensor cores; the f32 K1 and the f32 K8f (exact f32, no
+    # TF32) on the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64
+    # and 128)
+    tensor_cores = lambda k: k[1] == "bf16" or k[0].startswith("tf::")
     for name, n_kernels in (("fused_qkv_attention", 6), ("flash_attention", 12)):
         counts = _sass_mma_counts(name)
         print(f"[build] {name} SASS tensor-core instructions: "
               + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
-        wrong = [k for k, n in counts.items() if (n > 0) != (k[1] == "bf16")]
+        wrong = [k for k, n in counts.items() if (n > 0) != tensor_cores(k)]
         if len(counts) != n_kernels or wrong:
             raise AssertionError(f"{name}: tensor-core use differs from the design: "
                                  f"{wrong or counts}")
@@ -355,6 +365,31 @@ def _time_ms(fn, iters: int = 20) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """The device time of one ``fn()``: a CUDA graph of ``iters`` launches
+    captured after a warm-up on a side stream, replayed once, timed with
+    CUDA events (no Python or launch cost between the kernels)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -376,15 +411,20 @@ def _worst(triples) -> tuple:
 
 def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_fn,
             extra: str = "", tag: str = "kernels", flops: float = 0.0, nbytes: float = 0.0,
-            library_fn=None, peak: float = FP32_FLOP_S, iters: int = 20) -> None:
+            library_fn=None, peak: float = FP32_FLOP_S, iters: int = 20,
+            graph: bool = False) -> None:
     """Time kernel, plain version and (where there is one) the library call
     computing the same function, ``iters`` runs each; print; raise when
     err > tol. The bound is the larger of nbytes over the HBM rate and flops
-    over ``peak`` (operations/s)."""
+    over ``peak`` (operations/s). With ``graph``, the kernel's device time
+    from a replayed CUDA graph is printed too, with its share of the bound."""
     ms, plain_ms = _time_ms(kernel_fn, iters), _time_ms(plain_fn, iters)
     library_ms = _time_ms(library_fn, iters) if library_fn is not None else None
     bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / peak else "operations"
     bound_ms = max(nbytes / HBM_BYTES_S, flops / peak) * 1e3
+    if graph:
+        graph_ms = _graph_ms(kernel_fn, iters)
+        extra += f" graph replay {graph_ms:.4f} ms ({bound_ms / graph_ms:.3f} of the bound)"
     ok = err <= tol
     lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
     print(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
@@ -420,13 +460,13 @@ def phase_kernels() -> dict:
     err = _err(layer_norm(x, gamma, beta), layer_norm_plain(x, gamma, beta))
     check("layer_norm", err, 1e-4, lambda: layer_norm(x, gamma, beta),
           lambda: layer_norm_plain(x, gamma, beta), flops=8 * n_el, nbytes=4 * (2 * n_el + 2048),
-          library_fn=lambda: F.layer_norm(x, (1024,), gamma, beta, 1e-5))
+          library_fn=lambda: F.layer_norm(x, (1024,), gamma, beta, 1e-5), graph=True)
     r_k, y_k = layer_norm_residual(x, d, gamma, beta)
     r_p, y_p = layer_norm_plain(x, gamma, beta, delta=d)
     check("layer_norm_residual", max(_err(r_k, r_p), _err(y_k, y_p)), 1e-4,
           lambda: layer_norm_residual(x, d, gamma, beta),
           lambda: layer_norm_plain(x, gamma, beta, delta=d), flops=9 * n_el,
-          nbytes=4 * (4 * n_el + 2048))
+          nbytes=4 * (4 * n_el + 2048), graph=True)
 
     # K1: qkv [2*520, 3072], 16 heads x D 64, G 2, 513 valid keys; rows past
     # valid_len are discarded by the denoiser and not compared. f32 online
@@ -1136,7 +1176,7 @@ def phase_bf16_train_kernels() -> dict:
               extra=f" y bitwise share {share:.4f}, r bitwise equal",
               flops=(8 if delta is None else 9) * n_el,
               nbytes=2 * n_el * (2 if delta is None else 4) + 8 * rows + 8 * w,
-              library_fn=library_fn)
+              library_fn=library_fn, graph=True)
         if delta is None:
             bwd = lambda: layer_norm_bwd(x, gamma, mean_k, rstd_k, gy)
             bwd_plain = lambda: layer_norm_bwd_plain(x, gamma, mean_p, rstd_p, gy)
@@ -1278,6 +1318,11 @@ def phase_attention() -> tuple:
             extra = " dq/dk/dv bitwise shares " + " ".join(f"{x:.4f}" for x in shares)
         else:
             err, tol = _worst([(a, w, 1e-4) for a, w in zip(got, want)])
+            exact = _flash_bwd_f64(q, k, v, dout)
+            errs = lambda xs: " ".join(f"{_err(a, e):.2e}" for a, e in zip(xs, exact))
+            extra = (f" vs float64 dq/dk/dv: kernel {errs(got)}, f32 plain {errs(want)}; bound "
+                     f"at the 3xTF32 rate {10 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+            del exact
         ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         o_lib = F.scaled_dot_product_attention(ql, kl, vl)
         do_lib = dout.transpose(1, 2)
@@ -1288,6 +1333,24 @@ def phase_attention() -> tuple:
         del out_k, lse_k, out_p, lse_p, got, want, ql, kl, vl, o_lib, do_lib
         torch.cuda.empty_cache()
     return launches, results
+
+
+def _flash_bwd_f64(q, k, v, dout, step: int = 8) -> list:
+    """flash_attention_bwd_plain's arithmetic in float64 (the plain version
+    itself computes in f32), in slices of ``step`` batch rows -> [dq, dk,
+    dv] float64."""
+    ein = torch.einsum
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    parts = []
+    for i in range(0, q.shape[0], step):
+        q64, k64, v64, g = (t[i:i + step].double() for t in (q, k, v, dout))
+        p = torch.softmax(ein("bthc,bshc->bhts", q64, k64) * scale, dim=-1)
+        dp = ein("bthc,bshc->bhts", g, v64)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+        parts.append((ein("bhts,bshc->bthc", ds, k64), ein("bhts,bthc->bshc", ds, q64),
+                      ein("bhts,bthc->bshc", p, g)))
+        del p, dp, ds
+    return [torch.cat(x) for x in zip(*parts)]
 
 
 class _FirstObjects:

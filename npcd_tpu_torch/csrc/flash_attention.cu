@@ -17,30 +17,68 @@
 // refused. No sum uses atomics and every sum runs in a fixed order, so both
 // flavours are bitwise repeatable from run to run.
 //
-// f32 (exact f32 on the CUDA cores, no TF32). At the denoiser's shapes (S
-// 513, D 64) the forward is 4*S*S*D flops per (batch, head) and the backward
-// 16*S*S*D (Q K^T and dO V^T twice in the dQ pass, whose first sweep sums
-// delta, then again in the dK/dV pass, and dQ, dK, dV), against one read of
-// q, k, v (and dO) and one write of each output: compute-bound, on the f32
-// FMA pipes. One (batch, head)'s K and V at S 513, D 64 in f32 are 263 KB,
-// above the 227 KB of shared memory a block can hold, so each kernel keeps
-// its own rows in registers and streams tiles of the other side through
-// shared memory, with an online softmax in the forward:
-//   * forward: one block per (batch, head, query tile); D / 32 threads per
-//     query, each owning 32 of the head dims in interleaved float4 chunks
-//     (the query's threads read contiguous shared memory together) and
-//     combining partial dot products by shuffles; K/V tiles of 32 keys whose
-//     scores are accumulated side by side (32 independent FMA chains);
-//   * backward, dQ: the same layout over K/V tiles of 4 keys (s and dp for
-//     each); a first sweep over the keys sums delta = rowsum(p * dp) with
-//     p = exp(s - lse), a second accumulates dq += ds k;
-//   * backward, dK/dV: one block per (batch, head, key tile), D / 32 threads
-//     per key, streaming Q/dO tiles of 4 queries with their lse and delta:
-//     dv += p dO, dk += ds q.
-// The backward's tiles are small because each thread already holds 96
-// floats of its own rows: with 16- or 8-key dQ tiles (and 8-query dK/dV
-// tiles) ptxas spilled the dQ pass's registers to local memory, and the
-// backward ran slower the more it spilled.
+// f32, forward (exact f32 on the CUDA cores, no TF32). At the denoiser's
+// shapes (S 513, D 64) it is 4*S*S*D flops per (batch, head) against one
+// read of q, k, v and one write of out: compute-bound, on the f32 FMA pipes.
+// One (batch, head)'s K and V at S 513, D 64 in f32 are 263 KB, above the
+// 227 KB of shared memory a block can hold, so one block per (batch, head,
+// query tile) keeps its queries in registers and streams K/V tiles of 32
+// keys through shared memory with an online softmax; D / 32 threads per
+// query, each owning 32 of the head dims in interleaved float4 chunks (the
+// query's threads read contiguous shared memory together) and combining
+// partial dot products by shuffles; the 32 keys' scores are accumulated
+// side by side (32 independent FMA chains).
+//
+// f32, backward (K8b): on the tensor cores in 3xTF32. It is 9 product units
+// per (batch, head) (2 in the dQ pass's first sweep, which sums delta, 3 in
+// its second, 4 in the dK/dV pass; a unit is 2*S*S*D flops), 17.25 GFLOP a
+// unit at [32, 513, 16, 64]: 1.29 ms at the 67 TFLOP/s FP32 peak, where a
+// CUDA-core version (4-row tiles, because its own rows filled the
+// registers) ran at ~15 TFLOP/s on an H100. TF32 runs at 495 TFLOP/s dense but keeps
+// 10 mantissa bits, so every f32 operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi) (round to nearest, ties away; x - hi is exact) and each
+// product is a_lo b_hi + a_hi b_lo + a_hi b_hi on mma.sync.m16n8k8 (tf32
+// in, f32 accumulate): ~2**-21 of the f32 product, at 495 / 3 TFLOP/s
+// (tests/test_torch_flash_attention.py transcribes it on the CPU against
+// the Pallas kernel). The design is the bf16 flavour's below (4 warps, 16
+// own rows each; grid (row tile, head, batch); a two-stage cp.async ring;
+// rows at or past S zero-filled, keys past S p = 0, queries past S lse
+// +inf), with these differences:
+//   * the streamed side lands as raw f32 and the whole block splits each
+//     tile once, in place, into hi and lo arrays, so the four warps and the
+//     second sweep read split values; its rows are read by ldmatrix.x4 as
+//     8 x 4 blocks of 32-bit values (a tf32 B fragment's layout) where they
+//     are the B operand's columns (s = q k^T, dp = dO v^T and their
+//     transposes), and by 32-bit ld.shared where the rows are the summed
+//     dimension (ds k, p^T dO, ds^T q): ldmatrix.trans moves 16-bit
+//     elements and cannot transpose 32-bit ones. There the C fragment of
+//     p or ds is the next A fragment with its k order permuted (A's column
+//     u is C's 2u, u + 4 is 2u + 1, so B's rows are the tile's 2u and 2u +
+//     1), which needs no shuffle; rows are padded to D + 4 words, so both
+//     access patterns fall in 32 distinct banks;
+//   * the warp's own rows (q and dO, or k and v) stay raw f32 in shared
+//     memory and each 8-column slab is split as it is read, once for all
+//     the n-tiles of a step: their hi and lo in registers would take 128
+//     registers a thread at D 64;
+//   * the products with p or ds as the A operand split it in registers;
+//     all three products of a step go into one fresh f32 fragment per
+//     n-tile that is added to the running sum in f32, as in the bf16
+//     flavour;
+//   * tf32 rounding is (bits + 0x1000) & ~0x1fff, the bits cvt.rna.tf32.f32
+//     gives for finite x in two integer operations: the PTX conversion
+//     compiles to a longer sequence (it tests for NaN), and the backward
+//     ran slower with it;
+//   * the streamed tiles are 16 rows at D 64 (70 KB of shared memory a
+//     block, three blocks an SM) and 32 at D 128 (203 KB, one block).
+// ptxas -v (CUDA 12.8): bwd_dq 130 / 222 registers at D 64 / 128,
+// bwd_dkdv 168 / 255 with 4 bytes spilled at D 128; nothing else spills.
+// What bounds it: not the tensor cores (9 units x 3 products take ~1 ms of
+// the TF32 peak at [32, 513, 16, 64]) but dispatching and feeding
+// mma.sync: each warp owns only 16 rows, so each streamed value read from
+// shared memory feeds one m-tile's products, and the own rows' splits, the
+// exponentials and the fragment traffic take instruction slots beside the
+// HMMAs; the dQ pass's first sweep recomputes s and dp only for delta.
+// Next: wgmma (a 64-row warpgroup reads each streamed tile once).
 //
 // bf16 (q, k, v, dO, out, dq, dk, dv bf16; lse, delta f32): the same
 // contract, f32 math on the upcast inputs with the outputs rounded once, on
@@ -114,8 +152,6 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int CH = 8;   // float4 chunks per thread: 32 head dims
 constexpr int KT = 32;  // keys per shared-memory tile (forward)
-constexpr int KQ = 4;   // keys per shared-memory tile (dQ)
-constexpr int QB = 4;   // queries per shared-memory tile (dK/dV)
 
 typedef __nv_bfloat16 bf16;
 
@@ -240,168 +276,6 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __
     for (int c = 0; c < CH; ++c)
       st4(orow, c * TPQ + part, make_float4(o[c].x / l, o[c].y / l, o[c].z / l, o[c].w / l));
     if (part == 0) lse[((long)b * heads + h) * seq + qi] = m + logf(l);
-  }
-}
-
-// p = exp(s - lse) and dp = dO . v for the KQ keys of a shared-memory tile
-// (keys past nk: p = 0), from the query's own rows qr and g. A function
-// forced inline, not a lambda: a lambda the compiler keeps out of line
-// passes the arrays through local memory.
-template <int D>
-__device__ __forceinline__ void tile_p_dp(const float4 (&qr)[CH], const float4 (&g)[CH],
-                                          const float4* k4, const float4* v4, int part, int nk,
-                                          float scale, float lse_i, float (&p)[KQ],
-                                          float (&dp)[KQ]) {
-  constexpr int TPQ = D / 32;
-#pragma unroll
-  for (int j = 0; j < KQ; ++j) p[j] = dp[j] = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-#pragma unroll
-    for (int j = 0; j < KQ; ++j) {
-      p[j] = dot4(qr[c], k4[j * (D / 4) + c * TPQ + part], p[j]);
-      dp[j] = dot4(g[c], v4[j * (D / 4) + c * TPQ + part], dp[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KQ; ++j) {
-    const float sj = lane_sum<TPQ>(p[j]) * scale;
-    dp[j] = lane_sum<TPQ>(dp[j]);
-    p[j] = j < nk ? expf(sj - lse_i) : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
-          float* __restrict__ dq_out, int seq, int heads, float scale) {
-  constexpr int TPQ = D / 32, QT = THREADS / TPQ;
-  __shared__ __align__(16) float ks[KQ][D];
-  __shared__ __align__(16) float vs[KQ][D];
-  const int part = threadIdx.x % TPQ;
-  const int qi = blockIdx.x * QT + threadIdx.x / TPQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool q_ok = qi < seq;
-  const float* qrow = row_of<D>(q, b, q_ok ? qi : 0, h, seq, heads);
-  const float* grow = row_of<D>(dout, b, q_ok ? qi : 0, h, seq, heads);
-  float4 qr[CH], g[CH], dq[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    qr[c] = ld4(qrow, c * TPQ + part);
-    g[c] = ld4(grow, c * TPQ + part);
-    dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const long stat = ((long)b * heads + h) * seq + qi;
-  const float lse_i = q_ok ? lse[stat] : INFINITY;  // rows past S: p = 0
-  const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
-  const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
-
-  float dl = 0.f;  // delta = rowsum(p * dp)
-  for (int k0 = 0; k0 < seq; k0 += KQ) {
-    const int nk = min(KQ, seq - k0);
-    __syncthreads();
-    load_tile<D, KQ>(k, v, b, h, seq, heads, k0, nk, ks, vs);
-    __syncthreads();
-    float p[KQ], dp[KQ];
-    tile_p_dp<D>(qr, g, k4, v4, part, nk, scale, lse_i, p, dp);
-#pragma unroll
-    for (int j = 0; j < KQ; ++j) dl = fmaf(p[j], dp[j], dl);
-  }
-  if (q_ok && part == 0) delta[stat] = dl;
-
-  for (int k0 = 0; k0 < seq; k0 += KQ) {
-    const int nk = min(KQ, seq - k0);
-    __syncthreads();
-    load_tile<D, KQ>(k, v, b, h, seq, heads, k0, nk, ks, vs);
-    __syncthreads();
-    float p[KQ], dp[KQ];
-    tile_p_dp<D>(qr, g, k4, v4, part, nk, scale, lse_i, p, dp);
-#pragma unroll
-    for (int j = 0; j < KQ; ++j) p[j] = p[j] * (dp[j] - dl) * scale;  // ds
-#pragma unroll
-    for (int j = 0; j < KQ; ++j) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(p[j], k4[j * (D / 4) + c * TPQ + part], dq[c]);
-    }
-  }
-  if (q_ok) {
-    float* drow = dq_out + (((long)b * seq + qi) * heads + h) * D;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) st4(drow, c * TPQ + part, dq[c]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            const float* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, float* __restrict__ dk_out, float* __restrict__ dv_out,
-            int seq, int heads, float scale) {
-  constexpr int TPQ = D / 32, KBLK = THREADS / TPQ;
-  __shared__ __align__(16) float qs[QB][D];
-  __shared__ __align__(16) float gs[QB][D];
-  __shared__ float lses[QB], dls[QB];
-  const int part = threadIdx.x % TPQ;
-  const int kj = blockIdx.x * KBLK + threadIdx.x / TPQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool k_ok = kj < seq;
-  const float* krow = row_of<D>(k, b, k_ok ? kj : 0, h, seq, heads);
-  const float* vrow = row_of<D>(v, b, k_ok ? kj : 0, h, seq, heads);
-  float4 kr[CH], vr[CH], dk[CH], dv[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    kr[c] = ld4(krow, c * TPQ + part);
-    vr[c] = ld4(vrow, c * TPQ + part);
-    dk[c] = dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const long stat0 = ((long)b * heads + h) * seq;
-  const float4* q4 = reinterpret_cast<const float4*>(&qs[0][0]);
-  const float4* g4 = reinterpret_cast<const float4*>(&gs[0][0]);
-
-  for (int q0 = 0; q0 < seq; q0 += QB) {
-    const int nq = min(QB, seq - q0);
-    __syncthreads();
-    load_tile<D, QB>(q, dout, b, h, seq, heads, q0, nq, qs, gs);
-    if (threadIdx.x < QB) {
-      const int i = threadIdx.x;
-      lses[i] = i < nq ? lse[stat0 + q0 + i] : INFINITY;  // absent queries: p = 0
-      dls[i] = i < nq ? delta[stat0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float p[QB], dp[QB];
-#pragma unroll
-    for (int i = 0; i < QB; ++i) p[i] = dp[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-#pragma unroll
-      for (int i = 0; i < QB; ++i) {
-        p[i] = dot4(kr[c], q4[i * (D / 4) + c * TPQ + part], p[i]);
-        dp[i] = dot4(vr[c], g4[i * (D / 4) + c * TPQ + part], dp[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < QB; ++i) {
-      const float pi = expf(lane_sum<TPQ>(p[i]) * scale - lses[i]);
-      dp[i] = pi * (lane_sum<TPQ>(dp[i]) - dls[i]) * scale;  // ds
-      p[i] = pi;
-    }
-#pragma unroll
-    for (int i = 0; i < QB; ++i) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        axpy4(p[i], g4[i * (D / 4) + c * TPQ + part], dv[c]);
-        axpy4(dp[i], q4[i * (D / 4) + c * TPQ + part], dk[c]);
-      }
-    }
-  }
-  if (k_ok) {
-    const long r = (((long)b * seq + kj) * heads + h) * D;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      st4(dk_out + r, c * TPQ + part, dk[c]);
-      st4(dv_out + r, c * TPQ + part, dv[c]);
-    }
   }
 }
 
@@ -924,6 +798,405 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// f32 backward: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async)
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int WARPS = 4;
+constexpr int NT = 32 * WARPS;    // threads per block
+constexpr int ROWS = 16 * WARPS;  // the block's own rows: 16 per warp
+
+// Rows of the streamed side per shared-memory tile, and the blocks an SM
+// should hold: at D 64, 16-row tiles make a block's shared memory 70 KB, so
+// three blocks (12 warps) share an SM; at D 128, 32-row tiles (203 KB, one
+// block), where 16-row ones ran slower (ptxas spilled the dK/dV pass).
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D <= 64 ? 16 : 32;
+}
+
+template <int D>
+__host__ __device__ constexpr int min_blocks() {
+  return D <= 64 ? 3 : 1;
+}
+
+// The block's own rows of one head (raw f32), each padded by 4 floats: with
+// a row stride of D + 4 (4 mod 32 banks) the fragment reads below fall in
+// 32 distinct banks.
+template <int D>
+struct Own {
+  float r[ROWS][D + 4];
+};
+
+// A streamed tile split into tf32 hi and lo (their f32 bit patterns), rows
+// padded as Own's: cp.async lands the raw f32 rows in hi, split_tile then
+// splits them in place, once for the block's four warps.
+template <int D>
+struct Split {
+  unsigned hi[tile_rows<D>()][D + 4];
+  unsigned lo[tile_rows<D>()][D + 4];
+};
+
+// Rows [r0, r0 + N) of one head (src: its row 0; rows `stride` elements
+// apart) into t by cp.async; rows at or past `end` are zero-filled.
+template <int D, int N>
+__device__ __forceinline__ void load_rows(void* t, const float* src, long stride, int r0,
+                                          int end) {
+  float(*dst)[D + 4] = reinterpret_cast<float(*)[D + 4]>(t);
+#pragma unroll
+  for (int it = 0; it < N * D / 4 / NT; ++it) {
+    const int i = threadIdx.x + it * NT, r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool ok = r0 + r < end;
+    tc::cp16(&dst[r][c], src + (ok ? (long)(r0 + r) * stride + c : 0), ok);
+  }
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits cvt.rna.tf32.f32 gives for finite x (the low 13 bits 0,
+// so it is also an f32), in two integer operations (the PTX conversion
+// compiles to a longer sequence that also tests for NaN; a NaN or inf
+// input makes the output non-finite either way)
+__device__ __forceinline__ unsigned tf32(unsigned x) { return (x + 0x1000u) & 0xffffe000u; }
+
+// x as hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in f32): hi + lo
+// carries x to within ~2**-22 of itself
+__device__ __forceinline__ void split(unsigned x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  split(__float_as_uint(x), hi, lo);
+}
+
+// The raw rows in t.hi split into hi and lo in place, by the whole block.
+template <int D>
+__device__ __forceinline__ void split_tile(Split<D>& t) {
+#pragma unroll
+  for (int it = 0; it < tile_rows<D>() * D / 4 / NT; ++it) {
+    const int i = threadIdx.x + it * NT, r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const uint4 x = *reinterpret_cast<const uint4*>(&t.hi[r][c]);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(&t.hi[r][c]) = h;
+    *reinterpret_cast<uint4*>(&t.lo[r][c]) = l;
+  }
+}
+
+// Four 8 x 4 blocks of 32-bit values (as ldmatrix's 8 x 8 b16 matrices):
+// lane l gives the row address of block l / 8, and receives row l / 4,
+// element l % 4 of block i in r[i], which is a tf32 B fragment's layout.
+__device__ __forceinline__ void ldsm(unsigned (&r)[4], const unsigned* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc::smem(p)));
+}
+
+// c += a b: a the 16 x 8 A fragment (row-major), b0/b1 the 8 x 8 B fragment
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a_lo b_hi + a_hi b_lo + a_hi b_hi (the 3xTF32 product; a_lo b_lo is
+// below f32 precision)
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                     unsigned bl0, unsigned bl1) {
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+// Fragment addressing; lane = threadIdx.x & 31, g = lane / 4, u = lane % 4.
+// A (16 x 8): a0 (g, u), a1 (g + 8, u), a2 (g, u + 4), a3 (g + 8, u + 4);
+// B (8 x 8): b0 (u, g), b1 (u + 4, g); C (16 x 8): c0 (g, 2u), c1 (g, 2u +
+// 1), c2 (g + 8, 2u), c3 (g + 8, 2u + 1).
+//
+// c[j] = a . t[n0 + 8j, n0 + 8j + 8)^T over the D columns, for the NJ (even)
+// n-tiles (the B operand is t's rows: keys or queries; a: the warp's 16
+// rows of own, from row a0, split as they are read, each 8-column slab once
+// for the NJ n-tiles; banks (4g + u) mod 32). The B fragments of two
+// n-tiles' hi (or lo) come from one ldmatrix.x4.
+template <int D, int NJ>
+__device__ __forceinline__ void rows_product(float (&c)[NJ][4], const Own<D>& a, int a0,
+                                             const Split<D>& t, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, u = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int d = 8 * kk + u;
+    unsigned ah[4], al[4];
+    split(a.r[a0 + g][d], ah[0], al[0]);
+    split(a.r[a0 + g + 8][d], ah[1], al[1]);
+    split(a.r[a0 + g][d + 4], ah[2], al[2]);
+    split(a.r[a0 + g + 8][d + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      const int row = n0 + 8 * (j + (lane >> 4)) + (lane & 7);
+      const int col = 8 * kk + 4 * ((lane >> 3) & 1);
+      unsigned bh[4], bl[4];
+      ldsm(bh, &t.hi[row][col]);
+      ldsm(bl, &t.lo[row][col]);
+      mma3(c[j], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(c[j + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc[n] += p . t[k0, k0 + 8 NK)[8n, 8n + 8) for the D / 8 n-tiles (the B
+// operand is t's columns, summed over its rows). p is NK C fragments (16 x
+// 8 each), taken as the A fragments of the NK k-steps with the k order
+// permuted: A's column u is C's column 2u and A's column u + 4 is C's 2u +
+// 1, so B's row u is t's row 2u and its row u + 4 is t's row 2u + 1 (32-bit
+// ld.shared: ldmatrix cannot transpose 32-bit elements; banks (8u + g) and
+// (8u + 4 + g) mod 32). p is split into tf32 hi and lo here; the 3 NK
+// products of each n-tile go into one fresh f32 fragment, which is then
+// added to acc in f32 (the MMA's own sums do not round as f32 adds do).
+template <int D, int NK>
+__device__ __forceinline__ void split_product(float (&acc)[D / 8][4], const float (&p)[NK][4],
+                                              const Split<D>& t, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, u = lane & 3;
+  unsigned ph[NK][4], pl[NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    split(p[kk][0], ph[kk][0], pl[kk][0]);
+    split(p[kk][2], ph[kk][1], pl[kk][1]);
+    split(p[kk][1], ph[kk][2], pl[kk][2]);
+    split(p[kk][3], ph[kk][3], pl[kk][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float f[4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int r = k0 + 8 * kk + 2 * u, col = 8 * n + g;
+      mma3(f, ph[kk], pl[kk], t.hi[r][col], t.hi[r + 1][col], t.lo[r][col], t.lo[r + 1][col]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += f[e];
+  }
+}
+
+// Rows g and g + 8 of a warp's [16, D] f32 accumulator at dst + row *
+// stride for the rows below `end` (row0: the warp's first row).
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, long stride, const float (&acc)[D / 8][4],
+                                           int row0, int end) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + g + 8 * r >= end) continue;
+    float2* row = reinterpret_cast<float2*>(dst + (long)(row0 + g + 8 * r) * stride + c);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) row[4 * n] = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// shared memory: the block's own two row sets and a ring of 2 x 2 split
+// tiles (and, in the dK/dV pass, the tiles' lse and delta)
+template <int D>
+constexpr int dq_smem() {
+  return 2 * sizeof(Own<D>) + 4 * sizeof(Split<D>);
+}
+
+template <int D>
+constexpr int dkdv_smem() {
+  return dq_smem<D>() + 4 * tile_rows<D>() * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+       const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
+       float* __restrict__ dq_out, int seq, int heads, float scale) {
+  constexpr int TILE = tile_rows<D>(), TILE_N = TILE / 8;
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);         // the block's q and dO
+  Split<D>* ring = reinterpret_cast<Split<D>*>(own + 2);  // K tiles in 0-1, V tiles in 2-3
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long stride = (long)heads * D;
+  const long head0 = (long)b * seq * stride + (long)h * D;
+  const int wq = 16 * warp;  // the warp's first row in own
+  const bool active = q0 + wq < seq;
+  const int nkt = (seq + TILE - 1) / TILE, steps = 2 * nkt;
+  const long stat0 = ((long)b * heads + h) * seq;
+
+  load_rows<D, ROWS>(&own[0], q + head0, stride, q0, seq);
+  load_rows<D, ROWS>(&own[1], dout + head0, stride, q0, seq);
+  load_rows<D, TILE>(ring[0].hi, k + head0, stride, 0, seq);
+  load_rows<D, TILE>(ring[2].hi, v + head0, stride, 0, seq);
+  tc::cp_commit();
+
+  const int rows[2] = {q0 + wq + g, q0 + wq + g + 8};
+  float lr[2], dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lr[r] = rows[r] < seq ? lse[stat0 + rows[r]] : INFINITY;
+  float dq[D / 8][4] = {};
+
+  // steps [0, nkt): delta = rowsum(p * dp); [nkt, 2 nkt): dq += ds k; one
+  // tile of keys a step
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      const int k1 = ((t + 1) % nkt) * TILE, buf = (t + 1) & 1;
+      load_rows<D, TILE>(ring[buf].hi, k + head0, stride, k1, seq);
+      load_rows<D, TILE>(ring[2 + buf].hi, v + head0, stride, k1, seq);
+    }
+    tc::cp_commit();
+    tc::cp_wait<1>();
+    __syncthreads();
+    Split<D>& kt = ring[t & 1];
+    Split<D>& vt = ring[2 + (t & 1)];
+    split_tile(kt);
+    split_tile(vt);
+    __syncthreads();
+    const bool second = t >= nkt;
+    if (t == nkt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dl[r] = tc::quad_sum(dl[r]);
+        if (active && c == 0 && rows[r] < seq) delta[stat0 + rows[r]] = dl[r];
+      }
+    }
+    if (active) {
+      const int kc = (t % nkt) * TILE;
+      float p[TILE_N][4], dp[TILE_N][4];
+      rows_product(p, own[0], wq, kt, 0);
+      rows_product(dp, own[1], wq, vt, 0);
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // keys past S: p = 0
+          const float pe = expf(p[j][e] * scale - lr[e >> 1]);
+          p[j][e] = kc + 8 * j + c + (e & 1) < seq ? pe : 0.f;
+        }
+      if (!second) {
+#pragma unroll
+        for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dl[e >> 1] = fmaf(p[j][e], dp[j][e], dl[e >> 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[j][e] = p[j][e] * (dp[j][e] - dl[e >> 1]) * scale;  // ds
+        split_product(dq, p, kt, 0);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+  store_rows<D>(dq_out + head0, stride, dq, q0 + wq, seq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+         const float* __restrict__ dout, const float* __restrict__ lse,
+         const float* __restrict__ delta, float* __restrict__ dk_out, float* __restrict__ dv_out,
+         int seq, int heads, float scale) {
+  constexpr int TILE = tile_rows<D>(), TILE_N = TILE / 8;
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);         // the block's k and v
+  Split<D>* qt = reinterpret_cast<Split<D>*>(own + 2);  // q tiles (ring of 2)
+  Split<D>* gt = qt + 2;                                // dO tiles (ring of 2)
+  float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(qt + 4);  // lse of the tile (ring)
+  float(*ds)[TILE] = ls + 2;                                    // delta of the tile (ring)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = 2 * (lane & 3);
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long stride = (long)heads * D;
+  const long head0 = (long)b * seq * stride + (long)h * D;
+  const long stat0 = ((long)b * heads + h) * seq;
+  const int wk = 16 * warp;  // the warp's first row in own
+  const bool active = k0 + wk < seq;
+  const int nqt = (seq + TILE - 1) / TILE;
+
+  load_rows<D, ROWS>(&own[0], k + head0, stride, k0, seq);
+  load_rows<D, ROWS>(&own[1], v + head0, stride, k0, seq);
+  load_rows<D, TILE>(qt[0].hi, q + head0, stride, 0, seq);
+  load_rows<D, TILE>(gt[0].hi, dout + head0, stride, 0, seq);
+  tc::cp_commit();
+  if (threadIdx.x < TILE) {  // queries past S: lse +inf, so p = ds = 0
+    const int i = threadIdx.x;
+    ls[0][i] = i < seq ? lse[stat0 + i] : INFINITY;
+    ds[0][i] = i < seq ? delta[stat0 + i] : 0.f;
+  }
+
+  // one tile of queries a step: s^T = k q^T, dp^T = v dO^T, then dv +=
+  // p^T dO and dk += ds^T q
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  for (int t = 0; t < nqt; ++t) {
+    const int nbuf = (t + 1) & 1;
+    float nl = INFINITY, nd = 0.f;  // the next tile's statistics
+    if (t + 1 < nqt) {
+      const int q1 = (t + 1) * TILE;
+      load_rows<D, TILE>(qt[nbuf].hi, q + head0, stride, q1, seq);
+      load_rows<D, TILE>(gt[nbuf].hi, dout + head0, stride, q1, seq);
+      if (threadIdx.x < TILE && q1 + threadIdx.x < seq) {
+        nl = lse[stat0 + q1 + threadIdx.x];
+        nd = delta[stat0 + q1 + threadIdx.x];
+      }
+    }
+    tc::cp_commit();
+    tc::cp_wait<1>();
+    __syncthreads();
+    const int buf = t & 1;
+    split_tile(qt[buf]);
+    split_tile(gt[buf]);
+    __syncthreads();
+    if (active) {
+      float s[TILE_N][4], dp[TILE_N][4];
+      rows_product(s, own[0], wk, qt[buf], 0);
+      rows_product(dp, own[1], wk, gt[buf], 0);
+      // p^T and ds^T, the A operands of dv and dk
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(&ls[buf][8 * j + c]);
+        const float2 dj = *reinterpret_cast<const float2*>(&ds[buf][8 * j + c]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = expf(s[j][2 * r] * scale - lj.x);
+          const float p1 = expf(s[j][2 * r + 1] * scale - lj.y);
+          dp[j][2 * r] = p0 * (dp[j][2 * r] - dj.x) * scale;
+          dp[j][2 * r + 1] = p1 * (dp[j][2 * r + 1] - dj.y) * scale;
+          s[j][2 * r] = p0;
+          s[j][2 * r + 1] = p1;
+        }
+      }
+      split_product(dv, s, gt[buf], 0);
+      split_product(dk, dp, qt[buf], 0);
+    }
+    if (threadIdx.x < TILE && t + 1 < nqt) {
+      ls[nbuf][threadIdx.x] = nl;
+      ds[nbuf][threadIdx.x] = nd;
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+  store_rows<D>(dk_out + head0, stride, dk, k0 + wk, seq);
+  store_rows<D>(dv_out + head0, stride, dv, k0 + wk, seq);
+}
+
+}  // namespace tf
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -933,20 +1206,6 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out, float
   constexpr int QT = THREADS / (D / 32);
   dim3 grid((seq + QT - 1) / QT, heads, batch);
   fa_fwd<D><<<grid, THREADS, 0, s>>>(q, k, v, out, lse, seq, heads, 1.f / sqrtf((float)D));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_bwd(const float* q, const float* k, const float* v, const float* dout,
-               const float* lse, float* delta, float* dq, float* dk, float* dv, int batch,
-               int seq, int heads, cudaStream_t s) {
-  constexpr int QT = THREADS / (D / 32);
-  const float scale = 1.f / sqrtf((float)D);
-  dim3 grid((seq + QT - 1) / QT, heads, batch);
-  fa_bwd_dq<D><<<grid, THREADS, 0, s>>>(q, k, v, dout, lse, delta, dq, seq, heads, scale);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  fa_bwd_dkdv<D><<<grid, THREADS, 0, s>>>(q, k, v, dout, lse, delta, dk, dv, seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -965,6 +1224,22 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* ls
   if (int err = allow_smem(tc::fwd<D>, smem)) return err;
   dim3 grid((seq + tc::ROWS - 1) / tc::ROWS, heads, batch);
   tc::fwd<D><<<grid, tc::NT, smem, s>>>(q, k, v, out, lse, seq, heads, tc::scale_of(D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd(const float* q, const float* k, const float* v, const float* dout,
+               const float* lse, float* delta, float* dq, float* dk, float* dv, int batch,
+               int seq, int heads, cudaStream_t s) {
+  constexpr int smem_dq = tf::dq_smem<D>(), smem_dkdv = tf::dkdv_smem<D>();
+  const float scale = tc::scale_of(D);
+  dim3 grid((seq + tf::ROWS - 1) / tf::ROWS, heads, batch);
+  if (int err = allow_smem(tf::bwd_dq<D>, smem_dq)) return err;
+  tf::bwd_dq<D><<<grid, tf::NT, smem_dq, s>>>(q, k, v, dout, lse, delta, dq, seq, heads, scale);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  if (int err = allow_smem(tf::bwd_dkdv<D>, smem_dkdv)) return err;
+  tf::bwd_dkdv<D><<<grid, tf::NT, smem_dkdv, s>>>(q, k, v, dout, lse, delta, dk, dv, seq, heads,
+                                                  scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""K2: LayerNorm and residual-add + LayerNorm, forward and backward (Triton).
+"""K2: LayerNorm and residual-add + LayerNorm, forward (CUDA C++,
+``csrc/layer_norm.cu``) and backward (Triton).
 
 Replaces npcd_tpu/ops/pallas/layer_norm.py: layer_norm (_ln_fwd_kernel,
 K2a; _ln_bwd_kernel, K2c) and layer_norm_residual (_lnres_fwd_kernel, K2b;
@@ -17,15 +18,19 @@ gy of y, and returns the same dr for x and for delta.
 
 What bounds it on the H100: a row of W = 1024 is read once (twice with the
 residual) and written once (twice), with ~10 flops per element, so forward
-and backward are bound by memory bandwidth; at the denoiser's [B*520, 1024]
-slabs they are also small enough that launch latency matters. Design: one
-Triton program per row in the forward, with the whole row (BLOCK = next
-power of two >= W) in registers, so x and delta are read once and the
-residual sum is written from registers; in the backward one program per
-block of 32 rows, which keeps its dgamma/dbeta partials in registers across
-the rows and writes them once. The sequence-pad rows of the denoiser are
-all zeros: their variance is 0, rsqrt(eps) stays finite, y = beta, and with
-a zero cotangent their dx is exactly 0.
+and backward are bound by memory bandwidth; the denoiser's f32 [2·520,
+1024] slabs of the sampler are so small (8.5 MB, ~2.5 us of HBM) that the
+host's cost per launch sets the forward's time. The forward is one CUDA
+kernel for K2a and K2b, f32 and bf16 (one warp per row, the row in
+registers, shuffle reductions; see the source's note), bound with ctypes
+and launched from a short host path: the C function is looked up once,
+mean and rstd come from one allocation, and only the checks the kernel
+needs run. Widths up to ``MAX_WIDTH`` are built; a wider row raises. The
+backward is Triton: one program per block of 32 rows, which keeps its
+dgamma/dbeta partials in registers across the rows and writes them once.
+The sequence-pad rows of the denoiser are all zeros: their variance is 0,
+rsqrt(eps) stays finite, y = beta, and with a zero cotangent their dx is
+exactly 0.
 
 In bf16 (x, delta and the cotangents bf16, gamma and beta f32) every
 kernel loads into f32 and stores in the element type, as npcd_tpu's bf16
@@ -37,13 +42,15 @@ are summed in f32. The plain versions do the same. Launches on bf16 inputs
 are counted apart, in each wrapper's ``launches_bf16``.
 
 ``layer_norm`` / ``layer_norm_residual`` launch the forward kernel for CUDA
-tensors and run the plain PyTorch versions for CPU tensors; under autograd
-they go through a ``torch.autograd.Function`` whose backward calls
-``layer_norm_bwd`` / ``layer_norm_residual_bwd`` (kernel on CUDA, plain
-version on the CPU). Triton is imported only when a kernel is launched.
+tensors (or raise) and run the plain PyTorch versions for CPU tensors;
+under autograd they go through a ``torch.autograd.Function`` whose backward
+calls ``layer_norm_bwd`` / ``layer_norm_residual_bwd`` (kernel on CUDA,
+plain version on the CPU). Triton is imported only when a backward kernel
+is launched.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -51,6 +58,8 @@ import torch
 from . import build
 
 BWD_ROWS = 32  # rows per backward program
+MAX_WIDTH = 2048  # the widest row the forward kernel holds in registers
+_IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def layer_norm_fwd_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -97,32 +106,19 @@ def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tenso
 
 
 @functools.cache
+def _fwd_fn():
+    """The C entry point of csrc/layer_norm.cu, built on first use."""
+    fn = build.load("layer_norm").layer_norm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _kernels():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def ln_fwd(x_ptr, d_ptr, g_ptr, b_ptr, y_ptr, r_ptr, mean_ptr, rstd_ptr, width, eps,
-               HAS_RESIDUAL: tl.constexpr, SAVE_STATS: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        in_row = cols < width
-        offs = row * width + cols
-        x = tl.load(x_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
-        if HAS_RESIDUAL:
-            x = x + tl.load(d_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
-            tl.store(r_ptr + offs, x.to(r_ptr.dtype.element_ty), mask=in_row)
-        mean = tl.sum(x, axis=0) / width
-        xc = tl.where(in_row, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / width
-        rstd = tl.rsqrt(var + eps)
-        g = tl.load(g_ptr + cols, mask=in_row, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + cols, mask=in_row, other=0.0).to(tl.float32)
-        y = xc * rstd * g + b
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=in_row)
-        if SAVE_STATS:
-            tl.store(mean_ptr + row, mean)
-            tl.store(rstd_ptr + row, rstd)
 
     @triton.jit
     def ln_bwd(x_ptr, g_ptr, mean_ptr, rstd_ptr, gy_ptr, gr_ptr, dx_ptr, dg_ptr, db_ptr,
@@ -153,7 +149,7 @@ def _kernels():
         tl.store(dg_ptr + pid.to(tl.int64) * width + cols, dg, mask=in_row)
         tl.store(db_ptr + pid.to(tl.int64) * width + cols, db, mask=in_row)
 
-    return triton, ln_fwd, ln_bwd
+    return triton, ln_bwd
 
 
 def _num_warps(block: int) -> int:
@@ -161,34 +157,39 @@ def _num_warps(block: int) -> int:
 
 
 def _check(what, x, gamma, beta, delta=None):
-    build.require(x.dim() >= 1 and gamma.shape == (x.shape[-1],)
-                  and beta.shape == (x.shape[-1],), what,
-                  f"gamma/beta must be [{x.shape[-1]}]")
-    if delta is not None:
-        build.require(delta.shape == x.shape and delta.dtype == x.dtype, what,
-                      "delta must match x in shape and dtype")
+    width = x.shape[-1] if x.dim() else None
+    if width is None or gamma.shape != (width,) or beta.shape != (width,):
+        raise ValueError(f"{what}: gamma/beta must be [{width}]")
+    if delta is not None and (delta.shape != x.shape or delta.dtype != x.dtype):
+        raise ValueError(f"{what}: delta must match x in shape and dtype")
 
 
 def _launch_fwd(x, gamma, beta, eps, delta, save_stats):
-    what = "layer_norm" if delta is None else "layer_norm_residual"
-    build.require(x.dtype in (torch.float32, torch.bfloat16), what,
-                  f"unsupported dtype {x.dtype}")
-    for t in [x, gamma, beta] + ([delta] if delta is not None else []):
-        build.require(t.is_contiguous(), what, "inputs must be contiguous")
-    triton, kernel, _ = _kernels()
+    """The forward kernel on CUDA tensors; the host path is kept short (the
+    f32 sampler's launches are host-bound): one condition, one allocation
+    per output, the statistics in one."""
     width = x.shape[-1]
+    if not (x.dtype in _IO_DTYPES and gamma.dtype == beta.dtype == torch.float32
+            and width <= MAX_WIDTH and x.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous() and (delta is None or delta.is_contiguous())):
+        raise ValueError(
+            f"{'layer_norm' if delta is None else 'layer_norm_residual'}: the kernel takes "
+            f"contiguous float32 or bfloat16 x and delta, float32 gamma/beta and widths up to "
+            f"{MAX_WIDTH}; got x {x.dtype}, gamma {gamma.dtype}, width {width}")
     rows = x.numel() // width
     y = torch.empty_like(x)
-    r = torch.empty_like(x) if delta is not None else x
-    stats = [torch.empty(rows, device=x.device, dtype=torch.float32) for _ in range(2)
-             ] if save_stats else [None, None]
-    block = triton.next_power_of_2(width)
-    kernel[(rows,)](x, delta if delta is not None else x, gamma, beta, y, r,
-                    stats[0] if save_stats else y, stats[1] if save_stats else y,
-                    width, eps, HAS_RESIDUAL=delta is not None, SAVE_STATS=save_stats,
-                    BLOCK=block, num_warps=_num_warps(block))
-    build.count_launch(layer_norm if delta is None else layer_norm_residual, x.dtype)
-    return r, y, stats[0], stats[1]
+    r = x if delta is None else torch.empty_like(x)
+    stats = torch.empty((2, rows), device=x.device, dtype=torch.float32) if save_stats else None
+    stats_ptr = stats.data_ptr() if save_stats else None
+    bf16 = x.dtype == torch.bfloat16
+    err = _fwd_fn()(x.data_ptr(), None if delta is None else delta.data_ptr(), gamma.data_ptr(),
+                    beta.data_ptr(), y.data_ptr(), None if delta is None else r.data_ptr(),
+                    stats_ptr, None if stats_ptr is None else stats_ptr + 4 * rows, rows, width,
+                    eps, bf16, build.stream_ptr())
+    wrapper = layer_norm if delta is None else layer_norm_residual
+    build.check(err, wrapper.__name__)
+    build.count_launch(wrapper, x.dtype)
+    return (r, y) + ((None, None) if stats is None else tuple(stats.unbind(0)))
 
 
 def _forward(x, gamma, beta, eps, delta, save_stats):
@@ -225,7 +226,7 @@ def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
         build.require(t.is_contiguous(), what, "inputs must be contiguous")
     build.require(gy.shape == x.shape and (gr is None or gr.shape == x.shape), what,
                   "cotangents must match x")
-    triton, _, kernel = _kernels()
+    triton, kernel = _kernels()
     n_prog = -(-rows // BWD_ROWS)
     dx = torch.empty_like(x)
     dg = torch.empty((n_prog, width), device=x.device, dtype=torch.float32)

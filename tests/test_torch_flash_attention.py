@@ -201,3 +201,72 @@ def test_k8_bf16_operand_contract():
         shares(_k8_bf16_arithmetic(q, k, v, g, False))
     assert min(split) >= 0.99, split
     assert max(single) < 0.9, single
+
+
+def _tf32(x):
+    """f32 x rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32: the low 13 bits of the f32 pattern."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, lo):
+    """a @ b on the tensor cores as the f32 K8b feeds them: both operands
+    split into tf32 hi = tf32(x) and lo = tf32(x - hi), the three products
+    a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32 (lo False: a_hi b_hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not lo:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _stepped(a, b, step, lo):
+    """sum over the summed dimension in steps of ``step`` rows, each step's
+    product a fresh f32 sum added to the running one in f32."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i in range(0, a.shape[-1], step):
+        acc = acc + _tf32_product(a[..., i:i + step], b[..., i:i + step, :], lo)
+    return acc
+
+
+def _k8_f32_bwd_arithmetic(q, k, v, g, lo):
+    """The f32 K8b's arithmetic (csrc/flash_attention.cu, namespace tf) on f32
+    [B, S, H, D] inputs: the dQ pass forms s = q k^T and dp = dO v^T with the
+    3xTF32 product (lo False: one tf32 product), p = exp(s scale - lse) from
+    the forward's f32 lse, delta = rowsum(p dp) and ds = p (dp - delta)
+    scale in f32, and dq = ds k over 32-key steps; the dK/dV pass forms s^T
+    = k q^T and dp^T = v dO^T, and dv = p^T dO and dk = ds^T q over 16-query
+    steps -> dq, dk, dv as numpy."""
+    q, k, v, g = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, g))
+    scale = torch.tensor(1 / math.sqrt(q.shape[-1]), dtype=torch.float32)
+    t = lambda x: x.transpose(-1, -2)
+    lse = torch.logsumexp(q @ t(k) * scale, dim=-1, keepdim=True)
+    p = torch.exp(_tf32_product(q, t(k), lo) * scale - lse)
+    dp = _tf32_product(g, t(v), lo)
+    delta = (p * dp).sum(-1, keepdim=True)
+    dq = _stepped(p * (dp - delta) * scale, k, 32, lo)
+    pt = torch.exp(_tf32_product(k, t(q), lo) * scale - t(lse))
+    dst = pt * (_tf32_product(v, t(g), lo) - t(delta)) * scale
+    dk, dv = _stepped(dst, q, 16, lo), _stepped(pt, g, 16, lo)
+    return [x.transpose(1, 2).numpy() for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("lo", [True, False])
+def test_k8_f32_tf32_split_contract(lo):
+    """Why the f32 K8b on the tensor cores splits every operand into tf32
+    hi + lo: at [1, 130, 2, 64], the kernels' arithmetic so transcribed
+    agrees with npcd_tpu's Pallas flash_attention backward (interpret mode,
+    exact f32) within the card test's f32 tolerance, 1e-5 of max(1, each
+    gradient's largest magnitude) (6.6e-7 / 8.9e-7 / 6.0e-7 of it for dq /
+    dk / dv measured here); with one tf32 product (hi only) it does not
+    (3.9e-4 / 5.4e-4 / 5.3e-4)."""
+    rng = np.random.default_rng(8)
+    q, k, v, g = (rng.normal(size=(1, 130, 2, 64)).astype(np.float32) for _ in range(4))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_flash_attention, *(jnp.asarray(a) for a in (q, k, v)))
+        want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = _k8_f32_bwd_arithmetic(q, k, v, g, lo)
+    rel = [np.abs(a - w).max() / max(1.0, np.abs(w).max()) for a, w in zip(got, want)]
+    if lo:
+        assert max(rel) <= 1e-5, rel
+    else:
+        assert max(rel) > 1e-5, rel

@@ -38,7 +38,10 @@ and K8's f32 outputs within 1e-5, the LayerNorm's f32 dgamma/dbeta within
 own forward's statistics). The bf16 K1f/K1b (tensor cores) are also held at
 sequences that cut their 64-row tiles raggedly on both sides, and two of
 their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
-P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513."""
+P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513, and
+the f32 K8b (tensor cores, 3xTF32). The LayerNorm forward kernel (one warp
+per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
+path, and a CUDA graph of it must replay to the eager launch's bits."""
 import math
 
 import pytest
@@ -560,6 +563,86 @@ def test_layer_norm_bf16_kernels(dev, residual):
         _close_rel(a, w, 1e-4)
 
 
+# The forward kernel (csrc/layer_norm.cu, one warp per row) at one row, a
+# partial block of rows and the bf16 stage-2 step's 16,640, at widths 1000
+# and 1024 (both on its 16-byte vector path), f32 and bf16, with and without
+# the residual; with the saved statistics (layer_norm_fwd) and without them
+# (layer_norm, layer_norm_residual)
+@pytest.mark.parametrize("rows", [1, 37, 16640])
+@pytest.mark.parametrize("width", [1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_forward_kernel(dev, rows, width, dtype, residual):
+    g = _gen(dev, 12)
+    x, d = (torch.randn(rows, width, generator=g, device=dev).to(dtype) for _ in range(2))
+    gamma, beta = 1 + 0.1 * torch.randn(width, generator=g, device=dev), \
+        0.1 * torch.randn(width, generator=g, device=dev)
+    delta = d if residual else None
+    wrapper = layer_norm_residual if residual else layer_norm
+    counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    launches = getattr(wrapper, counter)
+    got = layer_norm_fwd(x, gamma, beta, delta=delta)
+    want = layer_norm_fwd_plain(x, gamma, beta, delta=delta)
+    bare = layer_norm_residual(x, d, gamma, beta) if residual else (x, layer_norm(x, gamma, beta))
+    assert getattr(wrapper, counter) == launches + 2 and bare[1].dtype == got[1].dtype == dtype
+    for a, w in zip(got[2:], want[2:]):  # mean, rstd
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        for a, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got[0], want[0])  # r = bf16(x + delta)
+        _bf16_close(got[1], want[1])
+    # without the statistics: the same kernel, the same bits
+    assert torch.equal(bare[0], got[0]) and torch.equal(bare[1], got[1])
+
+
+def test_layer_norm_forward_kernel_scalar_path_and_width_limit(dev):
+    """A width that is no multiple of the 16-byte vector, and a misaligned
+    (contiguous) view, take the masked scalar path; a row wider than the
+    kernel holds raises."""
+    g = _gen(dev, 13)
+    for dtype in (torch.float32, torch.bfloat16):
+        gamma, beta = (torch.randn(999, generator=g, device=dev) for _ in range(2))
+        x, d = (torch.randn(37, 999, generator=g, device=dev).to(dtype) for _ in range(2))
+        buf = torch.randn(37 * 1024 + 1, generator=g, device=dev).to(dtype)
+        xm = buf[1:].view(37, 1024)  # 4 or 2 bytes past a 16-byte boundary
+        g2, b2 = (torch.randn(1024, generator=g, device=dev) for _ in range(2))
+        for args, delta in (((x, gamma, beta), d), ((xm, g2, b2), xm)):
+            got = layer_norm_fwd(*args, delta=delta)
+            want = layer_norm_fwd_plain(*args, delta=delta)
+            if dtype == torch.float32:
+                for a, w in zip(got, want):
+                    torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(got[0], want[0])
+                _bf16_close(got[1], want[1])
+    wide = torch.zeros(2, 2049, device=dev)
+    with pytest.raises(ValueError):
+        layer_norm(wide, torch.ones(2049, device=dev), torch.zeros(2049, device=dev))
+
+
+def test_layer_norm_residual_graph_replay_is_bitwise_eager(dev):
+    """The forward launches on the current stream and allocates nothing
+    itself: a CUDA graph of it replays to the eager launch's bits."""
+    g = _gen(dev, 14)
+    x, d = (torch.randn(1040, 1024, generator=g, device=dev) for _ in range(2))
+    gamma, beta = 1 + 0.1 * torch.randn(1024, generator=g, device=dev), \
+        0.1 * torch.randn(1024, generator=g, device=dev)
+    r0, y0 = layer_norm_residual(x, d, gamma, beta)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        layer_norm_residual(x, d, gamma, beta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        r1, y1 = layer_norm_residual(x, d, gamma, beta)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r0) and torch.equal(y1, y0)
+
+
 # S 77: partial query and key tiles; bf16 (the tensor-core kernels, 64-row
 # tiles, 32-key steps) also at S 1, 64 (one full tile), 65 (a second tile
 # one row deep), 130 (three, the third 2 rows deep; batch 1 too) and 513
@@ -610,6 +693,17 @@ def test_flash_attention_bf16_kernels_are_repeatable(dev, b, s, h, d):
     (out0, lse0), (out1, lse1) = (flash_attention_fwd(q, k, v) for _ in range(2))
     assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
     grads = [flash_attention_bwd(q, k, v, lse0, dout) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 130, 3, 64), (2, 130, 3, 128), (32, 513, 16, 64)])
+def test_flash_attention_f32_backward_is_repeatable(dev, b, s, h, d):
+    """Two launches of the f32 K8b (tensor cores, 3xTF32) give bitwise
+    equal dq, dk and dv (no atomics, fixed summation orders)."""
+    g = _gen(dev, 15)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev) for _ in range(4))
+    _, lse = flash_attention_fwd(q, k, v)
+    grads = [flash_attention_bwd(q, k, v, lse, dout) for _ in range(2)]
     assert all(torch.equal(x, y) for x, y in zip(*grads))
 
 
