@@ -8,9 +8,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      Triton and nvcc; fails without a GPU;
   2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc,
      then counts the tensor-core instructions (HMMA, HGMMA) in each K1 and
-     K8 kernel's SASS (cuobjdump): every bf16 kernel of the two and the f32
-     K8b's (tf::bwd_dq, tf::bwd_dkdv: 3xTF32) must have some, the f32 K1
-     kernels and the f32 K8f (fa_fwd, exact f32 on the CUDA cores) none;
+     K8 kernel's SASS (cuobjdump): every bf16 kernel of the two and every
+     f32 one in namespace tf (3xTF32: K1b's tf::bwd_dq and tf::bwd_dkdv,
+     K8f's tf::fwd, K8b's tf::bwd_dq and tf::bwd_dkdv) must have some, the
+     f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events; the LayerNorm
@@ -21,7 +22,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      its mean/rstd and its backward in both forms, each backward fed its own
      side's forward outputs, and the AdamW + EMA pass (one [4096, 1024]
      leaf, then the whole 302M-parameter denoiser), each against its plain
-     version at the stage-2 step's shapes, timed;
+     version at the stage-2 step's shapes, timed; the attention backward
+     (3xTF32 on the tensor cores) also against a float64 evaluation of its
+     plain version (dq, dk and dv each within 1e-5 of its scale), beside
+     the f32 plain version's own error against it, and with its bound at
+     the 3xTF32 rate;
   5. main path, generation: python -m npcd_tpu_torch.generate_samples's code
      path on configs/npcd_srncars.yaml (302M denoiser, 1000 DDPM steps) with
      seeded weights, written first as the bridged .npz its required
@@ -87,9 +92,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      8, 128] in bf16 (the launch counts of its path), then the flash
      attention kernels forward and backward in each case against their
      plain versions, timed, with scaled_dot_product_attention's time beside
-     them; the f32 backward (3xTF32 on the tensor cores) also against a
-     float64 evaluation of its plain version, beside the f32 plain
-     version's own error against it, and with its bound at the 3xTF32 rate;
+     them; the f32 forward and backward (3xTF32 on the tensor cores) also
+     against a float64 evaluation of their plain versions (each output
+     within 1e-5 of its scale), beside the f32 plain versions' own errors
+     against it, and with their bounds at the 3xTF32 rate;
  16. main path, bf16 training: phase 6 with the CLI's default --dtype
      (float16: bf16 compute over f32 master weights, every block recomputed
      in the backward);
@@ -103,7 +109,8 @@ Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
 BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
-K8b also at 495 / 3 TFLOP/s, the TF32 peak over its three products) and,
+K1b, K8f and K8b also at 495 / 3 TFLOP/s, the TF32 peak over their three
+products) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
@@ -146,7 +153,7 @@ from npcd_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain)
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (  # noqa: E402
-    fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
+    LOG2_E, fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_bf16_plain, fused_qkv_attention_bwd_plain, fused_qkv_attention_fwd,
     fused_qkv_attention_plain, split_grouped_qkv)
 from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain, min_d2, min_d2_plain  # noqa: E402
@@ -256,7 +263,8 @@ STAGE1_WARMUP = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
-# operations/s (over 3, the rate of the f32 K8b's split products)
+# operations/s (over 3, the rate of the split products of the f32 K1b, K8f
+# and K8b)
 HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 989e12, 495e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
@@ -341,10 +349,10 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
-    # the bf16 K1 and K8 and the f32 K8b (namespace tf: 3xTF32) run their
-    # products on the tensor cores; the f32 K1 and the f32 K8f (exact f32, no
-    # TF32) on the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64
-    # and 128)
+    # the bf16 K1 and K8 and every f32 kernel in namespace tf (3xTF32: the
+    # f32 K1b, K8f and K8b) run their products on the tensor cores; the f32
+    # K1f (fqa_fwd: exact f32, no TF32) on the CUDA cores; K1 has 6 kernels,
+    # K8 12 (3 per flavour at D 64 and 128)
     tensor_cores = lambda k: k[1] == "bf16" or k[0].startswith("tf::")
     for name, n_kernels in (("fused_qkv_attention", 6), ("flash_attention", 12)):
         counts = _sass_mma_counts(name)
@@ -395,6 +403,25 @@ def _graph_ms(fn, iters: int = 20) -> float:
 
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _err64(a, exact) -> float:
+    """The largest difference of ``a`` from a float64 ``exact``."""
+    return float((a.double() - exact).abs().max())
+
+
+def _f64_gate(name: str, got, exact) -> str:
+    """A 3xTF32 kernel's outputs against a float64 evaluation of its plain
+    version: each within 1e-5 of max(1, its largest magnitude), the f32
+    tolerance of the card tests and of the CPU tests that transcribe the
+    3xTF32 arithmetic (a kernel without its lo products reads ~3e-5 to 9e-4
+    at these shapes) -> the errors as text; raises past it."""
+    errs = [(_err64(a, e), 1e-5 * max(1.0, float(e.abs().max()))) for a, e in zip(got, exact)]
+    text = " ".join(f"{err:.2e}" for err, _ in errs)
+    if any(err > tol for err, tol in errs):
+        raise AssertionError(f"{name} disagrees with float64: {text} against "
+                             + " ".join(f"{tol:.1e}" for _, tol in errs))
+    return text
 
 
 def _furthest(pairs) -> tuple:
@@ -579,13 +606,20 @@ def phase_train_kernels() -> dict:
         raise AssertionError(f"fused_qkv_attention_bwd: {pad_nonzero} nonzero pad-row "
                              "dq/dk/dv values or non-finite dqkv")
     err, tol = _worst([(got, want, 1e-4)])
+    exact = split_grouped_qkv(_fqa_bwd_f64(qkv, dout, h, b, s, valid, 2).reshape(b, s, -1), h, 2)
+    parts = lambda x: split_grouped_qkv(x.reshape(b, s, -1), h, 2)
+    errs = lambda x: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(parts(x), exact))
+    flops = 10 * b * h * s * valid * 64
+    extra = (f" pad-row dq/dk/dv all 0; vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
+             f"{_f64_gate('fused_qkv_attention_bwd', parts(got), exact)}, f32 plain "
+             f"{errs(want)}; bound at the 3xTF32 rate {flops / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+    del exact
     # the library call: autograd's backward of scaled_dot_product_attention
     q, k, v = _bhsd(qkv, b, s, h, 2, grad=True)
     key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
     o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
     do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
-    check("fused_qkv_attention_bwd", err, tol, bwd, bwd_plain, extra=" pad-row dq/dk/dv all 0",
-          flops=10 * b * h * s * valid * 64,
+    check("fused_qkv_attention_bwd", err, tol, bwd, bwd_plain, extra=extra, flops=flops,
           nbytes=4 * (2 * qkv.numel() + 2 * dout.numel() + lse_k.numel()),
           library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
     del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
@@ -621,6 +655,29 @@ def phase_train_kernels() -> dict:
     results["adamw_ema"] = results.pop(f"adamw_ema ({n_full} params)")
     torch.cuda.empty_cache()
     return results
+
+
+def _fqa_bwd_f64(qkv, dout, heads: int, b: int, s: int, valid: int, groups: int,
+                 step: int = 8):
+    """dqkv [B*S, 3W] float64 from qkv and dout: the plain forward's
+    arithmetic (base-2 scores, keys >= valid masked) and then
+    fused_qkv_attention_bwd_plain's, both in float64, in slices of ``step``
+    sequences."""
+    parts = []
+    for i in range(0, b, step):
+        n = min(step, b - i)
+        qkv64 = qkv[i * s:(i + n) * s].double()
+        q, k, v = split_grouped_qkv(qkv64.reshape(n, s, -1), heads, groups)
+        s2 = torch.einsum("bthc,bshc->bhts", q * (LOG2_E / np.sqrt(q.shape[-1])), k)
+        s2[..., valid:] = -torch.inf
+        m = s2.amax(-1, keepdim=True)
+        lse = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
+        out = torch.einsum("bhts,bshc->bthc", torch.exp2(s2 - lse), v).reshape(n * s, -1)
+        del s2
+        parts.append(fused_qkv_attention_bwd_plain(qkv64, out, lse[..., 0],
+                                                   dout[i * s:(i + n) * s].double(), heads, n,
+                                                   s, valid, groups))
+    return torch.cat(parts)
 
 
 def _reset_launches() -> None:
@@ -1300,6 +1357,13 @@ def phase_attention() -> tuple:
             extra = f" bitwise share {share:.4f}"
         else:
             err, tol = _worst([(out_k, out_p, 1e-4), (lse_k, lse_p, 1e-5)])
+            exact = _flash_fwd_f64(q, k, v)
+            errs = lambda xs: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(xs, exact))
+            extra = (f" vs float64 out/lse (tol 1e-5 of each scale): kernel "
+                     f"{_f64_gate('flash_attention', (out_k, lse_k), exact)}, f32 plain "
+                     f"{errs((out_p, lse_p))}; bound at the 3xTF32 rate "
+                     f"{4 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+            del exact
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         check(f"flash_attention{suffix}", err, tol, fwd, fwd_plain, extra=extra,
               flops=4 * b * h * s * s * d, nbytes=size * 4 * n + 4 * b * h * s,
@@ -1319,9 +1383,11 @@ def phase_attention() -> tuple:
         else:
             err, tol = _worst([(a, w, 1e-4) for a, w in zip(got, want)])
             exact = _flash_bwd_f64(q, k, v, dout)
-            errs = lambda xs: " ".join(f"{_err(a, e):.2e}" for a, e in zip(xs, exact))
-            extra = (f" vs float64 dq/dk/dv: kernel {errs(got)}, f32 plain {errs(want)}; bound "
-                     f"at the 3xTF32 rate {10 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+            errs = lambda xs: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(xs, exact))
+            extra = (f" vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
+                     f"{_f64_gate('flash_attention_bwd', got, exact)}, f32 plain {errs(want)}; "
+                     f"bound at the 3xTF32 rate "
+                     f"{10 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
             del exact
         ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         o_lib = F.scaled_dot_product_attention(ql, kl, vl)
@@ -1333,6 +1399,20 @@ def phase_attention() -> tuple:
         del out_k, lse_k, out_p, lse_p, got, want, ql, kl, vl, o_lib, do_lib
         torch.cuda.empty_cache()
     return launches, results
+
+
+def _flash_fwd_f64(q, k, v, step: int = 8) -> list:
+    """flash_attention_plain's arithmetic in float64, in slices of ``step``
+    batch rows -> [out [B, S, H, D], base-e lse [B, H, S]] float64."""
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    parts = []
+    for i in range(0, q.shape[0], step):
+        q64, k64, v64 = (t[i:i + step].double() for t in (q, k, v))
+        logits = torch.einsum("bthc,bshc->bhts", q64, k64) * scale
+        parts.append((torch.einsum("bhts,bshc->bthc", torch.softmax(logits, dim=-1), v64),
+                      torch.logsumexp(logits, dim=-1)))
+        del logits
+    return [torch.cat(x) for x in zip(*parts)]
 
 
 def _flash_bwd_f64(q, k, v, dout, step: int = 8) -> list:

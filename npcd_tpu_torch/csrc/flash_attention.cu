@@ -17,68 +17,42 @@
 // refused. No sum uses atomics and every sum runs in a fixed order, so both
 // flavours are bitwise repeatable from run to run.
 //
-// f32, forward (exact f32 on the CUDA cores, no TF32). At the denoiser's
-// shapes (S 513, D 64) it is 4*S*S*D flops per (batch, head) against one
-// read of q, k, v and one write of out: compute-bound, on the f32 FMA pipes.
-// One (batch, head)'s K and V at S 513, D 64 in f32 are 263 KB, above the
-// 227 KB of shared memory a block can hold, so one block per (batch, head,
-// query tile) keeps its queries in registers and streams K/V tiles of 32
-// keys through shared memory with an online softmax; D / 32 threads per
-// query, each owning 32 of the head dims in interleaved float4 chunks (the
-// query's threads read contiguous shared memory together) and combining
-// partial dot products by shuffles; the 32 keys' scores are accumulated
-// side by side (32 independent FMA chains).
-//
-// f32, backward (K8b): on the tensor cores in 3xTF32. It is 9 product units
-// per (batch, head) (2 in the dQ pass's first sweep, which sums delta, 3 in
-// its second, 4 in the dK/dV pass; a unit is 2*S*S*D flops), 17.25 GFLOP a
-// unit at [32, 513, 16, 64]: 1.29 ms at the 67 TFLOP/s FP32 peak, where a
-// CUDA-core version (4-row tiles, because its own rows filled the
-// registers) ran at ~15 TFLOP/s on an H100. TF32 runs at 495 TFLOP/s dense but keeps
-// 10 mantissa bits, so every f32 operand x is split into hi = tf32(x) and
-// lo = tf32(x - hi) (round to nearest, ties away; x - hi is exact) and each
-// product is a_lo b_hi + a_hi b_lo + a_hi b_hi on mma.sync.m16n8k8 (tf32
-// in, f32 accumulate): ~2**-21 of the f32 product, at 495 / 3 TFLOP/s
-// (tests/test_torch_flash_attention.py transcribes it on the CPU against
-// the Pallas kernel). The design is the bf16 flavour's below (4 warps, 16
-// own rows each; grid (row tile, head, batch); a two-stage cp.async ring;
-// rows at or past S zero-filled, keys past S p = 0, queries past S lse
-// +inf), with these differences:
-//   * the streamed side lands as raw f32 and the whole block splits each
-//     tile once, in place, into hi and lo arrays, so the four warps and the
-//     second sweep read split values; its rows are read by ldmatrix.x4 as
-//     8 x 4 blocks of 32-bit values (a tf32 B fragment's layout) where they
-//     are the B operand's columns (s = q k^T, dp = dO v^T and their
-//     transposes), and by 32-bit ld.shared where the rows are the summed
-//     dimension (ds k, p^T dO, ds^T q): ldmatrix.trans moves 16-bit
-//     elements and cannot transpose 32-bit ones. There the C fragment of
-//     p or ds is the next A fragment with its k order permuted (A's column
-//     u is C's 2u, u + 4 is 2u + 1, so B's rows are the tile's 2u and 2u +
-//     1), which needs no shuffle; rows are padded to D + 4 words, so both
-//     access patterns fall in 32 distinct banks;
-//   * the warp's own rows (q and dO, or k and v) stay raw f32 in shared
-//     memory and each 8-column slab is split as it is read, once for all
-//     the n-tiles of a step: their hi and lo in registers would take 128
-//     registers a thread at D 64;
-//   * the products with p or ds as the A operand split it in registers;
-//     all three products of a step go into one fresh f32 fragment per
-//     n-tile that is added to the running sum in f32, as in the bf16
-//     flavour;
-//   * tf32 rounding is (bits + 0x1000) & ~0x1fff, the bits cvt.rna.tf32.f32
-//     gives for finite x in two integer operations: the PTX conversion
-//     compiles to a longer sequence (it tests for NaN), and the backward
-//     ran slower with it;
-//   * the streamed tiles are 16 rows at D 64 (70 KB of shared memory a
-//     block, three blocks an SM) and 32 at D 128 (203 KB, one block).
-// ptxas -v (CUDA 12.8): bwd_dq 130 / 222 registers at D 64 / 128,
-// bwd_dkdv 168 / 255 with 4 bytes spilled at D 128; nothing else spills.
-// What bounds it: not the tensor cores (9 units x 3 products take ~1 ms of
-// the TF32 peak at [32, 513, 16, 64]) but dispatching and feeding
-// mma.sync: each warp owns only 16 rows, so each streamed value read from
-// shared memory feeds one m-tile's products, and the own rows' splits, the
-// exponentials and the fragment traffic take instruction slots beside the
-// HMMAs; the dQ pass's first sweep recomputes s and dp only for delta.
-// Next: wgmma (a 64-row warpgroup reads each streamed tile once).
+// f32 (K8f and K8b): on the tensor cores in 3xTF32, every f32 operand split
+// into tf32 hi + lo and each product a_lo b_hi + a_hi b_lo + a_hi b_hi on
+// mma.sync.m16n8k8 (tf32_mma.cuh, namespace tf, holds the building blocks and
+// the design: 4 warps of 16 own rows, raw in shared memory and split per
+// slab; the streamed side in a two-stage cp.async ring of tiles split once
+// by the block; a fresh f32 fragment per step; ~2**-21 of the f32 product
+// at 495 / 3 TFLOP/s; tests/test_torch_flash_attention.py and
+// tests/test_torch_attention_tf32.py transcribe the arithmetic on the CPU
+// against the Pallas kernels). A unit is 2*S*S*D flops per (batch, head),
+// 17.25 GFLOP at [32, 513, 16, 64]: 0.26 ms at the 67 TFLOP/s FP32 peak,
+// 0.10 ms at 495 / 3. Grid (row tile, head, batch); rows at or past S are
+// zero-filled, keys past S give p = 0, queries past S have lse +inf. The
+// streamed tiles are 16 rows at D 64 and 32 at D 128 (tf::tile_rows).
+//   * forward (tf::fwd): 2 units, FlashAttention 2 with each warp's 16
+//     queries as the own rows and K and V streamed, one tile of keys a
+//     step: s = q k^T * scale, an online softmax in f32 (running max m and
+//     sum l; o and l times exp(m_old - m_new) when the max moves, folded
+//     into the step's product as o = o * alpha + p v), p split in
+//     registers as the A operand of p v; out = o / l once at the end, and
+//     the base-e lse = m + ln l for the backward. Shared memory 52 KB at D
+//     64 (three blocks an SM), 169 KB at D 128.
+//   * backward (tf::bwd_dq, tf::bwd_dkdv): 9 units (2 in the dQ pass's
+//     first sweep, which sums delta = rowsum(p dp) as the TPU kernel does,
+//     3 in its second, 4 in the dK/dV pass). Shared memory 70 KB at D 64,
+//     203 KB at D 128.
+// ptxas -v (CUDA 12.8): fwd 132 / 239 registers at D 64 / 128, bwd_dq 130
+// / 222, bwd_dkdv 168 / 255 with 4 bytes spilled at D 128; nothing else
+// spills.
+// What bounds it: not the tensor cores (the forward's 2 units x 3 products
+// take 0.21 ms of the TF32 peak at [32, 513, 16, 64], the backward's 9
+// units ~1 ms) but dispatching and feeding mma.sync: each warp owns only 16
+// rows, so each streamed value read from shared memory feeds one m-tile's
+// products, and the own rows' splits, the exponentials and the fragment
+// traffic take instruction slots beside the HMMAs; the dQ pass's first
+// sweep recomputes s and dp only for delta. Next: wgmma (a 64-row
+// warpgroup reads each streamed tile once).
 //
 // bf16 (q, k, v, dO, out, dq, dk, dv bf16; lse, delta f32): the same
 // contract, f32 math on the upcast inputs with the outputs rounded once, on
@@ -143,141 +117,16 @@
 // Next: wgmma, which reads B from shared memory once for a 64-row
 // warpgroup.
 
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int CH = 8;   // float4 chunks per thread: 32 head dims
-constexpr int KT = 32;  // keys per shared-memory tile (forward)
-
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float4 ld4(const float* row, int c4) {
-  return reinterpret_cast<const float4*>(row)[c4];
-}
-
-__device__ __forceinline__ void st4(float* row, int c4, float4 v) {
-  reinterpret_cast<float4*>(row)[c4] = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
-  y.x = fmaf(s, x.x, y.x);
-  y.y = fmaf(s, x.y, y.y);
-  y.z = fmaf(s, x.z, y.z);
-  y.w = fmaf(s, x.w, y.w);
-}
-
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// The sum of v over the TPQ threads of one query (or key): neighbouring lanes.
-template <int TPQ>
-__device__ __forceinline__ float lane_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < TPQ; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Row r of head h of sequence b in a [B, S, H, D] tensor.
-template <int D>
-__device__ __forceinline__ const float* row_of(const float* x, int b, int r, int h, int seq,
-                                               int heads) {
-  return x + (((long)b * seq + r) * heads + h) * D;
-}
-
-// Stage rows [r0, r0 + n) of head h of a and b ([B, S, H, D]) into shared
-// memory as f32 (zeros past n); rows of `ROWS`.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(const float* a, const float* b_, int b, int h, int seq,
-                                          int heads, int r0, int n, float (*as)[D],
-                                          float (*bs)[D]) {
-  for (int idx = threadIdx.x; idx < ROWS * D / 4; idx += THREADS) {
-    const int j = idx / (D / 4), c4 = idx % (D / 4);
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    if (j < n) {
-      av = ld4(row_of<D>(a, b, r0 + j, h, seq, heads), c4);
-      if (bs != nullptr) bv = ld4(row_of<D>(b_, b, r0 + j, h, seq, heads), c4);
-    }
-    reinterpret_cast<float4*>(&as[j][0])[c4] = av;
-    if (bs != nullptr) reinterpret_cast<float4*>(&bs[j][0])[c4] = bv;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       float* __restrict__ out, float* __restrict__ lse, int seq, int heads, float scale) {
-  constexpr int TPQ = D / 32, QT = THREADS / TPQ;
-  __shared__ __align__(16) float ks[KT][D];
-  __shared__ __align__(16) float vs[KT][D];
-  const int part = threadIdx.x % TPQ;
-  const int qi = blockIdx.x * QT + threadIdx.x / TPQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool q_ok = qi < seq;
-  const float* qrow = row_of<D>(q, b, q_ok ? qi : 0, h, seq, heads);
-  float4 qr[CH], o[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    qr[c] = ld4(qrow, c * TPQ + part);
-    o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY, l = 0.f;
-  const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
-  const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
-
-  for (int k0 = 0; k0 < seq; k0 += KT) {
-    const int nk = min(KT, seq - k0);
-    __syncthreads();
-    load_tile<D, KT>(k, v, b, h, seq, heads, k0, nk, ks, vs);
-    __syncthreads();
-    float s[KT];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) s[j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) s[j] = dot4(qr[c], k4[j * (D / 4) + c * TPQ + part], s[j]);
-    }
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float sj = lane_sum<TPQ>(s[j]) * scale;
-      s[j] = j < nk ? sj : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) o[c] = scale4(o[c], alpha);
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float p = expf(s[j] - m_new);  // keys past S: exp(-inf) = 0
-      l += p;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(p, v4[j * (D / 4) + c * TPQ + part], o[c]);
-    }
-    m = m_new;
-  }
-  if (q_ok) {
-    float* orow = out + (((long)b * seq + qi) * heads + h) * D;
-#pragma unroll
-    for (int c = 0; c < CH; ++c)
-      st4(orow, c * TPQ + part, make_float4(o[c].x / l, o[c].y / l, o[c].z / l, o[c].w / l));
-    if (part == 0) lse[((long)b * heads + h) * seq + qi] = m + logf(l);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, ldmatrix, cp.async)
@@ -297,24 +146,6 @@ struct Tile {
   bf16 r[TILE][D + 8];
 };
 
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !ok (src is
-// then not read).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most n of this thread's copy groups are still in flight.
-template <int n>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
-}
 
 // Rows [r0, r0 + TILE) of one head (src: its row 0; rows `stride` elements
 // apart) into t; rows at or past `end` are zero-filled.
@@ -456,15 +287,6 @@ __device__ __forceinline__ void split_product(float (&acc)[D / 8][4], const unsi
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // Rows g and g + 8 of a warp's [16, D] accumulator, rounded to bf16, at dst
 // + row * stride for the rows below `end` (row0: the warp's first row).
@@ -798,208 +620,103 @@ bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 backward: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async)
+// f32: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async; the building
+// blocks in tf32_mma.cuh)
 // ---------------------------------------------------------------------------
 
 namespace tf {
 
-constexpr int WARPS = 4;
-constexpr int NT = 32 * WARPS;    // threads per block
-constexpr int ROWS = 16 * WARPS;  // the block's own rows: 16 per warp
-
-// Rows of the streamed side per shared-memory tile, and the blocks an SM
-// should hold: at D 64, 16-row tiles make a block's shared memory 70 KB, so
-// three blocks (12 warps) share an SM; at D 128, 32-row tiles (203 KB, one
-// block), where 16-row ones ran slower (ptxas spilled the dK/dV pass).
+// shared memory: the block's queries and a ring of 2 x 2 split K/V tiles
 template <int D>
-__host__ __device__ constexpr int tile_rows() {
-  return D <= 64 ? 16 : 32;
+constexpr int fwd_smem() {
+  return sizeof(Own<D>) + 4 * sizeof(Split<D>);
 }
 
 template <int D>
-__host__ __device__ constexpr int min_blocks() {
-  return D <= 64 ? 3 : 1;
-}
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int seq, int heads, float scale) {
+  constexpr int TILE = tile_rows<D>(), TILE_N = TILE / 8;
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);           // the block's queries
+  Split<D>* ring = reinterpret_cast<Split<D>*>(own + 1);  // K tiles in 0-1, V tiles in 2-3
 
-// The block's own rows of one head (raw f32), each padded by 4 floats: with
-// a row stride of D + 4 (4 mod 32 banks) the fragment reads below fall in
-// 32 distinct banks.
-template <int D>
-struct Own {
-  float r[ROWS][D + 4];
-};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long stride = (long)heads * D;
+  const long head0 = (long)b * seq * stride + (long)h * D;
+  const int wq = 16 * warp;  // the warp's first row in own
+  const bool active = q0 + wq < seq;
+  const int nkt = (seq + TILE - 1) / TILE;
 
-// A streamed tile split into tf32 hi and lo (their f32 bit patterns), rows
-// padded as Own's: cp.async lands the raw f32 rows in hi, split_tile then
-// splits them in place, once for the block's four warps.
-template <int D>
-struct Split {
-  unsigned hi[tile_rows<D>()][D + 4];
-  unsigned lo[tile_rows<D>()][D + 4];
-};
+  load_rows<D, ROWS>(own, q + head0, stride, q0, seq);
+  load_rows<D, TILE>(ring[0].hi, k + head0, stride, 0, seq);
+  load_rows<D, TILE>(ring[2].hi, v + head0, stride, 0, seq);
+  cp_commit();
 
-// Rows [r0, r0 + N) of one head (src: its row 0; rows `stride` elements
-// apart) into t by cp.async; rows at or past `end` are zero-filled.
-template <int D, int N>
-__device__ __forceinline__ void load_rows(void* t, const float* src, long stride, int r0,
-                                          int end) {
-  float(*dst)[D + 4] = reinterpret_cast<float(*)[D + 4]>(t);
-#pragma unroll
-  for (int it = 0; it < N * D / 4 / NT; ++it) {
-    const int i = threadIdx.x + it * NT, r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool ok = r0 + r < end;
-    tc::cp16(&dst[r][c], src + (ok ? (long)(r0 + r) * stride + c : 0), ok);
-  }
-}
-
-// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
-// zero: the bits cvt.rna.tf32.f32 gives for finite x (the low 13 bits 0,
-// so it is also an f32), in two integer operations (the PTX conversion
-// compiles to a longer sequence that also tests for NaN; a NaN or inf
-// input makes the output non-finite either way)
-__device__ __forceinline__ unsigned tf32(unsigned x) { return (x + 0x1000u) & 0xffffe000u; }
-
-// x as hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in f32): hi + lo
-// carries x to within ~2**-22 of itself
-__device__ __forceinline__ void split(unsigned x, unsigned& hi, unsigned& lo) {
-  hi = tf32(x);
-  lo = tf32(__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  split(__float_as_uint(x), hi, lo);
-}
-
-// The raw rows in t.hi split into hi and lo in place, by the whole block.
-template <int D>
-__device__ __forceinline__ void split_tile(Split<D>& t) {
-#pragma unroll
-  for (int it = 0; it < tile_rows<D>() * D / 4 / NT; ++it) {
-    const int i = threadIdx.x + it * NT, r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const uint4 x = *reinterpret_cast<const uint4*>(&t.hi[r][c]);
-    uint4 h, l;
-    split(x.x, h.x, l.x);
-    split(x.y, h.y, l.y);
-    split(x.z, h.z, l.z);
-    split(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(&t.hi[r][c]) = h;
-    *reinterpret_cast<uint4*>(&t.lo[r][c]) = l;
-  }
-}
-
-// Four 8 x 4 blocks of 32-bit values (as ldmatrix's 8 x 8 b16 matrices):
-// lane l gives the row address of block l / 8, and receives row l / 4,
-// element l % 4 of block i in r[i], which is a tf32 B fragment's layout.
-__device__ __forceinline__ void ldsm(unsigned (&r)[4], const unsigned* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(tc::smem(p)));
-}
-
-// c += a b: a the 16 x 8 A fragment (row-major), b0/b1 the 8 x 8 B fragment
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a_lo b_hi + a_hi b_lo + a_hi b_hi (the 3xTF32 product; a_lo b_lo is
-// below f32 precision)
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], unsigned bh0, unsigned bh1,
-                                     unsigned bl0, unsigned bl1) {
-  mma(c, al, bh0, bh1);
-  mma(c, ah, bl0, bl1);
-  mma(c, ah, bh0, bh1);
-}
-
-// Fragment addressing; lane = threadIdx.x & 31, g = lane / 4, u = lane % 4.
-// A (16 x 8): a0 (g, u), a1 (g + 8, u), a2 (g, u + 4), a3 (g + 8, u + 4);
-// B (8 x 8): b0 (u, g), b1 (u + 4, g); C (16 x 8): c0 (g, 2u), c1 (g, 2u +
-// 1), c2 (g + 8, 2u), c3 (g + 8, 2u + 1).
-//
-// c[j] = a . t[n0 + 8j, n0 + 8j + 8)^T over the D columns, for the NJ (even)
-// n-tiles (the B operand is t's rows: keys or queries; a: the warp's 16
-// rows of own, from row a0, split as they are read, each 8-column slab once
-// for the NJ n-tiles; banks (4g + u) mod 32). The B fragments of two
-// n-tiles' hi (or lo) come from one ldmatrix.x4.
-template <int D, int NJ>
-__device__ __forceinline__ void rows_product(float (&c)[NJ][4], const Own<D>& a, int a0,
-                                             const Split<D>& t, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, u = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const int d = 8 * kk + u;
-    unsigned ah[4], al[4];
-    split(a.r[a0 + g][d], ah[0], al[0]);
-    split(a.r[a0 + g + 8][d], ah[1], al[1]);
-    split(a.r[a0 + g][d + 4], ah[2], al[2]);
-    split(a.r[a0 + g + 8][d + 4], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      const int row = n0 + 8 * (j + (lane >> 4)) + (lane & 7);
-      const int col = 8 * kk + 4 * ((lane >> 3) & 1);
-      unsigned bh[4], bl[4];
-      ldsm(bh, &t.hi[row][col]);
-      ldsm(bl, &t.lo[row][col]);
-      mma3(c[j], ah, al, bh[0], bh[1], bl[0], bl[1]);
-      mma3(c[j + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+  // online softmax over one tile of keys a step: running max m, sum l and
+  // o, rescaled by exp(m_old - m_new) when the max moves
+  float o[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int t = 0; t < nkt; ++t) {
+    if (t + 1 < nkt) {
+      const int k1 = (t + 1) * TILE, buf = (t + 1) & 1;
+      load_rows<D, TILE>(ring[buf].hi, k + head0, stride, k1, seq);
+      load_rows<D, TILE>(ring[2 + buf].hi, v + head0, stride, k1, seq);
     }
-  }
-}
-
-// acc[n] += p . t[k0, k0 + 8 NK)[8n, 8n + 8) for the D / 8 n-tiles (the B
-// operand is t's columns, summed over its rows). p is NK C fragments (16 x
-// 8 each), taken as the A fragments of the NK k-steps with the k order
-// permuted: A's column u is C's column 2u and A's column u + 4 is C's 2u +
-// 1, so B's row u is t's row 2u and its row u + 4 is t's row 2u + 1 (32-bit
-// ld.shared: ldmatrix cannot transpose 32-bit elements; banks (8u + g) and
-// (8u + 4 + g) mod 32). p is split into tf32 hi and lo here; the 3 NK
-// products of each n-tile go into one fresh f32 fragment, which is then
-// added to acc in f32 (the MMA's own sums do not round as f32 adds do).
-template <int D, int NK>
-__device__ __forceinline__ void split_product(float (&acc)[D / 8][4], const float (&p)[NK][4],
-                                              const Split<D>& t, int k0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, u = lane & 3;
-  unsigned ph[NK][4], pl[NK][4];
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    Split<D>& kt = ring[t & 1];
+    Split<D>& vt = ring[2 + (t & 1)];
+    split_tile(kt);
+    split_tile(vt);
+    __syncthreads();
+    if (active) {
+      const int kc = t * TILE;
+      float s[TILE_N][4];
+      rows_product(s, *own, wq, kt, 0);
+      float mt[2] = {m[0], m[1]};
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    split(p[kk][0], ph[kk][0], pl[kk][0]);
-    split(p[kk][2], ph[kk][1], pl[kk][1]);
-    split(p[kk][1], ph[kk][2], pl[kk][2]);
-    split(p[kk][3], ph[kk][3], pl[kk][3]);
-  }
+      for (int j = 0; j < TILE_N; ++j)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    float f[4] = {};
+        for (int e = 0; e < 4; ++e) {  // keys past S: -inf, so p = 0
+          s[j][e] = kc + 8 * j + c + (e & 1) < seq ? s[j][e] * scale : -INFINITY;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+        }
+      float alpha[2];
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      const int r = k0 + 8 * kk + 2 * u, col = 8 * n + g;
-      mma3(f, ph[kk], pl[kk], t.hi[r][col], t.hi[r + 1][col], t.lo[r][col], t.lo[r + 1][col]);
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = quad_max(mt[r]);
+        alpha[r] = expf(m[r] - mt[r]);  // 0 on the first step
+        l[r] *= alpha[r];
+        m[r] = mt[r];
+      }
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // p = exp(s - m), the A operand of o
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      split_product(o, s, vt, 0, alpha[0], alpha[1]);
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += f[e];
+    __syncthreads();
   }
-}
 
-// Rows g and g + 8 of a warp's [16, D] f32 accumulator at dst + row *
-// stride for the rows below `end` (row0: the warp's first row).
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, long stride, const float (&acc)[D / 8][4],
-                                           int row0, int end) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = 2 * (lane & 3);
+  if (!active) return;
+  // out = o / l (divided, not multiplied by 1 / l); lse = m + ln(l)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row0 + g + 8 * r >= end) continue;
-    float2* row = reinterpret_cast<float2*>(dst + (long)(row0 + g + 8 * r) * stride + c);
+    const int row = q0 + wq + g + 8 * r;
+    l[r] = quad_sum(l[r]);
+    if (row >= seq) continue;
+    float2* dst = reinterpret_cast<float2*>(out + head0 + row * stride + c);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) row[4 * n] = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    for (int n = 0; n < D / 8; ++n)
+      dst[4 * n] = make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    if (c == 0) lse[((long)b * heads + h) * seq + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -1039,7 +756,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __
   load_rows<D, ROWS>(&own[1], dout + head0, stride, q0, seq);
   load_rows<D, TILE>(ring[0].hi, k + head0, stride, 0, seq);
   load_rows<D, TILE>(ring[2].hi, v + head0, stride, 0, seq);
-  tc::cp_commit();
+  cp_commit();
 
   const int rows[2] = {q0 + wq + g, q0 + wq + g + 8};
   float lr[2], dl[2] = {0.f, 0.f};
@@ -1055,8 +772,8 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __
       load_rows<D, TILE>(ring[buf].hi, k + head0, stride, k1, seq);
       load_rows<D, TILE>(ring[2 + buf].hi, v + head0, stride, k1, seq);
     }
-    tc::cp_commit();
-    tc::cp_wait<1>();
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
     Split<D>& kt = ring[t & 1];
     Split<D>& vt = ring[2 + (t & 1)];
@@ -1067,7 +784,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __
     if (t == nkt) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        dl[r] = tc::quad_sum(dl[r]);
+        dl[r] = quad_sum(dl[r]);
         if (active && c == 0 && rows[r] < seq) delta[stat0 + rows[r]] = dl[r];
       }
     }
@@ -1131,7 +848,7 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k, const float* 
   load_rows<D, ROWS>(&own[1], v + head0, stride, k0, seq);
   load_rows<D, TILE>(qt[0].hi, q + head0, stride, 0, seq);
   load_rows<D, TILE>(gt[0].hi, dout + head0, stride, 0, seq);
-  tc::cp_commit();
+  cp_commit();
   if (threadIdx.x < TILE) {  // queries past S: lse +inf, so p = ds = 0
     const int i = threadIdx.x;
     ls[0][i] = i < seq ? lse[stat0 + i] : INFINITY;
@@ -1153,8 +870,8 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k, const float* 
         nd = delta[stat0 + q1 + threadIdx.x];
       }
     }
-    tc::cp_commit();
-    tc::cp_wait<1>();
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
     const int buf = t & 1;
     split_tile(qt[buf]);
@@ -1203,18 +920,11 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k, const float* 
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* out, float* lse,
                int batch, int seq, int heads, cudaStream_t s) {
-  constexpr int QT = THREADS / (D / 32);
-  dim3 grid((seq + QT - 1) / QT, heads, batch);
-  fa_fwd<D><<<grid, THREADS, 0, s>>>(q, k, v, out, lse, seq, heads, 1.f / sqrtf((float)D));
+  constexpr int smem = tf::fwd_smem<D>();
+  if (int err = allow_smem(tf::fwd<D>, smem)) return err;
+  dim3 grid((seq + tf::ROWS - 1) / tf::ROWS, heads, batch);
+  tf::fwd<D><<<grid, tf::NT, smem, s>>>(q, k, v, out, lse, seq, heads, tc::scale_of(D));
   return static_cast<int>(cudaGetLastError());
-}
-
-// A kernel's dynamic shared memory above the default 48 KB needs the
-// function's attribute raised first.
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 template <int D>

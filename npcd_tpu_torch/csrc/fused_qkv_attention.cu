@@ -15,27 +15,49 @@
 //
 // Two flavours with two designs.
 //
-// f32 (exact f32 on the CUDA cores, no TF32): at the denoiser's shapes (S
-// 520, D 64) the forward is 4*S*S*D flops per (sequence, head) and the
-// backward 14*S*S*D, against a few reads of the [B*S, 3W] qkv: both are
-// compute-bound on the f32 FMA pipes. One (sequence, head)'s K and V in f32
-// are 2*520*64*4 = 266 KB, above the 227 KB of shared memory a block can
-// hold, so every kernel streams tiles of the other side through shared
-// memory and keeps its own rows in registers:
-//   * forward: one block per (sequence, head, 64-query tile), two threads per
-//     query that split the 64 head dims in interleaved float4 chunks (the
-//     pair reads 32 contiguous bytes of shared memory per load) and combine
-//     partial dot products with one shuffle per key; K/V tiles of 32 keys,
-//     online softmax (running max and sum) in f32; the 32 keys' scores are
+// f32: at the denoiser's shapes (S 520, D 64) the forward is 4*S*S*D flops
+// per (sequence, head) and the backward 14*S*S*D (7 product units of
+// 2*S*S*D: s, dp and dq in the dQ pass, s^T, dp^T, dv and dk in the dK/dV
+// pass), against a few reads of the [B*S, 3W] qkv: both are compute-bound.
+// One (sequence, head)'s K and V in f32 are 2*520*64*4 = 266 KB, above the
+// 227 KB of shared memory a block can hold, so every kernel streams tiles of
+// the other side through shared memory.
+//   * forward (exact f32 on the CUDA cores, no TF32): one block per
+//     (sequence, head, 64-query tile), two threads per query that split the
+//     64 head dims in interleaved float4 chunks (the pair reads 32
+//     contiguous bytes of shared memory per load) and combine partial dot
+//     products with one shuffle per key; K/V tiles of 32 keys, online
+//     softmax (running max and sum) in f32; the 32 keys' scores are
 //     accumulated side by side, so the FMAs form 32 independent chains.
-//   * backward, dQ: the same layout over query tiles; each pair computes
-//     delta = rowsum(dO * O) from the saved output (the same number as the
-//     TPU kernel's rowsum(P * dP), cheaper) and writes it for the dK/dV
-//     pass, then streams K/V tiles: p = exp2(s - lse), dp = dO . v, ds =
-//     p (dp - delta), dq += ds k.
-//   * backward, dK/dV: one block per (sequence, head, 64-key tile), two
-//     threads per key, streaming Q/dO tiles of 16 queries (all S queries, pad
-//     queries included): dv += p dO, dk += ds q.
+//   * backward (tf::bwd_dq, tf::bwd_dkdv): on the tensor cores in 3xTF32,
+//     every f32 operand split into tf32 hi + lo and each product a_lo b_hi
+//     + a_hi b_lo + a_hi b_hi on mma.sync.m16n8k8, ~2**-21 of the f32
+//     product at 495 / 3 TFLOP/s (tf32_mma.cuh holds the building blocks
+//     and the design, which the f32 flash-attention backward shares: 4
+//     warps of 16 own rows, raw in shared memory and split per 8-column
+//     slab; the other side through a two-stage cp.async ring of 16-row
+//     tiles split once by the block; a fresh f32 fragment per step;
+//     tests/test_torch_attention_tf32.py transcribes the arithmetic on the
+//     CPU against the Pallas kernel). Scores stay base 2: scale * log2(e)
+//     is folded into an operand of s before the split, p = exp2(s - lse)
+//     with the forward's base-2 lse. Shared memory 70 KB a block (three an
+//     SM); the grid is (row tile, head, sequence), 4,608 blocks at batch 32
+//     x 16 heads x 520 tokens.
+//     - dQ: own rows q (times c2) and dO, the keys [0, valid_len) streamed
+//       once with their values: delta = rowsum(dO * O) from the saved output
+//       (the same number as the TPU kernel's rowsum(P * dP), without a
+//       second sweep), written for the dK/dV pass; s = (q c2) k^T, dp = dO
+//       v^T, p = exp2(s - lse) (0 at keys >= valid_len), ds = p (dp -
+//       delta), dq += ds k, times scale once at the end.
+//     - dK/dV: own rows k (times c2: q's split tile also feeds dk
+//       unscaled) and v, every query of the sequence streamed with dO, lse
+//       and delta (pad queries included; queries past S lse +inf): s^T =
+//       (k c2) q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q, dk times
+//       scale at the end. Blocks of pad keys only write zeros.
+//     What bounds it: not the tensor cores (its 7 units x 3 products take
+//     0.74 ms of the TF32 peak at batch 32 x 16 heads, the function's 5
+//     units 0.53 ms) but issuing and feeding mma.sync, as in the f32 flash
+//     attention backward (csrc/flash_attention.cu).
 //
 // bf16 (qkv, out, dout, dqkv bf16; lse, delta f32), with the TPU kernel's
 // rounding points:
@@ -105,6 +127,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int D = 64;  // head dim
@@ -134,15 +158,13 @@ __device__ __forceinline__ Layout<T> layout(const T* qkv, int b, int h, int seq,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32 forward: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int QT = 64;           // queries per block (forward, dQ)
-constexpr int KT = 32;           // keys per shared-memory tile (forward, dQ)
-constexpr int KB = 64;           // keys per block (dK/dV)
-constexpr int QB = 16;           // queries per shared-memory tile (dK/dV)
+constexpr int QT = 64;           // queries per block
+constexpr int KT = 32;           // keys per shared-memory tile
 constexpr int CH = D / 8;        // float4 chunks per thread: half h owns chunks 2c + h
-constexpr int THREADS = 128;     // two threads per query (or key)
+constexpr int THREADS = 128;     // two threads per query
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
@@ -265,170 +287,6 @@ fqa_fwd(const float* __restrict__ qkv, float* __restrict__ out, float* __restric
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fqa_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ out,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           float* __restrict__ delta, float* __restrict__ dqkv, int seq, int heads,
-           int groups, int valid_len, float scale_log2, float scale) {
-  __shared__ __align__(16) float ks[KT][D];
-  __shared__ __align__(16) float vs[KT][D];
-
-  const int half = threadIdx.x & 1;
-  const int qi = blockIdx.x * QT + (threadIdx.x >> 1);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
-
-  const bool q_ok = qi < seq;
-  const long row = (long)b * seq + (q_ok ? qi : 0);
-  const float* qrow = l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col;
-  const float* grow = dout + row * l.w + h * D;
-  float4 q[CH], g[CH], dq[CH];
-  float dl = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    q[c] = scale4(ld4(qrow, 2 * c + half), scale_log2);
-    g[c] = ld4(grow, 2 * c + half);
-    dl = dot4(g[c], ld4(out + row * l.w + h * D, 2 * c + half), dl);
-    dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-  const long stat = ((long)b * heads + h) * seq + qi;
-  const float lse_i = q_ok ? lse[stat] : INFINITY;  // rows past seq: p = 0
-  if (q_ok && half == 0) delta[stat] = dl;
-  const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
-  const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
-
-  for (int k0 = 0; k0 < valid_len; k0 += KT) {
-    const int nk = min(KT, valid_len - k0);
-    __syncthreads();
-    load_kv_tile(l, k0, nk, ks, vs);
-    __syncthreads();
-
-    // s = q . k (the pair's halves combined) and dp = dO . v for the tile
-    float p[KT], dp[KT];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) p[j] = dp[j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        p[j] = dot4(q[c], k4[j * (D / 4) + 2 * c + half], p[j]);
-        dp[j] = dot4(g[c], v4[j * (D / 4) + 2 * c + half], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float sj = p[j] + __shfl_xor_sync(0xffffffffu, p[j], 1);
-      dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], 1);
-      p[j] = j < nk ? exp2f(sj - lse_i) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) p[j] = p[j] * (dp[j] - dl);  // ds
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(p[j], k4[j * (D / 4) + 2 * c + half], dq[c]);
-    }
-  }
-
-  if (q_ok) {
-    float* drow = dqkv + row * l.row_stride + l.col;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) st4(drow, 2 * c + half, scale4(dq[c], scale));
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-fqa_bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dqkv, int seq, int heads, int groups, int valid_len,
-             float scale_log2, float scale) {
-  __shared__ __align__(16) float qs[QB][D];  // q; the scale multiplies the score
-  __shared__ __align__(16) float gs[QB][D];
-  __shared__ float lses[QB], dls[QB];
-
-  const int half = threadIdx.x & 1;
-  const int kj = blockIdx.x * KB + (threadIdx.x >> 1);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
-  const long stat0 = ((long)b * heads + h) * seq;
-
-  const bool k_ok = kj < valid_len;  // a real key; pad keys get dk = dv = 0
-  const float* krow = l.base + (long)(k_ok ? kj : 0) * l.row_stride + l.col;
-  float4 k[CH], v[CH], dk[CH], dv[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    k[c] = ld4(krow + l.wg, 2 * c + half);
-    v[c] = ld4(krow + 2 * l.wg, 2 * c + half);
-    dk[c] = dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float4* q4 = reinterpret_cast<const float4*>(&qs[0][0]);
-  const float4* g4 = reinterpret_cast<const float4*>(&gs[0][0]);
-
-  if (blockIdx.x * KB < valid_len) {  // uniform over the block
-    for (int q0 = 0; q0 < seq; q0 += QB) {
-      const int nq = min(QB, seq - q0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < QB * D / 4; idx += THREADS) {
-        const int i = idx / (D / 4), c4 = idx % (D / 4);
-        float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), gv = qv;
-        if (i < nq) {
-          const long r = (long)b * seq + q0 + i;
-          qv = ld4(l.base + (long)(q0 + i) * l.row_stride + l.col, c4);
-          gv = ld4(dout + r * l.w + h * D, c4);
-        }
-        reinterpret_cast<float4*>(&qs[i][0])[c4] = qv;
-        reinterpret_cast<float4*>(&gs[i][0])[c4] = gv;
-      }
-      if (threadIdx.x < QB) {
-        const int i = threadIdx.x;
-        lses[i] = i < nq ? lse[stat0 + q0 + i] : INFINITY;  // absent queries: p = 0
-        dls[i] = i < nq ? delta[stat0 + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      float s[QB], dp[QB];
-#pragma unroll
-      for (int i = 0; i < QB; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-#pragma unroll
-        for (int i = 0; i < QB; ++i) {
-          s[i] = dot4(k[c], q4[i * (D / 4) + 2 * c + half], s[i]);
-          dp[i] = dot4(v[c], g4[i * (D / 4) + 2 * c + half], dp[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < QB; ++i) {
-        float si = s[i] + __shfl_xor_sync(0xffffffffu, s[i], 1);
-        si *= scale_log2;
-        const float dpi = dp[i] + __shfl_xor_sync(0xffffffffu, dp[i], 1);
-        const float p = exp2f(si - lses[i]);
-        s[i] = p;
-        dp[i] = p * (dpi - dls[i]);  // ds
-      }
-#pragma unroll
-      for (int i = 0; i < QB; ++i) {
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          axpy4(s[i], g4[i * (D / 4) + 2 * c + half], dv[c]);
-          axpy4(dp[i], q4[i * (D / 4) + 2 * c + half], dk[c]);
-        }
-      }
-    }
-  }
-
-  if (kj < seq) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float* drow = dqkv + ((long)b * seq + kj) * l.row_stride + l.col;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      st4(drow + l.wg, 2 * c + half, k_ok ? scale4(dk[c], scale) : zero);
-      st4(drow + 2 * l.wg, 2 * c + half, k_ok ? dv[c] : zero);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, ldmatrix, cp.async)
 // ---------------------------------------------------------------------------
@@ -442,25 +300,6 @@ constexpr int TILE = 64;         // rows of the streamed side per shared-memory 
 constexpr int LD = D + 8;        // padded row (144 bytes): ldmatrix without bank conflicts
 
 typedef bf16 Tile[TILE][LD];
-
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !ok (src is
-// then not read).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most n of this thread's copy groups are still in flight.
-template <int n>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
-}
 
 // Rows [r0, r0 + TILE) of one head's 64 columns (src: row 0, stride in
 // elements) into t; rows at or past `end` are zero-filled.
@@ -551,16 +390,6 @@ __device__ __forceinline__ void cols_product(float (&acc)[8][4], const unsigned 
     mma(acc[2 * n], a, b[0], b[1]);
     mma(acc[2 * n + 1], a, b[2], b[3]);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Store rows g and g + 8 of a [16, 64] accumulator, each times mul[r],
@@ -926,6 +755,230 @@ bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// f32 backward: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async; the
+// building blocks in tf32_mma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int TILE = tile_rows<D>(), TILE_N = TILE / 8;
+
+// shared memory: the block's own two row sets and a ring of 2 x 2 split
+// tiles (and, in the dK/dV pass, the tiles' lse and delta)
+constexpr int dq_smem = 2 * sizeof(Own<D>) + 4 * sizeof(Split<D>);
+constexpr int dkdv_smem = dq_smem + 4 * TILE * sizeof(float);
+
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+bwd_dq(const float* __restrict__ qkv, const float* __restrict__ out,
+       const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
+       float* __restrict__ dqkv, int seq, int heads, int groups, int valid_len, float c2,
+       float scale) {
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);           // the block's q (times c2) and dO
+  Split<D>* ring = reinterpret_cast<Split<D>*>(own + 2);  // K tiles in 0-1, V tiles in 2-3
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, u = lane & 3, c = 2 * u;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
+  const float* qsrc = l.base + l.col;
+  const long grow0 = (long)b * seq * l.w + h * D;  // the head's row 0 in out and dout
+  const int wq = 16 * warp;  // the warp's first row in own
+  const bool active = q0 + wq < seq;
+  const int nkt = (valid_len + TILE - 1) / TILE;
+  const long stat0 = ((long)b * heads + h) * seq;
+
+  load_rows<D, ROWS>(&own[0], qsrc, l.row_stride, q0, seq);
+  load_rows<D, ROWS>(&own[1], dout + grow0, l.w, q0, seq);
+  load_rows<D, TILE>(ring[0].hi, qsrc + l.wg, l.row_stride, 0, valid_len);
+  load_rows<D, TILE>(ring[2].hi, qsrc + 2 * l.wg, l.row_stride, 0, valid_len);
+  cp_commit();
+
+  // delta = rowsum(dO * O) in f32 while the copies land: each row's four
+  // lanes take 16 columns each (float4 chunks u, u + 4, ...), then sum
+  const int rows[2] = {q0 + wq + g, q0 + wq + g + 8};
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float acc = 0.f;
+    if (rows[r] < seq) {
+      const float4* go = reinterpret_cast<const float4*>(dout + grow0 + (long)rows[r] * l.w);
+      const float4* oo = reinterpret_cast<const float4*>(out + grow0 + (long)rows[r] * l.w);
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+        const float4 a = go[u + 4 * i], o = oo[u + 4 * i];
+        acc = fmaf(a.x, o.x, acc);
+        acc = fmaf(a.y, o.y, acc);
+        acc = fmaf(a.z, o.z, acc);
+        acc = fmaf(a.w, o.w, acc);
+      }
+    }
+    dl[r] = quad_sum(acc);
+    lr[r] = rows[r] < seq ? lse[stat0 + rows[r]] : INFINITY;  // rows past S: p = 0
+    if (u == 0 && rows[r] < seq) delta[stat0 + rows[r]] = dl[r];
+  }
+
+  // one tile of keys a step: s = (q c2) k^T (base 2), dp = dO v^T, p =
+  // exp2(s - lse), ds = p (dp - delta), dq += ds k
+  float dq[D / 8][4] = {};
+  for (int t = 0; t < nkt; ++t) {
+    if (t + 1 < nkt) {
+      const int k1 = (t + 1) * TILE, buf = (t + 1) & 1;
+      load_rows<D, TILE>(ring[buf].hi, qsrc + l.wg, l.row_stride, k1, valid_len);
+      load_rows<D, TILE>(ring[2 + buf].hi, qsrc + 2 * l.wg, l.row_stride, k1, valid_len);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (t == 0) scale_rows(own[0], c2);
+    Split<D>& kt = ring[t & 1];
+    Split<D>& vt = ring[2 + (t & 1)];
+    split_tile(kt);
+    split_tile(vt);
+    __syncthreads();
+    if (active) {
+      const int kc = t * TILE;
+      float p[TILE_N][4], dp[TILE_N][4];
+      rows_product(p, own[0], wq, kt, 0);
+      rows_product(dp, own[1], wq, vt, 0);
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // keys at or past valid_len: p = 0
+          const float pe = exp2f(p[j][e] - lr[e >> 1]);
+          p[j][e] = (kc + 8 * j + c + (e & 1) < valid_len ? pe : 0.f) * (dp[j][e] - dl[e >> 1]);
+        }
+      split_product(dq, p, kt, 0);
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] *= scale;
+  store_rows<D>(dqkv + (long)b * seq * l.row_stride + l.col, l.row_stride, dq, q0 + wq, seq);
+}
+
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         float* __restrict__ dqkv, int seq, int heads, int groups, int valid_len, float c2,
+         float scale) {
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);         // the block's k (times c2) and v
+  Split<D>* qt = reinterpret_cast<Split<D>*>(own + 2);  // q tiles (ring of 2)
+  Split<D>* gt = qt + 2;                                // dO tiles (ring of 2)
+  float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(qt + 4);  // lse of the tile (ring)
+  float(*ds)[TILE] = ls + 2;                                    // delta of the tile (ring)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
+  const float* qsrc = l.base + l.col;
+  const float* gsrc = dout + (long)b * seq * l.w + h * D;
+  float* dk_dst = dqkv + (long)b * seq * l.row_stride + l.col + l.wg;  // dv at + wg
+  const long stat0 = ((long)b * heads + h) * seq;
+
+  if (k0 >= valid_len) {  // pad keys only: dk = dv = 0 (uniform over the block)
+    for (int i = threadIdx.x; i < ROWS * D / 2; i += NT) {
+      const int r = i / (D / 2), c4 = i % (D / 2);  // dk then dv: 2 D columns a row
+      if (k0 + r < seq)
+        *reinterpret_cast<float4*>(dk_dst + (long)(k0 + r) * l.row_stride + (c4 % (D / 4)) * 4 +
+                                   (c4 / (D / 4)) * l.wg) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int wk = 16 * warp;  // the warp's first row in own
+  const bool active = k0 + wk < valid_len;
+  const int nqt = (seq + TILE - 1) / TILE;
+
+  load_rows<D, ROWS>(&own[0], qsrc + l.wg, l.row_stride, k0, valid_len);
+  load_rows<D, ROWS>(&own[1], qsrc + 2 * l.wg, l.row_stride, k0, valid_len);
+  load_rows<D, TILE>(qt[0].hi, qsrc, l.row_stride, 0, seq);
+  load_rows<D, TILE>(gt[0].hi, gsrc, l.w, 0, seq);
+  cp_commit();
+  if (threadIdx.x < TILE) {  // queries past S: lse +inf, so p = ds = 0
+    const int i = threadIdx.x;
+    ls[0][i] = i < seq ? lse[stat0 + i] : INFINITY;
+    ds[0][i] = i < seq ? delta[stat0 + i] : 0.f;
+  }
+
+  // one tile of queries a step, every query of the sequence (pad queries
+  // included): s^T = (k c2) q^T (base 2; q's split tile also feeds dk, so
+  // the scale goes into k), dp^T = v dO^T, then dv += p^T dO and dk +=
+  // ds^T q
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  for (int t = 0; t < nqt; ++t) {
+    const int nbuf = (t + 1) & 1;
+    float nl = INFINITY, nd = 0.f;  // the next tile's statistics
+    if (t + 1 < nqt) {
+      const int q1 = (t + 1) * TILE;
+      load_rows<D, TILE>(qt[nbuf].hi, qsrc, l.row_stride, q1, seq);
+      load_rows<D, TILE>(gt[nbuf].hi, gsrc, l.w, q1, seq);
+      if (threadIdx.x < TILE && q1 + threadIdx.x < seq) {
+        nl = lse[stat0 + q1 + threadIdx.x];
+        nd = delta[stat0 + q1 + threadIdx.x];
+      }
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (t == 0) scale_rows(own[0], c2);
+    const int buf = t & 1;
+    split_tile(qt[buf]);
+    split_tile(gt[buf]);
+    __syncthreads();
+    if (active) {
+      float s[TILE_N][4], dp[TILE_N][4];
+      rows_product(s, own[0], wk, qt[buf], 0);
+      rows_product(dp, own[1], wk, gt[buf], 0);
+      // p^T and ds^T, the A operands of dv and dk
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(&ls[buf][8 * j + c]);
+        const float2 dj = *reinterpret_cast<const float2*>(&ds[buf][8 * j + c]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = exp2f(s[j][2 * r] - lj.x), p1 = exp2f(s[j][2 * r + 1] - lj.y);
+          dp[j][2 * r] = p0 * (dp[j][2 * r] - dj.x);
+          dp[j][2 * r + 1] = p1 * (dp[j][2 * r + 1] - dj.y);
+          s[j][2 * r] = p0;
+          s[j][2 * r + 1] = p1;
+        }
+      }
+      split_product(dv, s, gt[buf], 0);
+      split_product(dk, dp, qt[buf], 0);
+    }
+    if (threadIdx.x < TILE && t + 1 < nqt) {
+      ls[nbuf][threadIdx.x] = nl;
+      ds[nbuf][threadIdx.x] = nd;
+    }
+    __syncthreads();
+  }
+
+  // dk = scale ds^T q; the rows of pad keys (at or past valid_len, also in
+  // warps that computed nothing) exactly 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool real = k0 + wk + g + 8 * r < valid_len;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        dk[n][e] = real ? dk[n][e] * scale : 0.f;
+        dv[n][e] = real ? dv[n][e] : 0.f;
+      }
+  }
+  store_rows<D>(dk_dst, l.row_stride, dk, k0 + wk, seq);
+  store_rows<D>(dk_dst + l.wg, l.row_stride, dv, k0 + wk, seq);
+}
+
+}  // namespace tf
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -939,14 +992,14 @@ int launch_fwd(const float* qkv, float* out, float* lse, int batch, int seq, int
 int launch_bwd(const float* qkv, const float* out, const float* dout, const float* lse,
                float* delta, float* dqkv, int batch, int seq, int heads, int groups,
                int valid_len, float scale_log2, float scale, cudaStream_t s) {
-  dim3 grid_q((seq + QT - 1) / QT, heads, batch);
-  fqa_bwd_dq<<<grid_q, THREADS, 0, s>>>(qkv, out, dout, lse, delta, dqkv, seq, heads, groups,
-                                        valid_len, scale_log2, scale);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  dim3 grid_k((seq + KB - 1) / KB, heads, batch);
-  fqa_bwd_dkdv<<<grid_k, THREADS, 0, s>>>(qkv, dout, lse, delta, dqkv, seq, heads, groups,
-                                          valid_len, scale_log2, scale);
+  dim3 grid((seq + tf::ROWS - 1) / tf::ROWS, heads, batch);
+  if (int err = allow_smem(tf::bwd_dq, tf::dq_smem)) return err;
+  tf::bwd_dq<<<grid, tf::NT, tf::dq_smem, s>>>(qkv, out, dout, lse, delta, dqkv, seq, heads,
+                                               groups, valid_len, scale_log2, scale);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  if (int err = allow_smem(tf::bwd_dkdv, tf::dkdv_smem)) return err;
+  tf::bwd_dkdv<<<grid, tf::NT, tf::dkdv_smem, s>>>(qkv, dout, lse, delta, dqkv, seq, heads,
+                                                   groups, valid_len, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

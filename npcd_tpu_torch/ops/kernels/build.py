@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into ``npcd_tpu_torch/build/<name>-<hash>.so`` (the
-hash covers the source text and the flags, so an edited kernel rebuilds),
-then loaded with ``ctypes``. Nothing here includes PyTorch's headers, so a
-build takes seconds, not minutes. The wrappers in this package pass device
-pointers and the current CUDA stream as ``c_void_p`` and raise when the C
-entry point returns a non-zero ``cudaError_t``.
+hash covers the source text, every ``csrc/*.cuh`` header and the flags,
+so an edited kernel or header rebuilds), then loaded with ``ctypes``.
+Nothing here includes PyTorch's headers, so a build takes seconds, not
+minutes. The wrappers in this package pass device pointers and the
+current CUDA stream as ``c_void_p`` and raise when the C entry point
+returns a non-zero ``cudaError_t``.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def nvcc_path() -> str:
 
 
 def so_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(names: Iterable[str]) -> None:

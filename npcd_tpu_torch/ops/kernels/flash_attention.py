@@ -11,11 +11,10 @@ CUDA tensors (head dim 64 or 128; anything else raises) and runs
 ``torch.autograd.Function`` that keeps q, k, v and the forward's base-e
 log-sum-exp [B, H, S], and whose backward calls ``flash_attention_bwd``
 (kernel on CUDA, ``flash_attention_bwd_plain`` on the CPU, which recomputes
-the softmax as the TPU kernel does). The f32 forward runs exact f32 on
-the CUDA cores; the f32 backward runs on the tensor cores (mma.sync, TF32)
-with every operand split into tf32 hi = tf32(x) and lo = tf32(x - hi) and
-the three products hi·hi + hi·lo + lo·hi summed in f32 (3xTF32), which
-keeps f32 accuracy; bf16 inputs run on the tensor cores (mma.sync), with P
+the softmax as the TPU kernel does). The f32 forward and backward run on
+the tensor cores (mma.sync, TF32) with every operand split into tf32 hi =
+tf32(x) and lo = tf32(x - hi) and the three products hi·hi + hi·lo + lo·hi
+summed in f32 (3xTF32), which keeps f32 accuracy; bf16 inputs run on the tensor cores (mma.sync), with P
 and dS, f32 in the TPU kernel, fed to each product as a bf16 pair hi =
 bf16(x), lo = bf16(x - hi) so that the outputs keep the f32 contract (see
 the source's note). Launches on bf16 inputs are counted apart, in each

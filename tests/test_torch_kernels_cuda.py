@@ -39,7 +39,9 @@ own forward's statistics). The bf16 K1f/K1b (tensor cores) are also held at
 sequences that cut their 64-row tiles raggedly on both sides, and two of
 their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
 P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513, and
-the f32 K8b (tensor cores, 3xTF32). The LayerNorm forward kernel (one warp
+the f32 K1b, K8f and K8b (tensor cores, 3xTF32), of which the f32 K1b and
+K8f are also held within 1e-5 of max(1, each output's scale) of a float64
+evaluation of their plain versions. The LayerNorm forward kernel (one warp
 per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
 path, and a CUDA graph of it must replay to the eager launch's bits."""
 import math
@@ -61,7 +63,7 @@ from npcd_tpu_torch.ops.kernels.flash_attention import (flash_attention, flash_a
                                                         flash_attention_fwd,
                                                         flash_attention_plain)
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (
-    fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
+    LOG2_E, fused_qkv_attention, fused_qkv_attention_bf16_plain, fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_bf16_plain, fused_qkv_attention_bwd_plain, fused_qkv_attention_fwd,
     fused_qkv_attention_plain, split_grouped_qkv)
 from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain, min_d2, min_d2_plain
@@ -715,3 +717,66 @@ def test_flash_attention_refuses_other_head_dims(dev):
         multi_head_attention(x, x, x, impl="pallas", valid_len=4)
     torch.testing.assert_close(multi_head_attention(x, x, x, impl="auto"),
                                multi_head_attention(x, x, x, impl="einsum"))
+
+
+def _fqa_f64(qkv, dout, h, b, s, valid, groups):
+    """dqkv in float64: the plain forward's arithmetic (base-2 scores, keys
+    >= valid masked) and fused_qkv_attention_bwd_plain on float64 inputs."""
+    qkv64 = qkv.double()
+    q, k, v = split_grouped_qkv(qkv64.reshape(b, s, -1), h, groups)
+    s2 = torch.einsum("bthc,bshc->bhts", q * (LOG2_E / 8.0), k)
+    s2[..., valid:] = -torch.inf
+    m = s2.amax(-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
+    out = torch.einsum("bhts,bshc->bthc", torch.exp2(s2 - lse), v).reshape(b * s, -1)
+    return fused_qkv_attention_bwd_plain(qkv64, out, lse[..., 0], dout.double(), h, b, s, valid,
+                                         groups)
+
+
+@pytest.mark.parametrize("b,s,h,valid", [(2, 130, 4, 129), (32, 520, 16, 513)])
+def test_fused_qkv_attention_f32_backward_is_repeatable(dev, b, s, h, valid):
+    """Two launches of the f32 K1b (tensor cores, 3xTF32) give bitwise equal
+    dqkv (no atomics, fixed summation orders), at a ragged shape and at the
+    f32 stage-2 step's."""
+    g = _gen(dev, 16)
+    qkv = 0.5 * torch.randn(b * s, 3 * h * 64, generator=g, device=dev)
+    dout = torch.randn(b * s, h * 64, generator=g, device=dev)
+    dout.reshape(b, s, -1)[:, valid:] = 0
+    out, lse = fused_qkv_attention_fwd(qkv, h, b, s, valid, 2)
+    grads = [fused_qkv_attention_bwd(qkv, out, lse, dout, h, b, s, valid, 2) for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("groups,valid", [(1, 130), (2, 129), (4, 64)])
+def test_fused_qkv_attention_f32_backward_against_float64(dev, groups, valid):
+    """The f32 K1b (3xTF32) from the f32 forward's out and lse: dq, dk and
+    dv each within 1e-5 of max(1, its largest magnitude) of a float64
+    evaluation of the plain version (the card's f32 tolerance, inside
+    phase 4's gate of 1e-4)."""
+    b, s, h = 2, 130, 4
+    g = _gen(dev, 17)
+    qkv = torch.randn(b * s, 3 * h * 64, generator=g, device=dev)
+    dout = torch.randn(b * s, h * 64, generator=g, device=dev)
+    dout.reshape(b, s, -1)[:, valid:] = 0
+    out, lse = fused_qkv_attention_fwd(qkv, h, b, s, valid, groups)
+    got = fused_qkv_attention_bwd(qkv, out, lse, dout, h, b, s, valid, groups)
+    exact = _fqa_f64(qkv, dout, h, b, s, valid, groups)
+    for a, e in zip(*(split_grouped_qkv(x.reshape(b, s, -1), h, groups) for x in (got, exact))):
+        _close_rel(a.double(), e)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,s,h", [(2, 130, 3), (32, 513, 16)])
+def test_flash_attention_f32_forward_is_repeatable_and_exact(dev, b, s, h, d):
+    """Two launches of the f32 K8f (tensor cores, 3xTF32) give bitwise equal
+    out and lse, each within 1e-5 of max(1, its largest magnitude) of a
+    float64 evaluation of the plain version (the card's f32 tolerance,
+    inside phase 15's gates of 1e-4 and 1e-5)."""
+    g = _gen(dev, 18)
+    q, k, v = (torch.randn(b, s, h // (d // 64), d, generator=g, device=dev) for _ in range(3))
+    (out0, lse0), (out1, lse1) = (flash_attention_fwd(q, k, v) for _ in range(2))
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    logits = torch.einsum("bthc,bshc->bhts", q.double(), k.double()) / math.sqrt(d)
+    _close_rel(out0.double(), torch.einsum("bhts,bshc->bthc", torch.softmax(logits, -1),
+                                           v.double()))
+    _close_rel(lse0.double(), torch.logsumexp(logits, -1))
