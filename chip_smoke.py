@@ -11,12 +11,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      K8 kernel's SASS (cuobjdump): every bf16 kernel of the two and every
      f32 one in namespace tf (3xTF32: K1b's tf::bwd_dq and tf::bwd_dkdv,
      K8f's tf::fwd, K8b's tf::bwd_dq and tf::bwd_dkdv) must have some, the
-     f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none;
+     f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none; and in K6's
+     (csrc/fused_mlp_posenc.cu) only the f32 forward, tf::mlp_posenc_wsum
+     (3xTF32), has some;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events; the LayerNorm
      forwards also by replaying a CUDA graph of 20 launches (device time
-     without the host's launch cost) against their HBM bound;
+     without the host's launch cost) against their HBM bound; the f32 K6f
+     (3xTF32 on the tensor cores) also against its plain version evaluated
+     in float64 (within 1e-5 of its scale), beside the f32 plain version's
+     own error against it. A kernel whose products run in 3xTF32 (the f32
+     K1b, K8f, K8b and K6f) has its bound at the 3xTF32 rate (495/3
+     TFLOP/s, the kernels line's bound_ms), its bound at the FP32 rate
+     printed beside it;
   4. kernels, training: the attention forward with its log-sum-exp and its
      backward (pad rows of dq/dk/dv exactly 0), the LayerNorm forward with
      its mean/rstd and its backward in both forms, each backward fed its own
@@ -25,8 +33,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      version at the stage-2 step's shapes, timed; the attention backward
      (3xTF32 on the tensor cores) also against a float64 evaluation of its
      plain version (dq, dk and dv each within 1e-5 of its scale), beside
-     the f32 plain version's own error against it, and with its bound at
-     the 3xTF32 rate;
+     the f32 plain version's own error against it;
   5. main path, generation: python -m npcd_tpu_torch.generate_samples's code
      path on configs/npcd_srncars.yaml (302M denoiser, 1000 DDPM steps) with
      seeded weights, written first as the bridged .npz its required
@@ -53,7 +60,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      the aggregation MLP forward and backward over one 50-instance chunk
      (2.24M pairs), the backward fed K6f's own output as its cotangent
      (pairs on a leaky_relu kink left out), each against its plain version,
-     timed;
+     timed, K6f also against float64 as in phase 3;
   9. main path, stage 1: python -m npcd_tpu_torch.train_pointnerf's code
      path on configs/npcd_srncars.yaml, f32, B 8 x V 50, 112 rays x 128
      samples, validity 'knn', remat on, on a seeded synthetic dataset of the
@@ -95,7 +102,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      them; the f32 forward and backward (3xTF32 on the tensor cores) also
      against a float64 evaluation of their plain versions (each output
      within 1e-5 of its scale), beside the f32 plain versions' own errors
-     against it, and with their bounds at the 3xTF32 rate;
+     against it;
  16. main path, bf16 training: phase 6 with the CLI's default --dtype
      (float16: bf16 compute over f32 master weights, every block recomputed
      in the backward);
@@ -109,8 +116,8 @@ Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
 BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
-K1b, K8f and K8b also at 495 / 3 TFLOP/s, the TF32 peak over their three
-products) and,
+K1b, K8f, K8b and K6f also at 495 / 3 TFLOP/s, the TF32 peak over their
+three products) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
@@ -263,8 +270,8 @@ STAGE1_WARMUP = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
-# operations/s (over 3, the rate of the split products of the f32 K1b, K8f
-# and K8b)
+# operations/s (over 3, the rate of the split products of the f32 K1b, K8f,
+# K8b and K6f)
 HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 989e12, 495e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
@@ -350,15 +357,20 @@ def phase_build() -> None:
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
     # the bf16 K1 and K8 and every f32 kernel in namespace tf (3xTF32: the
-    # f32 K1b, K8f and K8b) run their products on the tensor cores; the f32
-    # K1f (fqa_fwd: exact f32, no TF32) on the CUDA cores; K1 has 6 kernels,
-    # K8 12 (3 per flavour at D 64 and 128)
-    tensor_cores = lambda k: k[1] == "bf16" or k[0].startswith("tf::")
-    for name, n_kernels in (("fused_qkv_attention", 6), ("flash_attention", 12)):
+    # f32 K1b, K8f, K8b and K6f) run their products on the tensor cores; the
+    # f32 K1f (fqa_fwd: exact f32, no TF32) and every K6 kernel outside tf
+    # (split_weights, the bf16 forward, both backwards, reduce_partials) on
+    # the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64 and
+    # 128), K6 7
+    in_tf = lambda k: k[0].startswith("tf::")
+    tensor_cores = lambda k: k[1] == "bf16" or in_tf(k)
+    for name, n_kernels, rule in (("fused_qkv_attention", 6, tensor_cores),
+                                  ("flash_attention", 12, tensor_cores),
+                                  ("fused_mlp_posenc", 7, in_tf)):
         counts = _sass_mma_counts(name)
         print(f"[build] {name} SASS tensor-core instructions: "
               + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
-        wrong = [k for k, n in counts.items() if (n > 0) != tensor_cores(k)]
+        wrong = [k for k, n in counts.items() if (n > 0) != rule(k)]
         if len(counts) != n_kernels or wrong:
             raise AssertionError(f"{name}: tensor-core use differs from the design: "
                                  f"{wrong or counts}")
@@ -439,14 +451,19 @@ def _worst(triples) -> tuple:
 def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_fn,
             extra: str = "", tag: str = "kernels", flops: float = 0.0, nbytes: float = 0.0,
             library_fn=None, peak: float = FP32_FLOP_S, iters: int = 20,
-            graph: bool = False) -> None:
+            graph: bool = False, tf32: bool = False) -> None:
     """Time kernel, plain version and (where there is one) the library call
     computing the same function, ``iters`` runs each; print; raise when
     err > tol. The bound is the larger of nbytes over the HBM rate and flops
-    over ``peak`` (operations/s). With ``graph``, the kernel's device time
+    over ``peak`` (operations/s); with ``tf32`` (an f32 kernel whose
+    products run in 3xTF32), flops over the 3xTF32 rate, its bound at the
+    FP32 rate printed beside it. With ``graph``, the kernel's device time
     from a replayed CUDA graph is printed too, with its share of the bound."""
     ms, plain_ms = _time_ms(kernel_fn, iters), _time_ms(plain_fn, iters)
     library_ms = _time_ms(library_fn, iters) if library_fn is not None else None
+    if tf32:
+        extra += f"; bound at the FP32 rate {flops / FP32_FLOP_S * 1e3:.4f} ms"
+        peak = TF32_FLOP_S / 3
     bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / peak else "operations"
     bound_ms = max(nbytes / HBM_BYTES_S, flops / peak) * 1e3
     if graph:
@@ -454,8 +471,9 @@ def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_f
         extra += f" graph replay {graph_ms:.4f} ms ({bound_ms / graph_ms:.3f} of the bound)"
     ok = err <= tol
     lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
+    rate = " at the 3xTF32 rate" if tf32 else ""
     print(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound {bound_ms:.4f} ms "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound{rate} {bound_ms:.4f} ms "
           f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B){extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
@@ -530,12 +548,14 @@ def phase_kernels() -> dict:
                        torch.zeros(8, 4, m, device=dev)], dim=1)
     kargs = (feat_t, pos_t, weights, 8, 10, 1.0, "anchored")
     want = fused_mlp_posenc_wsum_plain(*kargs)
-    err = _err(fused_mlp_posenc_wsum(*kargs), want)
+    got = fused_mlp_posenc_wsum(*kargs)
+    err = _err(got, want)
     scale = max(1.0, float(want.abs().max()))
     n_w = sum(t.numel() for wb in weights for t in wb)
     check("fused_mlp_posenc_wsum", err, 1e-4 * scale, lambda: fused_mlp_posenc_wsum(*kargs),
           lambda: fused_mlp_posenc_wsum_plain(*kargs), flops=K6F_FLOP * 8 * m,
-          nbytes=4 * (feat_t.numel() + pos_t.numel() + n_w + want.numel()))
+          nbytes=4 * (feat_t.numel() + pos_t.numel() + n_w + want.numel()),
+          extra=_k6f_vs_f64("fused_mlp_posenc_wsum", kargs, got, want), tf32=True)
     return results
 
 
@@ -612,7 +632,7 @@ def phase_train_kernels() -> dict:
     flops = 10 * b * h * s * valid * 64
     extra = (f" pad-row dq/dk/dv all 0; vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
              f"{_f64_gate('fused_qkv_attention_bwd', parts(got), exact)}, f32 plain "
-             f"{errs(want)}; bound at the 3xTF32 rate {flops / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+             f"{errs(want)}")
     del exact
     # the library call: autograd's backward of scaled_dot_product_attention
     q, k, v = _bhsd(qkv, b, s, h, 2, grad=True)
@@ -620,7 +640,7 @@ def phase_train_kernels() -> dict:
     o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
     do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
     check("fused_qkv_attention_bwd", err, tol, bwd, bwd_plain, extra=extra, flops=flops,
-          nbytes=4 * (2 * qkv.numel() + 2 * dout.numel() + lse_k.numel()),
+          nbytes=4 * (2 * qkv.numel() + 2 * dout.numel() + lse_k.numel()), tf32=True,
           library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
     del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
 
@@ -1005,7 +1025,9 @@ def phase_stage1_kernels() -> dict:
     check("fused_mlp_posenc_wsum (stage-1 chunk)", _err(gout, want),
           1e-4 * max(1.0, float(want.abs().max())), lambda: fused_mlp_posenc_wsum(*fargs),
           lambda: fused_mlp_posenc_wsum_plain(*fargs), flops=K6F_FLOP * inst * m,
-          nbytes=4 * (feat_t.numel() + pos_t.numel() + n_w + want.numel()))
+          nbytes=4 * (feat_t.numel() + pos_t.numel() + n_w + want.numel()),
+          extra=_k6f_vs_f64("fused_mlp_posenc_wsum (stage-1 chunk)", fargs, gout, want),
+          tf32=True)
     del want
     torch.cuda.empty_cache()
     # K6b is held against its plain version evaluated in float64 (in slices
@@ -1053,6 +1075,27 @@ def _bwd_plain_f64(feat_t, pos_t, weights, g, k: int, n_freqs: int, step: int = 
         dfs.append(df)
         dws = dw if dws is None else [(a + c, b + d) for (a, b), (c, d) in zip(dws, dw)]
     return torch.cat(dfs), dws
+
+
+def _k6f_f64(feat_t, pos_t, weights, k: int, n_freqs: int, step: int = 5):
+    """fused_mlp_posenc_wsum_plain evaluated in float64, in slices of
+    ``step`` instances (the 'anchored' posenc is computed in f32 by both
+    sides)."""
+    w64 = [(w.double(), b.double()) for w, b in weights]
+    return torch.cat([fused_mlp_posenc_wsum_plain(feat_t[i:i + step].double(),
+                                                  pos_t[i:i + step].double(), w64, k, n_freqs)
+                      for i in range(0, feat_t.shape[0], step)])
+
+
+def _k6f_vs_f64(name: str, kargs, got, want) -> str:
+    """The f32 K6f (3xTF32) against the float64 plain version (raises past
+    1e-5 of its scale), and the f32 plain version's own error against it ->
+    text for its line."""
+    exact = _k6f_f64(*kargs[:5])
+    gate = _f64_gate(name, [got], [exact])
+    plain_err = _err64(want, exact)
+    del exact
+    return f" vs float64 (tol 1e-5 of its scale): kernel {gate}, f32 plain {plain_err:.2e}"
 
 
 def phase_fast_kernels() -> dict:
@@ -1361,12 +1404,11 @@ def phase_attention() -> tuple:
             errs = lambda xs: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(xs, exact))
             extra = (f" vs float64 out/lse (tol 1e-5 of each scale): kernel "
                      f"{_f64_gate('flash_attention', (out_k, lse_k), exact)}, f32 plain "
-                     f"{errs((out_p, lse_p))}; bound at the 3xTF32 rate "
-                     f"{4 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+                     f"{errs((out_p, lse_p))}")
             del exact
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         check(f"flash_attention{suffix}", err, tol, fwd, fwd_plain, extra=extra,
-              flops=4 * b * h * s * s * d, nbytes=size * 4 * n + 4 * b * h * s,
+              flops=4 * b * h * s * s * d, nbytes=size * 4 * n + 4 * b * h * s, tf32=not bf16,
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs))
         # the backward from each side's own forward (the plain version
         # recomputes the softmax): f32 within 1e-4 of max(1, each gradient's
@@ -1385,15 +1427,13 @@ def phase_attention() -> tuple:
             exact = _flash_bwd_f64(q, k, v, dout)
             errs = lambda xs: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(xs, exact))
             extra = (f" vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
-                     f"{_f64_gate('flash_attention_bwd', got, exact)}, f32 plain {errs(want)}; "
-                     f"bound at the 3xTF32 rate "
-                     f"{10 * b * h * s * s * d / (TF32_FLOP_S / 3) * 1e3:.4f} ms")
+                     f"{_f64_gate('flash_attention_bwd', got, exact)}, f32 plain {errs(want)}")
             del exact
         ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         o_lib = F.scaled_dot_product_attention(ql, kl, vl)
         do_lib = dout.transpose(1, 2)
         check(f"flash_attention_bwd{suffix}", err, tol, bwd, bwd_plain, extra=extra,
-              flops=10 * b * h * s * s * d, nbytes=size * 7 * n + 4 * b * h * s,
+              flops=10 * b * h * s * s * d, nbytes=size * 7 * n + 4 * b * h * s, tf32=not bf16,
               library_fn=lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do_lib,
                                                      retain_graph=True))
         del out_k, lse_k, out_p, lse_p, got, want, ql, kl, vl, o_lib, do_lib

@@ -14,7 +14,9 @@ side). Runs in exact f32 (TF32 off for matmuls and convolutions).
 and normalizer stats bridged from the JAX package or exported by the port's
 trainers (utils/from_jax.py). Samples render with the config's
 ``render_config.validity`` ('knn' unless it says otherwise); ``--validity``
-overrides it.
+overrides it. ``--mesh`` (data-parallel sampling) is not ported yet and
+raises NotImplementedError; ``--platform`` chooses a JAX backend and is
+refused.
 """
 from __future__ import annotations
 
@@ -46,6 +48,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--validity", choices=["voxel", "knn"], default=None,
                    help="the render's sample-validity test; default: the config's")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel sampling (not ported yet)")
+    p.add_argument("--platform", default=None, choices=["cpu", "tpu"],
+                   help="a JAX backend; refused (use --device)")
     args = p.parse_args(argv)
     if args.render > 0 and not (args.poses and args.intrinsics):
         p.error("--render requires --poses and --intrinsics")
@@ -53,8 +59,11 @@ def parse_args(argv=None):
 
 
 def exact_f32() -> None:
-    """The 'highest' numerics of record: no TF32 anywhere, and bf16 GEMMs
-    reduce in f32 (as XLA's bf16 dots accumulate)."""
+    """The 'highest' numerics of record: no TF32 in PyTorch's matmuls and
+    convolutions, and bf16 GEMMs reduce in f32 (as XLA's bf16 dots
+    accumulate). The port's own f32 kernels on the tensor cores (K1b, K8f,
+    K8b and K6f) run in 3xTF32, split products held within 1e-5 of their
+    outputs' scale of float64."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -95,6 +104,12 @@ def run(args) -> dict:
     from .utils.config import load_config
     from .utils.from_jax import load_npz
 
+    if args.platform:
+        raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
+                         "takes --device cuda or --device cpu")
+    if args.mesh:
+        raise NotImplementedError("--mesh: data-parallel sampling is ROADMAP Queue 1 item 6 "
+                                  "('Data parallelism'), not ported yet")
     exact_f32()
     device = _device(args.device)
     model = NPCD.from_config(load_config(args.config), validity=args.validity, seed=args.seed)

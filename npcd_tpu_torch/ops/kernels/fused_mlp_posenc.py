@@ -14,14 +14,19 @@ TPU kernel: feat_t [I, F, M] gathered neighbour features, pos_t [I, >=4, M]
 with x_rel on rows 0-2 and the pair weight w on row 3; pairs of one shading
 point are contiguous (pair m belongs to point m // k).
 
-Two flavours, chosen by feat_t's dtype: exact f32, and bf16 (feat_t, the
+Two flavours, chosen by feat_t's dtype: f32, and bf16 (feat_t, the
 weights, the output and the cotangent bf16; pos_t f32) with npcd_tpu's bf16
 rounding points: x and the octaves rounded to bf16 as layer 1's input, each
 layer bf16(bf16(f32 sum) + b), the w-sum in f32 and its result bf16; the
 backward keeps the cotangent chain in f32 and rounds the dW and dX operands,
 dfeat and, once at the end, dW/db to bf16, and contracts the last layer's dW
-over points (npcd_tpu's ``fast_last``). Launches count per flavour:
-``launches`` (f32) and ``launches_bf16``.
+over points (npcd_tpu's ``fast_last``). The f32 forward runs on the tensor
+cores in 3xTF32 (``tf::mlp_posenc_wsum``: each product a_lo b_hi + a_hi b_lo
++ a_hi b_hi of tf32 hi + lo splits, ~2**-21 of f32, the last layer folded
+after the w-sum), 64 pairs a block; every kernel takes any k that divides
+its block of 64 pairs. The f32 backward is exact f32 and recomputes its own
+forward. Launches count per flavour: ``launches`` (f32) and
+``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf1
 
 _NAME = "fused_mlp_posenc"
 HIDDEN = 256  # the kernel's layer width (one thread per output column)
-PAIRS_PER_BLOCK = 64
+PAIRS_PER_BLOCK = 64  # the bf16 forward's and the backward's tile
+TF32_PAIRS = 64  # the f32 forward's block: 8 warps as 2 x 4 of 32 x 64 outputs
 MAX_LAYERS = 8  # the backward kernel's per-layer offset tables
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -170,10 +176,12 @@ def _check(what: str, feat_t, pos_t, weights: Weights, k: int, n_freqs: int,
     return build.route(what, feat_t, pos_t, *[t for wb in weights for t in wb])
 
 
-def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int, method: str) -> None:
-    """What the CUDA kernels take beyond ``_check``."""
+def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int, method: str,
+                  pairs: int) -> None:
+    """What the CUDA kernels take beyond ``_check`` (``pairs``: the
+    kernel's block)."""
     d1 = weights[0][0].shape[0]
-    build.require(PAIRS_PER_BLOCK % k == 0, what, f"k must divide {PAIRS_PER_BLOCK}, got {k}")
+    build.require(pairs % k == 0, what, f"k must divide {pairs}, got {k}")
     build.require(method == "anchored", what,
                   f"the kernel computes the 'anchored' posenc, got {method!r}")
     dtype = feat_t.dtype
@@ -201,8 +209,12 @@ def _suffix(dtype: torch.dtype) -> str:
 
 def _lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_fwd" + _suffix(dtype))
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    if dtype == torch.bfloat16:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    else:  # and the split weights' scratch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -220,16 +232,29 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
     if _check(what, feat_t, pos_t, weights, k, n_freqs, method) == "cpu":
         return fused_mlp_posenc_wsum_plain(feat_t, pos_t, weights, k, n_freqs,
                                            freq_mult, method)
-    _check_kernel(what, feat_t, pos_t, weights, k, method)
+    f32 = feat_t.dtype == torch.float32
+    _check_kernel(what, feat_t, pos_t, weights, k, method,
+                  TF32_PAIRS if f32 else PAIRS_PER_BLOCK)
+    d1 = weights[0][0].shape[0]
+    build.require(not f32 or d1 <= HIDDEN, what,
+                  f"the f32 kernel takes a layer-1 input of at most {HIDDEN} columns, got {d1}")
     inst, f_dim, m = feat_t.shape
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
     out = torch.empty((inst, m // k, HIDDEN), device=feat_t.device, dtype=feat_t.dtype)
-    if m:
+    if not m:
+        return out
+    tail = (inst, m, f_dim, pos_t.shape[1], len(weights), n_freqs, _freq_c0(freq_mult), k,
+            build.stream_ptr())
+    if f32:  # the weights split into tf32 hi + lo, 16 KB a k-step of 8 rows
+        n_slabs = -(-d1 // 8) + (len(weights) - 1) * HIDDEN // 8
+        wsplit = torch.empty((n_slabs, 8 * HIDDEN * 2), device=feat_t.device, dtype=torch.int32)
         err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
-                                 out.data_ptr(), inst, m, f_dim, pos_t.shape[1], len(weights),
-                                 n_freqs, _freq_c0(freq_mult), k, build.stream_ptr())
-        build.check(err, what)
-        build.count_launch(fused_mlp_posenc_wsum, feat_t.dtype)
+                                 wsplit.data_ptr(), out.data_ptr(), *tail)
+    else:
+        err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
+                                 out.data_ptr(), *tail)
+    build.check(err, what)
+    build.count_launch(fused_mlp_posenc_wsum, feat_t.dtype)
     return out
 
 
@@ -246,7 +271,7 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
         build.route(what, feat_t, g)
         return fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, g, k, n_freqs,
                                                freq_mult, method)
-    _check_kernel(what, feat_t, pos_t, weights, k, method)
+    _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
     n_layers = len(weights)
     build.require(2 <= n_layers <= MAX_LAYERS, what,
                   f"the kernel takes 2 to {MAX_LAYERS} layers, got {n_layers}")

@@ -1,8 +1,9 @@
 """The port's CLIs take the JAX CLIs' flags with the JAX CLIs' defaults:
 ``generate_samples`` requires ``--weights`` and renders with the config's
 ``render_config.validity`` unless ``--validity`` overrides it, and
-``train_diffusion`` accepts ``--platform`` (a JAX backend flag) only to
-refuse it.
+``train_diffusion`` and ``generate_samples`` accept ``--platform`` (a JAX
+backend flag) only to refuse it; ``generate_samples --mesh`` raises
+NotImplementedError until data parallelism is ported.
 
 The render test runs ``generate_samples`` on configs/npcd_synthetic_tiny.yaml
 (validity 'knn' by npcd_tpu's default) from weights bridged from npcd_tpu,
@@ -112,3 +113,13 @@ def test_train_diffusion_refuses_platform(tmp_path):
     with pytest.raises(ValueError, match="--platform cpu"):
         train(args)
     assert not any(tmp_path.iterdir())  # refused before it wrote anything
+
+
+@pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError),
+                                        (["--mesh"], NotImplementedError)])
+def test_generate_refuses_jax_flags(tmp_path, flag, error):
+    out = tmp_path / "out"
+    with pytest.raises(error, match=flag[0]):
+        generate_main(["--config", CONFIG, "--out", str(out), "--weights", "x.npz",
+                       "--device", "cpu", *flag])
+    assert not out.exists()  # refused before it wrote anything

@@ -41,7 +41,8 @@ their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
 P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513, and
 the f32 K1b, K8f and K8b (tensor cores, 3xTF32), of which the f32 K1b and
 K8f are also held within 1e-5 of max(1, each output's scale) of a float64
-evaluation of their plain versions. The LayerNorm forward kernel (one warp
+evaluation of their plain versions; so is the f32 K6f (tensor cores,
+3xTF32, both tilings), whose two launches must agree bitwise too. The LayerNorm forward kernel (one warp
 per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
 path, and a CUDA graph of it must replay to the eager launch's bits."""
 import math
@@ -204,21 +205,54 @@ def test_knn_kernel(dev, p):
     assert ((i_k == i_p) | (d_p == d_p.roll(1, -1)) | (d_p == d_p.roll(-1, -1))).all()
 
 
-@pytest.mark.parametrize("f,n_freqs", [(32, 10), (8, 4), (8, 12)])
-def test_fused_mlp_posenc_kernel(dev, f, n_freqs):
-    g = _gen(dev)
-    n_pts, k = 13, 8  # 104 pairs: a full and a partial block of 64
+def _posenc_args(dev, f, n_freqs, n_pts, inst=2, k=8, seed=0):
+    """(feat_t, pos_t, weights, k, n_freqs, 1.0, 'anchored') of the configs'
+    256-wide five-layer MLP, x_rel within the kNN radius, weights
+    normalized per point."""
+    g = _gen(dev, seed)
     layers = init_mlp((256,) * 4, f + 3 * (1 + 2 * n_freqs), 256,
                       torch.Generator().manual_seed(0), dev)
     weights = [(l["w"], l["b"]) for l in layers]
-    w = torch.rand(2, n_pts, k, generator=g, device=dev)
-    pos_t = torch.cat([torch.rand(2, 3, n_pts * k, generator=g, device=dev) * 0.3 - 0.15,
-                       (w / w.sum(-1, keepdim=True)).reshape(2, 1, -1),
-                       torch.zeros(2, 4, n_pts * k, device=dev)], dim=1)
-    feat_t = torch.randn(2, f, n_pts * k, generator=g, device=dev)
-    args = (feat_t, pos_t, weights, k, n_freqs, 1.0, "anchored")
+    w = torch.rand(inst, n_pts, k, generator=g, device=dev)
+    pos_t = torch.cat([torch.rand(inst, 3, n_pts * k, generator=g, device=dev) * 0.3 - 0.15,
+                       (w / w.sum(-1, keepdim=True)).reshape(inst, 1, -1),
+                       torch.zeros(inst, 4, n_pts * k, device=dev)], dim=1)
+    feat_t = torch.randn(inst, f, n_pts * k, generator=g, device=dev)
+    return (feat_t, pos_t, weights, k, n_freqs, 1.0, "anchored")
+
+
+# 13 points x k 8 = 104 pairs: a full and a partial block of 64 (the f32
+# and bf16 forwards' and the backward's); 29 points: 232 pairs, three full
+# blocks and a partial one
+@pytest.mark.parametrize("n_pts", [13, 29])
+@pytest.mark.parametrize("f,n_freqs", [(32, 10), (8, 4), (8, 12)])
+def test_fused_mlp_posenc_kernel(dev, f, n_freqs, n_pts):
+    args = _posenc_args(dev, f, n_freqs, n_pts)
     torch.testing.assert_close(fused_mlp_posenc_wsum(*args), fused_mlp_posenc_wsum_plain(*args),
                                rtol=1e-5, atol=1e-5)
+
+
+# k 8: 29 and 13 points are ragged blocks of 64 pairs, 5120 the render's
+# shape; k 2 (32 points a block, two m16 tiles of the folded last layer)
+# and k 1 (64, four tiles), with a partial block each
+@pytest.mark.parametrize("f,n_freqs,n_pts,inst,k", [(32, 10, 29, 2, 8), (8, 12, 13, 3, 8),
+                                                    (32, 10, 5120, 8, 8), (32, 10, 53, 2, 2),
+                                                    (8, 12, 101, 2, 1)])
+def test_fused_mlp_posenc_f32_forward_is_repeatable_and_exact(dev, f, n_freqs, n_pts, inst, k):
+    """The f32 K6f (tensor cores, 3xTF32): two launches give bitwise equal
+    outputs, within 1e-5 of max(1, the output's scale) of the plain version
+    evaluated in float64 (the card's f32 tolerance, inside phases 3 and 8's
+    gate of 1e-4 against the f32 plain version), at ragged shapes, at the
+    render's 8 x 40,960 pairs and at every count of the folded last layer's
+    m16 tiles."""
+    feat_t, pos_t, weights, k, n_freqs, freq_mult, method = _posenc_args(dev, f, n_freqs,
+                                                                         n_pts, inst, k)
+    out0, out1 = (fused_mlp_posenc_wsum(feat_t, pos_t, weights, k, n_freqs) for _ in range(2))
+    assert torch.equal(out0, out1)
+    exact = fused_mlp_posenc_wsum_plain(feat_t.double(), pos_t.double(),
+                                        [(w.double(), b.double()) for w, b in weights], k,
+                                        n_freqs, freq_mult, method)
+    _close_rel(out0.double(), exact)
 
 
 def test_unsupported_shapes_raise_on_cuda(dev):
