@@ -12,8 +12,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      f32 one in namespace tf (3xTF32: K1b's tf::bwd_dq and tf::bwd_dkdv,
      K8f's tf::fwd, K8b's tf::bwd_dq and tf::bwd_dkdv) must have some, the
      f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none; and in K6's
-     (csrc/fused_mlp_posenc.cu) only the f32 forward, tf::mlp_posenc_wsum
-     (3xTF32), has some;
+     (csrc/fused_mlp_posenc.cu) only the f32 forward and backward,
+     tf::mlp_posenc_wsum and tf::mlp_posenc_wsum_bwd (3xTF32), have some;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events; the LayerNorm
@@ -60,7 +60,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      the aggregation MLP forward and backward over one 50-instance chunk
      (2.24M pairs), the backward fed K6f's own output as its cotangent
      (pairs on a leaky_relu kink left out), each against its plain version,
-     timed, K6f also against float64 as in phase 3;
+     timed, K6f also against float64 as in phase 3; K6b (3xTF32) against its
+     plain version evaluated in float64 (each output within 1e-5 of its
+     scale), and two of its launches bitwise equal;
   9. main path, stage 1: python -m npcd_tpu_torch.train_pointnerf's code
      path on configs/npcd_srncars.yaml, f32, B 8 x V 50, 112 rays x 128
      samples, validity 'knn', remat on, on a seeded synthetic dataset of the
@@ -116,8 +118,8 @@ Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
 BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
-K1b, K8f, K8b and K6f also at 495 / 3 TFLOP/s, the TF32 peak over their
-three products) and,
+K1b, K8f, K8b, K6f and K6b also at 495 / 3 TFLOP/s, the TF32 peak over
+their three products, K6b's recompute at the FP32 rate, where it runs) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
@@ -271,7 +273,7 @@ STAGE1_WARMUP = 2
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
 # operations/s (over 3, the rate of the split products of the f32 K1b, K8f,
-# K8b and K6f)
+# K8b, K6f and K6b)
 HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 989e12, 495e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
@@ -286,6 +288,9 @@ _K6_LAST = 2 * 256 * 256 // 8  # one 256 x 256 product per point
 K6F_FLOP = _K6_HIDDEN + 2 * 256 + _K6_LAST
 K6B_FLOP = (_K6_HIDDEN + _K6_HIDDEN + 2 * 256 + _K6_LAST
             + _K6_LAST + 256 + 3 * 2 * 256 * 256 + 2 * 256 * 32)
+# the part of K6B_FLOP that the f32 K6b runs in exact f32 on the CUDA cores:
+# the recompute of layers 0-3
+K6B_FP32_FLOP = _K6_HIDDEN
 DIST_FLOP = 9  # per (query, point): 3 sub, 3 mul, 2 add, 1 compare
 
 
@@ -357,16 +362,16 @@ def phase_build() -> None:
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
     # the bf16 K1 and K8 and every f32 kernel in namespace tf (3xTF32: the
-    # f32 K1b, K8f, K8b and K6f) run their products on the tensor cores; the
-    # f32 K1f (fqa_fwd: exact f32, no TF32) and every K6 kernel outside tf
-    # (split_weights, the bf16 forward, both backwards, reduce_partials) on
-    # the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64 and
-    # 128), K6 7
+    # f32 K1b, K8f, K8b, K6f and K6b) run their products on the tensor cores;
+    # the f32 K1f (fqa_fwd: exact f32, no TF32) and every K6 kernel outside
+    # tf (split_weights, split_weights_t, the bf16 forward and backward,
+    # reduce_partials_bf16 and _tf32) on the CUDA cores; K1 has 6 kernels,
+    # K8 12 (3 per flavour at D 64 and 128), K6 8
     in_tf = lambda k: k[0].startswith("tf::")
     tensor_cores = lambda k: k[1] == "bf16" or in_tf(k)
     for name, n_kernels, rule in (("fused_qkv_attention", 6, tensor_cores),
                                   ("flash_attention", 12, tensor_cores),
-                                  ("fused_mlp_posenc", 7, in_tf)):
+                                  ("fused_mlp_posenc", 8, in_tf)):
         counts = _sass_mma_counts(name)
         print(f"[build] {name} SASS tensor-core instructions: "
               + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
@@ -451,27 +456,34 @@ def _worst(triples) -> tuple:
 def _record(results: dict, name: str, err: float, tol: float, kernel_fn, plain_fn,
             extra: str = "", tag: str = "kernels", flops: float = 0.0, nbytes: float = 0.0,
             library_fn=None, peak: float = FP32_FLOP_S, iters: int = 20,
-            graph: bool = False, tf32: bool = False) -> None:
+            graph: bool = False, tf32: bool = False, fp32_flops: float = 0.0) -> None:
     """Time kernel, plain version and (where there is one) the library call
     computing the same function, ``iters`` runs each; print; raise when
     err > tol. The bound is the larger of nbytes over the HBM rate and flops
     over ``peak`` (operations/s); with ``tf32`` (an f32 kernel whose
-    products run in 3xTF32), flops over the 3xTF32 rate, its bound at the
-    FP32 rate printed beside it. With ``graph``, the kernel's device time
+    products run in 3xTF32), flops over the 3xTF32 rate but ``fp32_flops``
+    of them (run in exact f32 on the CUDA cores) over the FP32 rate, its
+    bounds at the FP32 rate and (with fp32_flops) all at the 3xTF32 rate
+    printed beside it. With ``graph``, the kernel's device time
     from a replayed CUDA graph is printed too, with its share of the bound."""
     ms, plain_ms = _time_ms(kernel_fn, iters), _time_ms(plain_fn, iters)
     library_ms = _time_ms(library_fn, iters) if library_fn is not None else None
+    op_s = flops / peak
     if tf32:
         extra += f"; bound at the FP32 rate {flops / FP32_FLOP_S * 1e3:.4f} ms"
-        peak = TF32_FLOP_S / 3
-    bound_by = "bytes" if nbytes / HBM_BYTES_S >= flops / peak else "operations"
-    bound_ms = max(nbytes / HBM_BYTES_S, flops / peak) * 1e3
+        op_s = fp32_flops / FP32_FLOP_S + (flops - fp32_flops) / (TF32_FLOP_S / 3)
+        if fp32_flops:
+            extra += f", all at the 3xTF32 rate {flops / (TF32_FLOP_S / 3) * 1e3:.4f} ms"
+    bound_by = "bytes" if nbytes / HBM_BYTES_S >= op_s else "operations"
+    bound_ms = max(nbytes / HBM_BYTES_S, op_s) * 1e3
     if graph:
         graph_ms = _graph_ms(kernel_fn, iters)
         extra += f" graph replay {graph_ms:.4f} ms ({bound_ms / graph_ms:.3f} of the bound)"
     ok = err <= tol
     lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
     rate = " at the 3xTF32 rate" if tf32 else ""
+    if fp32_flops:
+        rate += " (its f32 part at the FP32 rate)"
     print(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound{rate} {bound_ms:.4f} ms "
           f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B){extra} {'ok' if ok else 'FAIL'}")
@@ -1030,9 +1042,9 @@ def phase_stage1_kernels() -> dict:
           tf32=True)
     del want
     torch.cuda.empty_cache()
-    # K6b is held against its plain version evaluated in float64 (in slices
-    # of 5 instances, the dW summed over the slices): its dW sums run over
-    # 2.24M pairs, where the f32 plain version's own rounding (cuBLAS's
+    # K6b (3xTF32) is held against its plain version evaluated in float64
+    # (in slices of 5 instances, the dW summed over the slices): its dW sums
+    # run over 2.24M pairs, where the f32 plain version's own rounding (cuBLAS's
     # long f32 dot products) is of the order of the tolerance. The f32 plain
     # version is timed, and its distance to the float64 one printed
     bargs = (feat_t, pos_t, weights, gout, 8, 10)
@@ -1055,8 +1067,8 @@ def phase_stage1_kernels() -> dict:
                 f"scale, the f32 plain version at {rel_plain:.2e}, kernel vs f32 plain "
                 f"{rel_vs_plain:.2e}) kinked pairs {int(kinks.sum())} of {kinks.numel()}; "
                 f"{scales}; repeatable bitwise",
-          flops=K6B_FLOP * inst * m,
-          nbytes=4 * (2 * feat_t.numel() + pos_t.numel() + gout.numel() + 2 * n_w))
+          flops=K6B_FLOP * inst * m, fp32_flops=K6B_FP32_FLOP * inst * m,
+          nbytes=4 * (2 * feat_t.numel() + pos_t.numel() + gout.numel() + 2 * n_w), tf32=True)
     del feat_t, pos_t, gout, bargs, got, exact, kinks
     torch.cuda.empty_cache()
     return results
@@ -1668,6 +1680,12 @@ def phase_stage1_cpu_step(path: Path = SRNCARS, tag: str = "gpu-vs-cpu-stage1") 
           f"{worst[1]} rel err {worst[0]:.2e} (tol {tol_leaf:.0e}) over {len(cpu['grads'])} "
           f"leaves; updated params max_abs_err {param_err:.2e} (tol {2 * lr + 1e-6:.1e}), "
           f"{param_frac:.1e} of them beyond 1e-6 (tol {tol_frac:.0e})")
+    if param_frac > tol_frac:  # where the parameters moved apart
+        for k, v in cpu["params"].items():
+            n = int(((gpu["params"][k] - v).abs() > 1e-6).sum())
+            if n:
+                print(f"[{tag}]   {k}: {n} of {v.numel()} beyond 1e-6, gradient scale "
+                      f"{float(cpu['grads'][k].abs().max()):.2e}")
     if (loss_err > tol_loss or worst[0] > tol_leaf or zero or param_err > 2 * lr + 1e-6
             or param_frac > tol_frac):
         raise AssertionError(f"GPU and CPU stage-1 steps disagree (zero-gradient leaves {zero})")

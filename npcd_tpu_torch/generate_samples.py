@@ -62,8 +62,8 @@ def exact_f32() -> None:
     """The 'highest' numerics of record: no TF32 in PyTorch's matmuls and
     convolutions, and bf16 GEMMs reduce in f32 (as XLA's bf16 dots
     accumulate). The port's own f32 kernels on the tensor cores (K1b, K8f,
-    K8b and K6f) run in 3xTF32, split products held within 1e-5 of their
-    outputs' scale of float64."""
+    K8b, K6f and K6b's products) run in 3xTF32, split products held within
+    1e-5 of their outputs' scale of float64."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

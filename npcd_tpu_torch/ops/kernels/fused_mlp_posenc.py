@@ -20,13 +20,16 @@ rounding points: x and the octaves rounded to bf16 as layer 1's input, each
 layer bf16(bf16(f32 sum) + b), the w-sum in f32 and its result bf16; the
 backward keeps the cotangent chain in f32 and rounds the dW and dX operands,
 dfeat and, once at the end, dW/db to bf16, and contracts the last layer's dW
-over points (npcd_tpu's ``fast_last``). The f32 forward runs on the tensor
-cores in 3xTF32 (``tf::mlp_posenc_wsum``: each product a_lo b_hi + a_hi b_lo
-+ a_hi b_hi of tf32 hi + lo splits, ~2**-21 of f32, the last layer folded
-after the w-sum), 64 pairs a block; every kernel takes any k that divides
-its block of 64 pairs. The f32 backward is exact f32 and recomputes its own
-forward. Launches count per flavour: ``launches`` (f32) and
-``launches_bf16``.
+over points (npcd_tpu's ``fast_last``). The f32 forward and backward run
+their products on the tensor cores in 3xTF32 (``tf::mlp_posenc_wsum``,
+``tf::mlp_posenc_wsum_bwd``: each product a_lo b_hi + a_hi b_lo + a_hi b_hi
+of tf32 hi + lo splits, ~2**-21 of f32), 64 pairs a block, the last layer
+once per point (folded after the w-sum forward; ``fast_last`` and its dX per
+point backward); the backward's recompute of the hidden layers, which sets
+leaky_relu's slopes, is exact f32 on the CUDA cores. The bf16 kernels run
+on the CUDA cores. Every kernel takes any k that divides its block of 64
+pairs; each backward recomputes its own forward. Launches count per
+flavour: ``launches`` (f32) and ``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -43,10 +46,9 @@ from . import build
 from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf16
 
 _NAME = "fused_mlp_posenc"
-HIDDEN = 256  # the kernel's layer width (one thread per output column)
-PAIRS_PER_BLOCK = 64  # the bf16 forward's and the backward's tile
-TF32_PAIRS = 64  # the f32 forward's block: 8 warps as 2 x 4 of 32 x 64 outputs
-MAX_LAYERS = 8  # the backward kernel's per-layer offset tables
+HIDDEN = 256  # the kernels' layer width
+PAIRS_PER_BLOCK = 64  # every kernel's tile of (point, neighbour) pairs
+MAX_LAYERS = 8  # the backward kernels' layer limit
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -206,7 +208,6 @@ def _suffix(dtype: torch.dtype) -> str:
     return "_bf16" if dtype == torch.bfloat16 else ""
 
 
-
 def _lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_fwd" + _suffix(dtype))
     if dtype == torch.bfloat16:
@@ -227,17 +228,34 @@ def _bwd_lib(dtype: torch.dtype):
     return fn
 
 
+def _partial_len(d1: int, n_layers: int) -> int:
+    """The length of a block's f32 dW/db partial, in the kernel's layout."""
+    fn = build.load(_NAME).fused_mlp_posenc_partial_len
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_long
+    return fn(d1, n_layers)
+
+
+def _check_d1(what: str, f32: bool, weights: Weights) -> None:
+    d1 = weights[0][0].shape[0]
+    build.require(not f32 or d1 <= HIDDEN, what,
+                  f"the f32 kernels take a layer-1 input of at most {HIDDEN} columns, got {d1}")
+
+
+def _wsplit(n_slabs: int, device) -> torch.Tensor:
+    """Scratch for ``n_slabs`` k-steps of the weights split into tf32 hi +
+    lo: 8 rows x 256 columns x 2 words, 16 KB each."""
+    return torch.empty((n_slabs, 8 * HIDDEN * 2), device=device, dtype=torch.int32)
+
+
 def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> torch.Tensor:
     what = "fused_mlp_posenc_wsum"
     if _check(what, feat_t, pos_t, weights, k, n_freqs, method) == "cpu":
         return fused_mlp_posenc_wsum_plain(feat_t, pos_t, weights, k, n_freqs,
                                            freq_mult, method)
     f32 = feat_t.dtype == torch.float32
-    _check_kernel(what, feat_t, pos_t, weights, k, method,
-                  TF32_PAIRS if f32 else PAIRS_PER_BLOCK)
+    _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
+    _check_d1(what, f32, weights)
     d1 = weights[0][0].shape[0]
-    build.require(not f32 or d1 <= HIDDEN, what,
-                  f"the f32 kernel takes a layer-1 input of at most {HIDDEN} columns, got {d1}")
     inst, f_dim, m = feat_t.shape
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
     out = torch.empty((inst, m // k, HIDDEN), device=feat_t.device, dtype=feat_t.dtype)
@@ -246,8 +264,7 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
     tail = (inst, m, f_dim, pos_t.shape[1], len(weights), n_freqs, _freq_c0(freq_mult), k,
             build.stream_ptr())
     if f32:  # the weights split into tf32 hi + lo, 16 KB a k-step of 8 rows
-        n_slabs = -(-d1 // 8) + (len(weights) - 1) * HIDDEN // 8
-        wsplit = torch.empty((n_slabs, 8 * HIDDEN * 2), device=feat_t.device, dtype=torch.int32)
+        wsplit = _wsplit(-(-d1 // 8) + (len(weights) - 1) * HIDDEN // 8, feat_t.device)
         err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
                                  wsplit.data_ptr(), out.data_ptr(), *tail)
     else:
@@ -272,6 +289,8 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
         return fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, g, k, n_freqs,
                                                freq_mult, method)
     _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
+    f32 = feat_t.dtype == torch.float32
+    _check_d1(what, f32, weights)
     n_layers = len(weights)
     build.require(2 <= n_layers <= MAX_LAYERS, what,
                   f"the kernel takes 2 to {MAX_LAYERS} layers, got {n_layers}")
@@ -280,7 +299,13 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
     build.require(g.device == feat_t.device and g.dtype == feat_t.dtype and g.is_contiguous(),
                   what, f"g must be a contiguous {feat_t.dtype} on feat_t's device")
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
-    params_t = torch.cat([w.t().contiguous().reshape(-1) for w, _ in weights])
+    # the weights as the kernel reads them: f32, W^T of layers L-1 .. 1 and
+    # W_0[:F]^T split into tf32 hi + lo; bf16, W^T of every layer
+    d1 = weights[0][0].shape[0]
+    if f32:
+        wt = _wsplit((n_layers - 1) * HIDDEN // 8 + -(-f_dim // 8), feat_t.device)
+    else:
+        wt = torch.cat([w.t().contiguous().reshape(-1) for w, _ in weights])
     dfeat_t = torch.empty_like(feat_t)
     dparams = torch.zeros_like(params)
     tiles = inst * (-(-m // PAIRS_PER_BLOCK))
@@ -288,15 +313,18 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
         # one block per SM: a fixed grid keeps the dW sums in a fixed order
         sms = torch.cuda.get_device_properties(feat_t.device).multi_processor_count
         n_blocks = min(sms, tiles)
-        partial = torch.zeros((n_blocks, params.numel()), device=feat_t.device,
-                              dtype=torch.float32)
-        scratch = torch.empty((n_blocks * (n_layers - 2) * PAIRS_PER_BLOCK * HIDDEN,),
+        n_partial = _partial_len(d1, n_layers) if f32 else params.numel()
+        partial = torch.zeros((n_blocks, n_partial), device=feat_t.device, dtype=torch.float32)
+        # a block's [64, 256] buffers: the recomputed act_0 .. act_{L-3}, and (f32)
+        # the last layer's batch of hw and g_out
+        kept = n_layers if f32 else n_layers - 2
+        scratch = torch.empty((n_blocks * kept * PAIRS_PER_BLOCK * HIDDEN,),
                               device=feat_t.device, dtype=torch.float32)
         err = _bwd_lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
-                         params_t.data_ptr(), g.data_ptr(), dfeat_t.data_ptr(),
+                         wt.data_ptr(), g.data_ptr(), dfeat_t.data_ptr(),
                          dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, m,
                          f_dim, pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k,
-                         n_blocks, params.numel(), build.stream_ptr())
+                         n_blocks, n_partial, build.stream_ptr())
         build.check(err, what)
         build.count_launch(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []

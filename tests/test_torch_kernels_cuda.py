@@ -7,7 +7,7 @@ the training kernels: the attention backward (pad keys get exactly zero
 dk and dv), the LayerNorm backward in both forms, and the AdamW + EMA pass
 over a length that does not fill its last block; and stage 1's: the
 minimum squared distance (bitwise equal), the aggregation MLP's backward
-(through autograd, ragged tiles, more tiles than blocks) and one stage-1
+(through autograd, ragged tiles, more tiles than blocks, k 8, 2 and 1) and one stage-1
 training step on the card against the same step on the CPU; and the bf16
 kernels of the fast stage-1 config: the field heads' MLP stack forward and
 backward (K7f/K7b) and the bf16 aggregation MLP (K6f/K6b), with one fast
@@ -41,8 +41,8 @@ their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
 P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513, and
 the f32 K1b, K8f and K8b (tensor cores, 3xTF32), of which the f32 K1b and
 K8f are also held within 1e-5 of max(1, each output's scale) of a float64
-evaluation of their plain versions; so is the f32 K6f (tensor cores,
-3xTF32, both tilings), whose two launches must agree bitwise too. The LayerNorm forward kernel (one warp
+evaluation of their plain versions; so are the f32 K6f and K6b (tensor
+cores, 3xTF32), whose two launches must agree bitwise too. The LayerNorm forward kernel (one warp
 per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
 path, and a CUDA graph of it must replay to the eager launch's bits."""
 import math
@@ -280,12 +280,17 @@ def _close_rel(got, want, rel=1e-5):
     assert float((got - want).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("n_pts,inst", [(13, 2), (700, 3)])
-def test_fused_mlp_posenc_backward_kernel(dev, n_pts, inst):
-    # 104 pairs: a full and a partial tile; 5600 pairs x 3 instances: more
-    # tiles than blocks, so every block accumulates over several tiles
+# k 8: 104 pairs, a full and a partial tile; 5600 pairs x 3 instances, more
+# tiles than blocks, so every block accumulates over several tiles; k 2 (32
+# points a tile, two m16 tiles of the last layer's per-point product) and k 1
+# (64, four), each with a partial tile
+@pytest.mark.parametrize("n_pts,inst,k", [(13, 2, 8), (700, 3, 8), (53, 2, 2), (101, 2, 1)])
+def test_fused_mlp_posenc_backward_kernel(dev, n_pts, inst, k):
+    """The f32 K6b (tensor cores, 3xTF32): every output within 1e-5 of
+    max(1, its scale) of the plain version evaluated in float64, two launches
+    bitwise equal, and autograd's backward the kernel."""
     g = _gen(dev, 5)
-    k, f = 8, 32
+    f = 32
     layers = init_mlp((256,) * 4, f + 63, 256, torch.Generator().manual_seed(0), dev)
     weights = [(l["w"], l["b"]) for l in layers]
     m = n_pts * k
@@ -297,11 +302,17 @@ def test_fused_mlp_posenc_backward_kernel(dev, n_pts, inst):
     pos_t[:, 3][leaky_kinks(feat_t, pos_t, weights, 10)] = 0.0
     gout = torch.randn(inst, n_pts, 256, generator=g, device=dev)
     df, dws = fused_mlp_posenc_wsum_bwd(feat_t, pos_t, weights, gout, k, 10)
-    df_p, dws_p = fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, gout, k, 10)
-    _close_rel(df, df_p)
+    df_p, dws_p = fused_mlp_posenc_wsum_bwd_plain(
+        feat_t.double(), pos_t.double(), [(a.double(), b.double()) for a, b in weights],
+        gout.double(), k, 10)
+    _close_rel(df.double(), df_p)
     for (a, b), (c, d) in zip(dws, dws_p):
-        _close_rel(a, c)
-        _close_rel(b, d)
+        _close_rel(a.double(), c)
+        _close_rel(b.double(), d)
+    df1, dws1 = fused_mlp_posenc_wsum_bwd(feat_t, pos_t, weights, gout, k, 10)
+    assert torch.equal(df1, df)
+    for (a, b), (c, d) in zip(dws1, dws):
+        assert torch.equal(a, c) and torch.equal(b, d)
     # through autograd: the Function's backward is the kernel; pos_t gets none
     ft = feat_t.clone().requires_grad_(True)
     pt = pos_t.clone().requires_grad_(True)
