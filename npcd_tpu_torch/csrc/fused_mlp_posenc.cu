@@ -4,9 +4,10 @@
 // rounding points. The f32 forward and backward run their products on the
 // tensor cores in 3xTF32 (tf::mlp_posenc_wsum and tf::mlp_posenc_wsum_bwd,
 // below; the backward's recompute of the hidden layers in exact f32); the
-// bf16 forward (mlp_posenc_wsum_bf16) and backward (mlp_posenc_wsum_bwd_bf16)
-// are f32 arithmetic on exact bf16 products on the CUDA cores. Each backward
-// recomputes its own forward from the inputs.
+// bf16 backward on the tensor cores in bf16 (tc::mlp_posenc_wsum_bwd, below);
+// the bf16 forward (mlp_posenc_wsum_bf16) is f32 arithmetic on exact bf16
+// products on the CUDA cores. Each backward recomputes its own forward from
+// the inputs.
 //
 // Replaces npcd_tpu/ops/pallas/fused_mlp.py:fused_mlp_posenc_wsum
 // (_posenc_impl_fwd -> _fwd_posenc_kernel with reduce_k). Per
@@ -47,6 +48,7 @@
 
 #include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -65,6 +67,7 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 __device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ float leaky(float z) { return fmaxf(z, 0.01f * z); }
 
@@ -103,27 +106,28 @@ __device__ __forceinline__ void matmul_col(const float* in, int ldi, int kin,
 }
 
 // Builds the block's layer-1 input h0 [P][ld1] (feature rows, x, the
-// 'anchored' encoding, zero pad columns; x and the encoding rounded to bf16
-// in the bf16 flavour) and the pair weights wpair [P] for pairs r0 .. r0 +
-// P - 1 of one instance (P <= HID, the block's threads). Lanes past the last
-// pair are zeroed before sin/cos.
-template <typename T, int P = PAIRS>
+// 'anchored' encoding, zero columns d1 .. pad - 1; x and the encoding rounded
+// to bf16 in the bf16 flavour) and the pair weights wpair [P] for pairs r0 ..
+// r0 + P - 1 of one instance, by a block of NT >= P threads; h0 is f32, or
+// bf16 (O) for the tensor cores. Lanes past the last pair are zeroed before
+// sin/cos.
+template <typename T, int P = PAIRS, int NT = HID, typename O = float>
 __device__ __forceinline__ void build_input(const T* __restrict__ feat,
                                             const float* __restrict__ pos,
-                                            float* h0, float* wpair, int r0,
+                                            O* h0, float* wpair, int r0,
                                             int m, int f_dim, int n_freqs,
                                             float freq_c0, int d1, int ld1,
-                                            int t) {
-  for (int idx = t; idx < f_dim * P; idx += HID) {
+                                            int pad, int t) {
+  for (int idx = t; idx < f_dim * P; idx += NT) {
     const int f = idx / P, r = idx % P;
-    h0[r * ld1 + f] = r0 + r < m ? ld(feat + (long)f * m + r0 + r) : 0.f;
+    st(h0 + r * ld1 + f, r0 + r < m ? ld(feat + (long)f * m + r0 + r) : 0.f);
   }
-  for (int idx = t; idx < 3 * P; idx += HID) {
+  for (int idx = t; idx < 3 * P; idx += NT) {
     const int d = idx / P, r = idx % P;
     const float x = r0 + r < m ? pos[(long)d * m + r0 + r] : 0.f;
-    float* row = h0 + r * ld1;
-    row[f_dim + d] = as_input<T>(x);
-    float* enc = row + f_dim + 3 + d * 2 * n_freqs;
+    O* row = h0 + r * ld1;
+    st(row + f_dim + d, as_input<T>(x));
+    O* enc = row + f_dim + 3 + d * 2 * n_freqs;
     float s = 0.f, c = 1.f;
     for (int j = 0; j < n_freqs; ++j) {
       if (j % ANCHOR == 0) {
@@ -135,13 +139,13 @@ __device__ __forceinline__ void build_input(const T* __restrict__ feat,
         c = __fsub_rn(__fmul_rn(__fmul_rn(2.f, c), c), 1.f);
         s = s2;
       }
-      enc[j] = as_input<T>(s);
-      enc[n_freqs + j] = as_input<T>(c);
+      st(enc + j, as_input<T>(s));
+      st(enc + n_freqs + j, as_input<T>(c));
     }
   }
-  for (int idx = t; idx < P * (ld1 - d1); idx += HID) {
-    const int r = idx / (ld1 - d1), c = idx % (ld1 - d1);
-    h0[r * ld1 + d1 + c] = 0.f;
+  for (int idx = t; idx < P * (pad - d1); idx += NT) {
+    const int r = idx / (pad - d1), c = idx % (pad - d1);
+    st(h0 + r * ld1 + d1 + c, 0.f);
   }
   if (t < P) wpair[t] = r0 + t < m ? pos[3L * m + r0 + t] : 0.f;
 }
@@ -164,7 +168,7 @@ mlp_posenc_wsum_bf16(const bf16* __restrict__ feat_t, const float* __restrict__ 
   const bf16* feat = feat_t + (long)inst * f_dim * m;
   const float* pos = pos_t + (long)inst * pos_rows * m;
 
-  build_input(feat, pos, h0, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, ld1, t);
+  build_input(feat, pos, h0, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, ld1, ld1, t);
   __syncthreads();
 
   // ---- layers ---------------------------------------------------------
@@ -444,7 +448,7 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
   int t = 0;  // the next slab to consume; the first ones land while the input is built
   for (int s = 0; s < STAGES - 1; ++s) load_slab(ring, wsplit, s, n_slabs);
   build_input<float, P>(feat_t + (long)inst * f_dim * m, pos_t + (long)inst * pos_rows * m, act,
-                        wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, tid);
+                        wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, LDA, tid);
 
   // ---- hidden layers 0 .. L-2, in place in act ----------------------------
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -775,7 +779,8 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
     // act <- act_l from the scratch (l >= 0), or layer 1's input h0 (l < 0)
     auto load_act = [&](int l) {
       if (l < 0) {
-        build_input<float, P>(feat, pos, act, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, tid);
+        build_input<float, P>(feat, pos, act, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, LDA,
+                              tid);
         return;
       }
       const float4* src = reinterpret_cast<const float4*>(my_scratch + (long)l * P * HID);
@@ -944,249 +949,537 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
 
 }  // namespace tf
 
-// ---------------------------------------------------------------------------
-// Backward, bf16 (the fast stage-1 path's K6b), on the CUDA cores:
-// npcd_tpu's low-precision backward (_BF16_BWD) of the same contract as
-// tf::mlp_posenc_wsum_bwd above. Per tile of 64 pairs a block (1) rebuilds
-// h0 and recomputes layers 0 .. L-2 with the bf16 forward's arithmetic,
-// keeping act_0 .. act_{L-3} in a per-block global scratch and act_{L-2} in
-// shared memory; (2) expands the per-point cotangent to pairs, g[r] = w[r]
-// g_out[r / k]; (3) walks the layers back: db_l += sum g, dW_l += act^T gd,
-// dh = gd W_l^T (through a transposed copy of W_l, so that the reads stay
-// coalesced), g = dh leaky'(z); (4) writes dfeat_t = gd_0 W_0[:F]^T. g stays
-// f32 and db sums it; the dW and dX products take gd = bf16(g); dfeat is
-// rounded to bf16, and dW/db once at the end. The last layer's dW contracts
-// over points (fast_last): dW_last = bf16(sum_j w_j act_{L-2}[n*k + j])^T
-// g_out[n], one product per point instead of k. One thread per output
-// column holds the tile's 64 rows in registers; a persistent grid of
-// per-block partials (in params' layout) as tf::mlp_posenc_wsum_bwd's,
-// summed by reduce_partials_bf16. Shared memory is h0, two
-// [64][256] buffers and the tile's per-point w-sums [64 / k][256] (~164 KB at F
-// 32 and k 8), one block per SM.
-
-// dW[c][t] += sum_r A[r][c] * g[r] for c < kin (A has row stride ld and
-// zero columns up to the next multiple of 4).
-__device__ __forceinline__ void accum_dw(const float* A, int lda, int kin,
-                                         const float (&g)[PAIRS],
-                                         float* __restrict__ dW, int t) {
-  for (int c = 0; c < kin; c += 4) {
-    float* d = dW + (long)c * HID + t;
-    const float o0 = d[0];
-    const float o1 = c + 1 < kin ? d[HID] : 0.f;
-    const float o2 = c + 2 < kin ? d[2 * HID] : 0.f;
-    const float o3 = c + 3 < kin ? d[3 * HID] : 0.f;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * lda + c);
-      s0 = fmaf(a.x, g[r], s0);
-      s1 = fmaf(a.y, g[r], s1);
-      s2 = fmaf(a.z, g[r], s2);
-      s3 = fmaf(a.w, g[r], s3);
-    }
-    d[0] = o0 + s0;
-    if (c + 1 < kin) d[HID] = o1 + s1;
-    if (c + 2 < kin) d[2 * HID] = o2 + s2;
-    if (c + 3 < kin) d[3 * HID] = o3 + s3;
-  }
-}
-
-// db[t] += sum_r g[r]
-__device__ __forceinline__ void accum_db(const float (&g)[PAIRS], float* __restrict__ db,
-                                         int t) {
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < PAIRS; ++r) s += g[r];
-  db[t] += s;
-}
-
-__global__ void __launch_bounds__(HID, 1)
-mlp_posenc_wsum_bwd_bf16(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t,
-                         const bf16* __restrict__ params, const bf16* __restrict__ params_t,
-                         const bf16* __restrict__ g_out, bf16* __restrict__ dfeat_t,
-                         float* __restrict__ partial, float* __restrict__ scratch,
-                         int inst, int m, int f_dim, int pos_rows, int n_layers,
-                         int n_freqs, float freq_c0, int k, long n_params) {
-  extern __shared__ __align__(16) float sbuf[];
-  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  float* h0 = sbuf;                  // [PAIRS][ld1] layer-1 input
-  float* X = h0 + PAIRS * ld1;       // [PAIRS][HID] activation act_l
-  float* Y = X + PAIRS * HID;        // [PAIRS][HID] cotangent g_l
-  float* wpair = Y + PAIRS * HID;    // [PAIRS]
-  float* H = wpair + PAIRS;          // [PAIRS / k][HID] per-point w-sums
-
-  const int t = threadIdx.x;
-  const int n_pts = m / k;
-  const int tiles_per_inst = (m + PAIRS - 1) / PAIRS;
-  const long n_tiles = (long)inst * tiles_per_inst;
-  float* my_partial = partial + blockIdx.x * n_params;
-  float* my_scratch = scratch + (long)blockIdx.x * (n_layers - 2) * PAIRS * HID;
-
-  // offsets of W_l and b_l in params (and of dW_l, db_l in the partials),
-  // and of W_l^T in params_t
-  long w_off[8], b_off[8], wt_off[8];
-  {
-    long o = 0, ot = 0;
-    for (int l = 0; l < n_layers; ++l) {
-      const int kin = l == 0 ? d1 : HID;
-      w_off[l] = o;
-      b_off[l] = o + (long)kin * HID;
-      o = b_off[l] + HID;
-      wt_off[l] = ot;
-      ot += (long)kin * HID;
-    }
-  }
-
-  float acc[PAIRS];
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int i = (int)(tile / tiles_per_inst);
-    const int r0 = (int)(tile % tiles_per_inst) * PAIRS;
-    build_input(feat_t + (long)i * f_dim * m, pos_t + (long)i * pos_rows * m, h0,
-                wpair, r0, m, f_dim, n_freqs, freq_c0, d1, ld1, t);
-    __syncthreads();
-
-    // ---- recompute layers 0 .. L-2 -------------------------------------
-    for (int l = 0; l < n_layers - 1; ++l) {
-      if (l == 0) {
-        matmul_col(h0, ld1, d1, params + w_off[0], t, acc);
-      } else {
-        matmul_col(X, HID, HID, params + w_off[l], t, acc);
-      }
-      __syncthreads();  // every thread has read its input rows
-      const float bt = ld(params + b_off[l] + t);
-      float* keep = l < n_layers - 2 ? my_scratch + (long)l * PAIRS * HID : nullptr;
-#pragma unroll
-      for (int r = 0; r < PAIRS; ++r) {
-        const float a = layer_out_bf16(acc[r], bt, false);
-        X[r * HID + t] = a;
-        if (keep) keep[r * HID + t] = a;
-      }
-      __syncthreads();
-    }
-
-    // ---- cotangent of the last layer's output, per pair ------------------
-    const long g_row = (long)i * n_pts + r0 / k;
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      acc[r] = r0 + r < m ? wpair[r] * ld(g_out + (g_row + r / k) * HID + t) : 0.f;
-    }
-
-    // ---- layers L-1 .. 1: X holds act_{l-1}, acc holds g_l ---------------
-    for (int l = n_layers - 1; l >= 1; --l) {
-      accum_db(acc, my_partial + b_off[l], t);
-#pragma unroll
-      for (int r = 0; r < PAIRS; ++r) acc[r] = rnd(acc[r]);
-#pragma unroll
-      for (int r = 0; r < PAIRS; ++r) Y[r * HID + t] = acc[r];
-      if (l == n_layers - 1) {
-        // fast_last: dW_last[c][t] += sum_n bf16(sum_j w_j act[n*k+j][c]) g_out[n][t]
-        const int npts = PAIRS / k;
-        for (int q = 0; q < npts; ++q) {
-          float s = 0.f;
-          for (int j = 0; j < k; ++j)
-            s = __fadd_rn(s, __fmul_rn(X[(q * k + j) * HID + t], wpair[q * k + j]));
-          H[q * HID + t] = rnd(s);
-        }
-#pragma unroll
-        for (int q = 0; q < PAIRS; ++q) {  // acc is free until the dX product below
-          acc[q] = q < npts && r0 / k + q < n_pts ? ld(g_out + (g_row + q) * HID + t) : 0.f;
-        }
-        __syncthreads();
-        float* dW = my_partial + w_off[l];
-        for (int c = 0; c < HID; c += 4) {
-          float* d = dW + (long)c * HID + t;
-          float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-          for (int q = 0; q < PAIRS; ++q) {
-            if (q < npts) {
-              const float4 a = *reinterpret_cast<const float4*>(H + q * HID + c);
-              s0 = fmaf(a.x, acc[q], s0);
-              s1 = fmaf(a.y, acc[q], s1);
-              s2 = fmaf(a.z, acc[q], s2);
-              s3 = fmaf(a.w, acc[q], s3);
-            }
-          }
-          d[0] += s0;
-          d[HID] += s1;
-          d[2 * HID] += s2;
-          d[3 * HID] += s3;
-        }
-      } else {
-        __syncthreads();
-        accum_dw(X, HID, HID, acc, my_partial + w_off[l], t);
-      }
-      matmul_col(Y, HID, HID, params_t + wt_off[l], t, acc);
-#pragma unroll
-      for (int r = 0; r < PAIRS; ++r) acc[r] *= X[r * HID + t] > 0.f ? 1.f : 0.01f;
-      __syncthreads();  // X, Y and H are free
-      if (l >= 2) {
-        const float4* src =
-            reinterpret_cast<const float4*>(my_scratch + (long)(l - 2) * PAIRS * HID);
-        float4* dst = reinterpret_cast<float4*>(X);
-        for (int idx = t; idx < PAIRS * HID / 4; idx += HID) dst[idx] = src[idx];
-      }
-    }
-
-    // ---- layer 0: input h0; dfeat = g_0 W_0[:F]^T -------------------------
-    accum_db(acc, my_partial + b_off[0], t);
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) acc[r] = rnd(acc[r]);
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) Y[r * HID + t] = acc[r];
-    __syncthreads();
-    accum_dw(h0, ld1, d1, acc, my_partial + w_off[0], t);
-    const bf16* wt0 = params_t + wt_off[0];  // [HID][d1]
-    for (int idx = t; idx < PAIRS * f_dim; idx += HID) {
-      const int r = idx / f_dim, f = idx % f_dim;
-      float s = 0.f;
-      for (int c = 0; c < HID; ++c) s = fmaf(Y[r * HID + c], ld(wt0 + (long)c * d1 + f), s);
-      X[f * PAIRS + r] = s;  // staged [f][r] for coalesced stores
-    }
-    __syncthreads();
-    bf16* df = dfeat_t + (long)i * f_dim * m;
-    for (int idx = t; idx < PAIRS * f_dim; idx += HID) {
-      const int f = idx / PAIRS, r = idx % PAIRS;
-      if (r0 + r < m) st(df + (long)f * m + r0 + r, X[f * PAIRS + r]);
-    }
-    __syncthreads();  // h0, X and wpair are rebuilt by the next tile
-  }
-}
-
-// out[j] = sum over blocks b (in order) of partial[b][j], rounded to bf16.
-__global__ void reduce_partials_bf16(const float* __restrict__ partial, int n_blocks, long n,
-                                     bf16* __restrict__ out) {
-  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
-  out[j] = __float2bfloat16_rn(s);
-}
-
-// The f32 backward's partials summed over the blocks in order, partial[b][j]
-// (tf::part_off's layout, n floats a block) into out in params' layout (W_l
-// row-major, then b_l); the rows of a chunk past k_in are not written.
-__global__ void reduce_partials_tf32(const float* __restrict__ partial, int n_blocks, long n,
-                                     int d1, int n_layers, float* __restrict__ out) {
+// Where float j of a backward's partial (part_off's layout) goes in params'
+// layout (W_l row-major, then b_l), or -1 for the rows of a chunk past k_in;
+// acc(y, row, col) maps float y of a chunk to its row (< CHUNK_ROWS) and
+// column, the order of the kernel's accumulators.
+template <typename Acc>
+__device__ __forceinline__ long part_dst(long j, int d1, int n_layers, Acc acc) {
   using namespace tf;
-  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
   int l = 0;
   while (l + 1 < n_layers && j >= part_off(l + 1, d1)) ++l;
   const int rows = l ? HID : d1;
   const long x = j - part_off(l, d1), n_dw = (long)part_chunks(l, d1) * CHUNK;
-  long dst = l ? (long)d1 * HID + HID + (long)(l - 1) * (HID * HID + HID) : 0L;  // W_l
-  if (x >= n_dw) {
-    dst += (long)rows * HID + (x - n_dw);  // b_l
-  } else {
-    const int c = (int)(x / CHUNK), y = (int)(x % CHUNK);
-    const int q = y / (4 * HID), t = y / 4 % HID, e = y % 4;  // acc[q / 8][q % 8][e] of thread t
+  const long dst = l ? (long)d1 * HID + HID + (long)(l - 1) * (HID * HID + HID) : 0L;  // W_l
+  if (x >= n_dw) return dst + (long)rows * HID + (x - n_dw);                          // b_l
+  int row, col;
+  acc((int)(x % CHUNK), row, col);
+  row += CHUNK_ROWS * (int)(x / CHUNK);
+  return row < rows ? dst + (long)row * HID + col : -1L;
+}
+
+// tf::dw_product's order: float4 q of thread t holds acc[q / 8][q % 8][0..3].
+struct TfAcc {
+  __device__ void operator()(int y, int& row, int& col) const {
+    using namespace tf;
+    const int q = y / (4 * HID), t = y / 4 % HID, e = y % 4;
     const int warp = t >> 5, g = (t & 31) >> 2, u = t & 3;
-    const int row = CHUNK_ROWS * c + (warp / WARPS_N) * (CHUNK_ROWS / WARPS_M) +
-                    16 * (q / N_TILES) + g + 8 * (e >> 1);
-    if (row >= rows) return;
-    dst += (long)row * HID + 8 * ((warp % WARPS_N) * N_TILES + q % N_TILES) + 2 * u + (e & 1);
+    row = (warp / WARPS_N) * (CHUNK_ROWS / WARPS_M) + 16 * (q / N_TILES) + g + 8 * (e >> 1);
+    col = 8 * ((warp % WARPS_N) * N_TILES + q % N_TILES) + 2 * u + (e & 1);
   }
+};
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 (the fast stage-1 path's K6b), on the tensor cores:
+// tc::mlp_posenc_wsum_bwd. npcd_tpu's low-precision backward (_BF16_BWD,
+// fused_mlp.py:509-560) of the same contract as tf::mlp_posenc_wsum_bwd:
+// every product is a bf16 x bf16 product with f32 sums, npcd_tpu's _kdot on
+// bf16 operands with preferred_element_type f32, on mma.sync.m16n8k16
+// (csrc/bf16_mma.cuh). The rounding points are npcd_tpu's: h0 rounded to
+// bf16; each recomputed layer z = bf16(bf16(acc) + b), act = max(z, bf16(z
+// bf16(0.01))), kept as bf16; the per-pair cotangent g = w_r g_out[n] in f32,
+// leaky'(z) = 1 where act > 0 (exactly where z > 0), else 0.01 (f32); db_l the
+// f32 sum of the unrounded g, gd = bf16(g) into the dW and dX products; the
+// last layer's dW over points, hw = bf16(sum_j w_j act[n k + j]) (f32, j
+// order) and dW_L += hw^T g_out (fast_last), its dX per pair (gd differs per
+// pair); dfeat = bf16(gd_0 W_0[:F]^T); dW/db rounded to bf16 once, after the
+// blocks' partials are summed in block order (reduce_partials_bf16).
+//
+// Bound: ~1.44 Mflop a pair at the configs' 95 -> 256 x 4 -> 256, k 8 (the
+// recompute, dX of every layer per pair, dW of the hidden layers per pair and
+// the last one's per point, dfeat), 8.27 TFLOP at the fast step's 5.73M
+// pairs: 8.36 ms at 989 TFLOP/s. The CUDA-core kernel this one replaced ran
+// at 1.6% of it.
+//
+// A block of 16 warps takes a tile of 256 pairs as two sub-tiles of 128: a
+// layer product [128, 256] x [256, 256] tiles its output 4 x 4 over the
+// warps (32 rows x 64 columns a warp, 2 x 8 m16n8 tiles, 64 f32 accumulators
+// a thread), so each A fragment feeds 8 n-tiles and each B fragment 2
+// m-tiles. The tile's [256][264] bf16 buffer (132 KB) holds one activation
+// or cotangent of all 256 pairs: h0, then act_0 .. act_{L-2} of each
+// sub-tile in place (a layer's output waits in the accumulators until every
+// warp has read its input), then gd_{L-1} .. gd_0 in place. Weights stream
+// through a 2-stage cp.async ring straight from params, 64 k a slab: W's rows
+// for the recompute (read by ldmatrix.trans), its columns for the dX
+// products (ldmatrix), so no transposed copy is made.
+//
+// The dW products contract over the tile's 256 pairs (npcd_tpu sums over
+// every pair into VMEM scratch across its sequential grid; blocks here run
+// in no order). The grid is persistent, one block an SM: block b takes tiles
+// b, b + grid, ... and adds each tile's dW/db into its own f32 partial,
+// which reduce_partials_bf16 sums in block order, so the result depends only
+// on the inputs and the grid size (bitwise repeatable). A partial is 1.15 MB
+// and 132 of them do not fit in L2, so its read-modify-write is paid in HBM
+// bytes: 2.3 MB an update, 62 ms at the fast step if a block updated it
+// every 64 pairs; every 256 pairs, a quarter of that. The dW products take
+// their activations (h0 and act_0 .. act_{L-3}, stored to a per-block bf16
+// scratch at the recompute) 64 columns at a time, double-buffered in shared
+// memory, and the cotangent gd_l from the tile buffer (both by
+// ldmatrix.trans), 64 rows of dW a chunk, 2 x 8 warps of 32 x 32, each
+// thread's old partial values loaded to registers before the chunk's
+// product and stored back after it, in the accumulators' order (512
+// contiguous bytes a warp). The last layer's hw and g_out go to a per-block
+// batch of 256 points (the block's tiles in order; 32 points a tile at k 8),
+// whose dW product (its g_out staged in the tile buffer) runs when the next
+// tile's points do not fit, and after the last tile. The leaky' slopes are
+// bits: the recompute's epilogue stores each thread's z > 0 (64 bits a layer
+// and sub-tile) in the scratch, and the dX epilogue of the same thread reads
+// them back (the two products tile their outputs alike).
+
+namespace tc {
+
+constexpr int NT = 512;        // threads: 16 warps
+constexpr int SUB = 128;       // pairs of a sub-tile: one layer product's rows
+constexpr int TILE = 2 * SUB;  // pairs a tile; the dW products contract over them
+constexpr int BATCH = 256;     // points of the last layer's dW batch
+constexpr int LDA = HID + 8;   // row stride of the tile buffer (528 bytes)
+constexpr int KS = 4;          // 16-deep k-steps a slab of the ring
+constexpr int LDC = 16 * KS + 8;  // row stride of a W column slab (144 bytes)
+constexpr int LDX = 72;        // of a dW product's activation chunk (144 bytes)
+// elements of a stage of the two-stage weight ring: a W row slab [16 KS][LDA]
+// or column slab [HID][LDC]
+constexpr int STAGE = HID * LDC;
+// the ring's memory, which also holds dw_product's two activation chunks
+// [TILE][LDX] and the dfeat product's W_0[:F] [64][LDA]
+constexpr int RING = 2 * TILE * LDX;
+static_assert(2 * STAGE <= RING && 16 * KS * LDA <= STAGE, "ring");
+
+__device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// A layer product over one sub-tile, acc = a . W (recompute; WT false:
+// `steps` k-steps of 16 over W's rows, those from kin on zero) or acc = a .
+// W^T (dX; WT true: 16 k-steps over W's 256 columns); a [SUB][LDA] in
+// shared memory, W [kin][HID] row-major in global memory, streamed KS
+// k-steps a slab through the two stages of the ring by cp.async, a slab
+// ahead. Warp w computes rows 32 (w / 4) .. + 32, columns 64 (w % 4) .. + 64.
+template <bool WT>
+__device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16* a,
+                                              const bf16* __restrict__ W, int kin, int steps,
+                                              bf16* ring) {
+  const int tid = threadIdx.x, warp = tid >> 5, r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
+  const int slabs = (steps + KS - 1) / KS;
+  auto load = [&](int t) {  // slab t into stage t % 2, one copy group
+    bf16* st = ring + t % 2 * STAGE;
+    for (int idx = tid; idx < 16 * KS * HID / 8; idx += NT) {
+      if (WT) {  // W's columns 16 KS t .. + 16 KS of its 256 rows, [HID][LDC]
+        const int r = idx / (2 * KS), c = idx % (2 * KS) * 8;
+        cp16(st + r * LDC + c, W + (long)r * HID + 16 * KS * t + c, true);
+      } else {  // W's rows 16 KS t .. + 16 KS, [16 KS][LDA]
+        const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+        const bool ok = 16 * KS * t + r < kin;
+        cp16(st + r * LDA + c, W + (ok ? (long)(16 * KS * t + r) * HID + c : 0), ok);
+      }
+    }
+    cp_commit();
+  };
+  zero(acc);
+  __syncthreads();  // the last user of the ring is done with it
+  load(0);
+  for (int t = 0; t < slabs; ++t) {
+    cp_wait<0>();
+    __syncthreads();  // slab t landed for every thread; the other stage is free
+    if (t + 1 < slabs) load(t + 1);
+    const bf16* st = ring + t % 2 * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (KS * t + kk < steps) {
+        const int k0 = 16 * (KS * t + kk);
+        unsigned a0[4], a1[4];
+        frag_a(a0, a, LDA, r0, k0);
+        frag_a(a1, a, LDA, r0 + 16, k0);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          unsigned b[4];
+          if (WT) {
+            frag_bt(b, st, LDC, 16 * kk, n0 + 16 * jp);
+          } else {
+            frag_b(b, st, LDA, 16 * kk, n0 + 16 * jp);
+          }
+          mma(acc[0][2 * jp], a0, b[0], b[1]);
+          mma(acc[1][2 * jp], a1, b[0], b[1]);
+          mma(acc[0][2 * jp + 1], a0, b[2], b[3]);
+          mma(acc[1][2 * jp + 1], a1, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// One hidden bf16 layer of the stack over a sub-tile, in place: act <-
+// leaky(bf16(bf16(act . W) + b)) with npcd_tpu's rounding points (z =
+// bf16(bf16(acc) + b), max(z, bf16(z bf16(0.01)))); W [kin][HID] and b in
+// global memory, `steps` k-steps of 16 (act is zero in columns kin .. 16
+// steps). mask receives the thread's bits z > 0, bit 4 j + e of word i for
+// acc[i][j][e]. The bf16 forward's hidden layers are the same product and
+// epilogue.
+__device__ __forceinline__ void layer_bf16(bf16* act, const bf16* __restrict__ W,
+                                           const bf16* __restrict__ bias, int kin, int steps,
+                                           bf16* ring, unsigned (&mask)[2]) {
+  float acc[2][8][4];
+  layer_product<false>(acc, act, W, kin, steps, ring);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, u = lane & 3;
+  const int r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
+  __syncthreads();  // every warp has read its last A fragment
+  mask[0] = mask[1] = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 8 * j + 2 * u;
+    const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // two columns at a time, as bf16x2
+        const unsigned y = pack(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        const unsigned z = pack(lo(y) + b0, hi(y) + b1);
+        const unsigned zl = pack(lo(z) * LEAKY_BF16, hi(z) * LEAKY_BF16);
+        mask[i] |= (lo(z) > 0.f ? 1u : 0u) << (4 * j + 2 * h);
+        mask[i] |= (hi(z) > 0.f ? 1u : 0u) << (4 * j + 2 * h + 1);
+        const __nv_bfloat162 v = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&z),
+                                         *reinterpret_cast<const __nv_bfloat162*>(&zl));
+        *reinterpret_cast<__nv_bfloat162*>(act + (r0 + 16 * i + g + 8 * h) * LDA + col) = v;
+      }
+  }
+}
+
+// The dX epilogue over a sub-tile: g = acc leaky' (the mask bits of the
+// layer's input, as layer_bf16 set them), red[w / 4][col] = the column sums
+// of g over warp w's 32 rows (f32, in a fixed order), then, after a barrier,
+// gd = bf16(g) into gs in place.
+__device__ __forceinline__ void dx_epilogue(float (&acc)[2][8][4], const unsigned (&mask)[2],
+                                            bf16* gs, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, u = lane & 3;
+  const int r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] *= (mask[i] >> (4 * j + e)) & 1u ? 1.f : 0.01f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float s = ((acc[0][j][c] + acc[0][j][c + 2]) + acc[1][j][c]) + acc[1][j][c + 2];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) red[(warp >> 2) * HID + n0 + 8 * j + 2 * u + c] = s;
+    }
+  __syncthreads();  // every warp has read its last A fragment of gs; red is complete
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(gs + (r0 + 16 * i + g + 8 * h) * LDA + n0 + 8 * j + 2 * u) =
+            pack(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+}
+
+// part += X^T Y over the K <= TILE rows (pairs, or points) of X [K][ldx] bf16
+// in global memory and Y the tile buffer [TILE][LDA] (its rows from K on
+// zero): dW rows c < rows are X's columns (from ldx on zero). By the whole
+// block, in chunks of CHUNK_ROWS rows of dW, each chunk's X [TILE][LDX]
+// (columns c0 .. c0 + 63) landing in one of two buffers in xbuf by cp.async
+// while the chunk before it is multiplied, so that the 16 k-steps of a chunk
+// run without a barrier; each thread's old partial values are loaded before
+// the chunk's product and stored back after it (the partial's layout: float4
+// q = 4 i + j of thread t holds acc[i][j][0..3] at [q][t]). Warp w computes
+// the chunk's rows 32 (w / 8) .. + 32, columns 32 (w % 8) .. + 32.
+__device__ __forceinline__ void dw_product(float* __restrict__ part, const bf16* __restrict__ X,
+                                           int ldx, int rows, int K, const bf16* Y, bf16* xbuf) {
+  using tf::CHUNK;
+  using tf::CHUNK_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, m0 = (warp >> 3) * 32, n0 = (warp & 7) * 32;
+  const int n_chunks = (rows + CHUNK_ROWS - 1) / CHUNK_ROWS;
+  auto load = [&](int c) {  // X's columns 64 c .. + 64 into buffer c % 2
+    bf16* dst = xbuf + (c & 1) * TILE * LDX;
+    for (int idx = tid; idx < TILE * CHUNK_ROWS / 8; idx += NT) {
+      const int r = idx / (CHUNK_ROWS / 8), col = idx % (CHUNK_ROWS / 8) * 8;
+      const bool ok = r < K && CHUNK_ROWS * c + col < ldx;
+      cp16(dst + r * LDX + col, X + (ok ? (long)r * ldx + CHUNK_ROWS * c + col : 0), ok);
+    }
+    cp_commit();
+  };
+  __syncthreads();  // the last user of xbuf is done with it
+  load(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      load(c + 1);
+    } else {
+      cp_commit();
+    }
+    float4* chunk = reinterpret_cast<float4*>(part + (long)c * CHUNK) + tid;
+    float4 old[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) old[q] = chunk[q * NT];  // in flight during the product
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    cp_wait<1>();
+    __syncthreads();  // chunk c landed for every thread
+    const bf16* x = xbuf + (c & 1) * TILE * LDX;
+#pragma unroll 2
+    for (int t = 0; t < TILE / 16; ++t) {
+      unsigned a0[4], a1[4];
+      frag_at(a0, x, LDX, 16 * t, m0);
+      frag_at(a1, x, LDX, 16 * t, m0 + 16);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        unsigned b[4];
+        frag_b(b, Y, LDA, 16 * t, n0 + 16 * jp);
+        mma(acc[0][2 * jp], a0, b[0], b[1]);
+        mma(acc[1][2 * jp], a1, b[0], b[1]);
+        mma(acc[0][2 * jp + 1], a0, b[2], b[3]);
+        mma(acc[1][2 * jp + 1], a1, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 o = old[4 * i + j];
+        chunk[(4 * i + j) * NT] = make_float4(o.x + acc[i][j][0], o.y + acc[i][j][1],
+                                              o.z + acc[i][j][2], o.w + acc[i][j][3]);
+      }
+    __syncthreads();  // every warp is done with buffer c % 2 before chunk c + 2 lands in it
+  }
+}
+
+// dw_product's order.
+struct Acc {
+  __device__ void operator()(int y, int& row, int& col) const {
+    const int q = y / (4 * NT), t = y / 4 % NT, e = y % 4;
+    const int warp = t >> 5, g = (t & 31) >> 2, u = t & 3;
+    row = (warp >> 3) * 32 + 16 * (q >> 2) + g + 8 * (e >> 1);
+    col = (warp & 7) * 32 + 8 * (q & 3) + 2 * u + (e & 1);
+  }
+};
+
+// Shared memory: the tile buffer [TILE][LDA] bf16, the ring [RING] bf16,
+// the pair weights [TILE] and the column sums red [4][HID] f32 (~209 KB):
+// one block an SM.
+__global__ void __launch_bounds__(NT, 1)
+mlp_posenc_wsum_bwd(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t,
+                    const bf16* __restrict__ params, const bf16* __restrict__ g_out,
+                    bf16* __restrict__ dfeat_t, float* __restrict__ partial,
+                    bf16* __restrict__ scratch, int inst, int m, int f_dim, int pos_rows,
+                    int n_layers, int n_freqs, float freq_c0, int k, long n_partial) {
+  extern __shared__ __align__(16) float sbuf[];
+  bf16* tile = reinterpret_cast<bf16*>(sbuf);
+  bf16* ring = tile + TILE * LDA;
+  float* wpair = reinterpret_cast<float*>(ring + RING);
+  float* red = wpair + TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, u = lane & 3;
+  const int d1 = f_dim + 3 * (1 + 2 * n_freqs), d1p = (d1 + 15) & ~15;
+  const int n_pts = m / k, pts = TILE / k;
+  const int tiles_per_inst = (m + TILE - 1) / TILE;
+  const long n_tiles = (long)inst * tiles_per_inst;
+  // the block's scratch, slots of [TILE][HID] bf16: h0 (row stride d1p), act_0
+  // .. act_{L-3}, the batch's hw and g_out, the mask words [L-1][2][2][NT]
+  constexpr long SLOT = (long)TILE * HID;
+  bf16* h0s = scratch + (long)blockIdx.x * (n_layers + 2) * SLOT;
+  bf16* batch_hw = h0s + (long)(n_layers - 1) * SLOT;
+  bf16* batch_g = batch_hw + SLOT;
+  unsigned* masks = reinterpret_cast<unsigned*>(batch_g + SLOT);
+  auto acts = [&](int l) { return h0s + (long)(l + 1) * SLOT; };
+  auto mask_at = [&](int l, int s, int w) { return masks + ((l * 2 + s) * 2 + w) * NT + tid; };
+  int batched = 0;  // points in the batch
+  // W_l and b_l in params; dW_l and db_l in the block's partial (part_off)
+  auto w_off = [&](int l) {
+    return l ? (long)d1 * HID + HID + (long)(l - 1) * (HID * HID + HID) : 0L;
+  };
+  auto b_off = [&](int l) { return w_off(l) + (long)(l ? HID : d1) * HID; };
+  auto dw_part = [&](int l) { return partial + blockIdx.x * n_partial + tf::part_off(l, d1); };
+  auto db_part = [&](int l) { return dw_part(l) + (long)tf::part_chunks(l, d1) * tf::CHUNK; };
+  // dW_{L-1} += hw^T g_out over the batch, its g_out staged in the tile buffer
+  auto flush = [&]() {
+    __syncthreads();  // the batch's rows are written; the tile buffer is free
+    for (int idx = tid; idx < TILE * HID / 8; idx += NT) {
+      const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+      cp16(tile + r * LDA + c, batch_g + (r < batched ? (long)r * HID + c : 0), r < batched);
+    }
+    cp_commit();
+    dw_product(dw_part(n_layers - 1), batch_hw, HID, HID, batched, tile, ring);
+    batched = 0;
+  };
+
+  for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int i = (int)(t / tiles_per_inst), r0 = (int)(t % tiles_per_inst) * TILE;
+    if (batched + pts > BATCH) flush();
+    __syncthreads();  // the last tile is done with the tile buffer, wpair and red
+    build_input<bf16, TILE, NT>(feat_t + (long)i * f_dim * m, pos_t + (long)i * pos_rows * m,
+                                tile, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, d1p, tid);
+    __syncthreads();
+    for (int idx = tid; idx < TILE * d1p / 8; idx += NT) {
+      const int r = idx / (d1p / 8), c = idx % (d1p / 8) * 8;
+      *reinterpret_cast<uint4*>(h0s + (long)r * d1p + c) =
+          *reinterpret_cast<const uint4*>(tile + r * LDA + c);
+    }
+
+    // ---- recompute layers 0 .. L-2 of each sub-tile, in place ---------------
+    for (int s = 0; s < 2; ++s) {
+      bf16* act = tile + s * SUB * LDA;
+      for (int l = 0; l < n_layers - 1; ++l) {
+        unsigned mk[2];
+        layer_bf16(act, params + w_off(l), params + b_off(l), l ? HID : d1,
+                   (l ? HID : d1p) / 16, ring, mk);
+        *mask_at(l, s, 0) = mk[0];
+        *mask_at(l, s, 1) = mk[1];
+        if (l < n_layers - 2) {  // act_l to the scratch, for dW_{l+1}
+          __syncthreads();
+          bf16* dst = acts(l) + (long)s * SUB * HID;
+          for (int idx = tid; idx < SUB * HID / 8; idx += NT) {
+            const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+            *reinterpret_cast<uint4*>(dst + (long)r * HID + c) =
+                *reinterpret_cast<const uint4*>(act + r * LDA + c);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile buffer holds act_{L-2} of both sub-tiles
+
+    // ---- the last layer: hw and g_out to the batch, gd_{L-1} in place -------
+    // thread (c, half) owns column c of the half's pairs: per point, hw =
+    // bf16(sum_j w_j act_{L-2}) in j order, then gd = bf16(w_r g_out) and db
+    // over its pairs in order (f32)
+    {
+      const int c = tid % HID, half = tid / HID;
+      const long g_row = (long)i * n_pts + r0 / k;
+      float db = 0.f;
+#pragma unroll 4
+      for (int q = half * pts / 2; q < (half + 1) * pts / 2; ++q) {
+        const bf16 gb = r0 / k + q < n_pts ? g_out[(g_row + q) * HID + c]
+                                           : __float2bfloat16_rn(0.f);
+        const float go = __bfloat162float(gb);
+        float s = 0.f;
+        for (int j = 0; j < k; ++j) {
+          bf16* x = tile + (q * k + j) * LDA + c;
+          const float w = wpair[q * k + j], gv = __fmul_rn(w, go);
+          s = __fadd_rn(s, __fmul_rn(__bfloat162float(*x), w));
+          db += gv;
+          *x = __float2bfloat16_rn(gv);
+        }
+        batch_hw[(long)(batched + q) * HID + c] = __float2bfloat16_rn(s);
+        batch_g[(long)(batched + q) * HID + c] = gb;
+      }
+      red[half * HID + c] = db;
+      __syncthreads();
+      if (tid < HID) db_part(n_layers - 1)[tid] += red[tid] + red[HID + tid];
+    }
+    batched += pts;
+
+    // ---- layers L-1 .. 1: the tile buffer holds gd_l --------------------------
+    for (int l = n_layers - 1; l >= 1; --l) {
+      if (l < n_layers - 1)  // dW_l += act_{l-1}^T gd_l over the tile's pairs
+        dw_product(dw_part(l), acts(l - 1), HID, HID, TILE, tile, ring);
+      for (int s = 0; s < 2; ++s) {  // g_{l-1} = (gd_l W_l^T) leaky'(act_{l-1})
+        const unsigned mk[2] = {*mask_at(l - 1, s, 0), *mask_at(l - 1, s, 1)};
+        float acc[2][8][4];
+        layer_product<true>(acc, tile + s * SUB * LDA, params + w_off(l), HID, HID / 16, ring);
+        dx_epilogue(acc, mk, tile + s * SUB * LDA, red);
+        if (tid < HID)
+          db_part(l - 1)[tid] +=
+              ((red[tid] + red[HID + tid]) + red[2 * HID + tid]) + red[3 * HID + tid];
+      }
+    }
+
+    // ---- layer 0: dW_0 += h0^T gd_0; dfeat = bf16(gd_0 W_0[:F]^T) ------------
+    dw_product(dw_part(0), h0s, d1p, d1, TILE, tile, ring);
+    {
+      __syncthreads();  // every warp is done with the ring
+      const int f16 = (f_dim + 15) & ~15, nt_f = (f_dim + 7) / 8;
+      for (int idx = tid; idx < f16 * HID / 8; idx += NT) {  // W_0[:F] as [f16][LDA]
+        const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+        const bool ok = r < f_dim;
+        cp16(ring + r * LDA + c, params + (ok ? (long)r * HID + c : 0), ok);
+      }
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      // warp w: m-tile w % 8, n-tiles w / 8, + 2, + 4, + 6 of the nt_f (F <= 64)
+      const int mt = warp & 7;
+      for (int s = 0; s < 2; ++s) {
+        float acc[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < HID / 16; ++kk) {
+          unsigned a[4];
+          frag_a(a, tile + s * SUB * LDA, LDA, 16 * mt, 16 * kk);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = (warp >> 3) + 2 * jj;
+            if (j < nt_f) {
+              unsigned b[2];
+              ldsm2(b, ring + (8 * j + (lane & 7)) * LDA + 16 * kk + ((lane >> 3) & 1) * 8);
+              mma(acc[jj], a, b[0], b[1]);
+            }
+          }
+        }
+        bf16* df = dfeat_t + (long)i * f_dim * m + r0 + s * SUB;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = (warp >> 3) + 2 * jj;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int f = 8 * j + 2 * u + (e & 1), r = 16 * mt + g + 8 * (e >> 1);
+            if (j < nt_f && f < f_dim && r0 + s * SUB + r < m)
+              df[(long)f * m + r] = __float2bfloat16_rn(acc[jj][e]);
+          }
+        }
+      }
+    }
+  }
+  if (batched) flush();
+}
+
+}  // namespace tc
+
+// The backwards' partials summed over the blocks in order, partial[b][j]
+// (part_off's layout, n floats a block), into out in params' layout: bf16
+// (tc::dw_product's order, rounded once), f32 (tf::dw_product's).
+__global__ void reduce_partials_bf16(const float* __restrict__ partial, int n_blocks, long n,
+                                     int d1, int n_layers, bf16* __restrict__ out) {
+  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const long dst = part_dst(j, d1, n_layers, tc::Acc());
+  if (dst < 0) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
+  out[dst] = __float2bfloat16_rn(s);
+}
+
+__global__ void reduce_partials_tf32(const float* __restrict__ partial, int n_blocks, long n,
+                                     int d1, int n_layers, float* __restrict__ out) {
+  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const long dst = part_dst(j, d1, n_layers, TfAcc());
+  if (dst < 0) return;
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
   out[dst] = s;
@@ -1261,31 +1554,28 @@ int launch_bwd_tf32(const float* feat_t, const float* pos_t, const float* params
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bwd_bf16(const void* feat_t, const void* pos_t, const void* params,
-                    const void* params_t, const void* g_out, void* dfeat_t, void* dparams,
-                    void* partial, void* scratch, int inst, int m, int f_dim, int pos_rows,
-                    int n_layers, int n_freqs, float freq_c0, int k, int n_blocks,
-                    long n_params, void* stream) {
-  if (n_layers < 2 || n_layers > 8) return static_cast<int>(cudaErrorInvalidValue);
+// The bf16 backward: tc::mlp_posenc_wsum_bwd, then reduce_partials_bf16.
+int launch_bwd_bf16(const bf16* feat_t, const float* pos_t, const bf16* params,
+                    const bf16* g_out, bf16* dfeat_t, bf16* dparams, float* partial,
+                    bf16* scratch, int inst, int m, int f_dim, int pos_rows, int n_layers,
+                    int n_freqs, float freq_c0, int k, int n_blocks, long n_partial,
+                    cudaStream_t stream) {
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  const size_t smem =
-      sizeof(float) * (PAIRS * ld1 + 2 * PAIRS * HID + PAIRS + PAIRS / k * HID);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_posenc_wsum_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp_posenc_wsum_bwd_bf16<<<n_blocks, HID, smem, s>>>(
-      static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
-      static_cast<const bf16*>(params), static_cast<const bf16*>(params_t),
-      static_cast<const bf16*>(g_out), static_cast<bf16*>(dfeat_t),
-      static_cast<float*>(partial), static_cast<float*>(scratch), inst, m, f_dim,
-      pos_rows, n_layers, n_freqs, freq_c0, k, n_params);
-  err = cudaGetLastError();
+  if (n_layers < 2 || n_layers > 8 || d1 > HID || f_dim > 64 || tc::TILE % k ||
+      n_partial != tf::part_off(n_layers, d1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(bf16)) * (tc::TILE * tc::LDA + tc::RING) +
+                   static_cast<int>(sizeof(float)) * (tc::TILE + 4 * HID);
+  const int e = allow_smem(tc::mlp_posenc_wsum_bwd, smem);
+  if (e) return e;
+  tc::mlp_posenc_wsum_bwd<<<n_blocks, tc::NT, smem, stream>>>(
+      feat_t, pos_t, params, g_out, dfeat_t, partial, scratch, inst, m, f_dim, pos_rows,
+      n_layers, n_freqs, freq_c0, k, n_partial);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
-  reduce_partials_bf16<<<(int)((n_params + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(partial), n_blocks, n_params, static_cast<bf16*>(dparams));
+  reduce_partials_bf16<<<(int)((n_partial + threads - 1) / threads), threads, 0, stream>>>(
+      partial, n_blocks, n_partial, d1, n_layers, dparams);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1327,14 +1617,13 @@ extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* po
 // and params, with g_out [inst, m / k, 256] the output cotangent (the type of
 // feat_t). Writes dfeat_t [inst, f_dim, m] and dparams (dW/db packed as
 // params, the type of feat_t) through partial [n_blocks, n_params] f32
-// (zeroed by the caller; n_params: the length of params in bf16, in f32
-// fused_mlp_posenc_partial_len(k_in0, n_layers)) and scratch [n_blocks,
-// n_layers (f32) or n_layers - 2 (bf16), 64, 256] f32. 2 <= n_layers <= 8,
-// and k must divide 64. Returns the first CUDA error, or cudaSuccess.
+// (zeroed by the caller; n_params = fused_mlp_posenc_partial_len(k_in0,
+// n_layers)) and a scratch. 2 <= n_layers <= 8, k_in0 <= 256, and k must
+// divide 64. Returns the first CUDA error, or cudaSuccess.
 //
-// f32 (tf::mlp_posenc_wsum_bwd, 3xTF32): wsplit is scratch for W^T split
-// by split_weights_t, 16-byte aligned: (n_layers - 1) * 32 + (f_dim + 7) / 8
-// slabs of 16 KB; k_in0 <= 256.
+// f32 (tf::mlp_posenc_wsum_bwd, 3xTF32): scratch [n_blocks, n_layers, 64,
+// 256] f32; wsplit is scratch for W^T split by split_weights_t, 16-byte
+// aligned: (n_layers - 1) * 32 + (f_dim + 7) / 8 slabs of 16 KB.
 extern "C" int fused_mlp_posenc_wsum_bwd(
     const void* feat_t, const void* pos_t, const void* params, void* wsplit,
     const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
@@ -1349,20 +1638,23 @@ extern "C" int fused_mlp_posenc_wsum_bwd(
                          static_cast<cudaStream_t>(stream));
 }
 
-// The length of a block's f32 partial, tf::part_off's layout, for a
-// layer-1 input of k_in0 columns.
+// The length of a block's f32 partial (tf::part_off's layout, both
+// backwards) for a layer-1 input of k_in0 columns.
 extern "C" long fused_mlp_posenc_partial_len(int k_in0, int n_layers) {
   return tf::part_off(n_layers, k_in0);
 }
 
-// bf16 (mlp_posenc_wsum_bwd_bf16): params_t packs W_l^T [256, k_in] of every
-// layer in order (no biases).
+// bf16 (tc::mlp_posenc_wsum_bwd, mma.sync bf16): scratch [n_blocks,
+// n_layers + 2, 256, 256] bf16; k_in0 <= 256, f_dim <= 64.
 extern "C" int fused_mlp_posenc_wsum_bwd_bf16(
-    const void* feat_t, const void* pos_t, const void* params, const void* params_t,
-    const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
-    int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0,
-    int k, int n_blocks, long n_params, void* stream) {
-  return launch_bwd_bf16(feat_t, pos_t, params, params_t, g_out, dfeat_t, dparams, partial,
-                         scratch, inst, m, f_dim, pos_rows, n_layers, n_freqs, freq_c0, k,
-                         n_blocks, n_params, stream);
+    const void* feat_t, const void* pos_t, const void* params, const void* g_out,
+    void* dfeat_t, void* dparams, void* partial, void* scratch, int inst, int m, int f_dim,
+    int pos_rows, int n_layers, int n_freqs, float freq_c0, int k, int n_blocks,
+    long n_partial, void* stream) {
+  return launch_bwd_bf16(static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
+                         static_cast<const bf16*>(params), static_cast<const bf16*>(g_out),
+                         static_cast<bf16*>(dfeat_t), static_cast<bf16*>(dparams),
+                         static_cast<float*>(partial), static_cast<bf16*>(scratch), inst, m,
+                         f_dim, pos_rows, n_layers, n_freqs, freq_c0, k, n_blocks, n_partial,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -26,10 +26,13 @@ their products on the tensor cores in 3xTF32 (``tf::mlp_posenc_wsum``,
 of tf32 hi + lo splits, ~2**-21 of f32), 64 pairs a block, the last layer
 once per point (folded after the w-sum forward; ``fast_last`` and its dX per
 point backward); the backward's recompute of the hidden layers, which sets
-leaky_relu's slopes, is exact f32 on the CUDA cores. The bf16 kernels run
-on the CUDA cores. Every kernel takes any k that divides its block of 64
-pairs; each backward recomputes its own forward. Launches count per
-flavour: ``launches`` (f32) and ``launches_bf16``.
+leaky_relu's slopes, is exact f32 on the CUDA cores. The bf16 backward runs
+every product on the tensor cores in bf16 (``tc::mlp_posenc_wsum_bwd``:
+mma.sync m16n8k16, exact bf16 products summed in f32), 256 pairs a block,
+its dW contracted over them; the bf16 forward runs on the CUDA cores. Every
+kernel takes any k that divides 64; each backward recomputes its own
+forward. Launches count per flavour: ``launches`` (f32) and
+``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -47,7 +50,9 @@ from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf1
 
 _NAME = "fused_mlp_posenc"
 HIDDEN = 256  # the kernels' layer width
-PAIRS_PER_BLOCK = 64  # every kernel's tile of (point, neighbour) pairs
+PAIRS_PER_BLOCK = 64  # the forwards' and the f32 backward's tile of (point, neighbour) pairs
+BF16_BWD_PAIRS = 256  # the bf16 backward's tile
+BF16_BWD_MAX_F = 64  # the bf16 backward's widest feature (its dfeat product)
 MAX_LAYERS = 8  # the backward kernels' layer limit
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -222,23 +227,26 @@ def _lib(dtype: torch.dtype):
 
 def _bwd_lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_bwd" + _suffix(dtype))
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    # f32 also takes the split W^T's scratch
+    n_ptr = 8 if dtype == torch.bfloat16 else 9
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _partial_len(d1: int, n_layers: int) -> int:
-    """The length of a block's f32 dW/db partial, in the kernel's layout."""
+    """The length of a block's f32 dW/db partial, in the kernels' layout."""
     fn = build.load(_NAME).fused_mlp_posenc_partial_len
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_long
     return fn(d1, n_layers)
 
 
-def _check_d1(what: str, f32: bool, weights: Weights) -> None:
+def _check_d1(what: str, weights: Weights) -> None:
+    """The tensor-core kernels' limit on the layer-1 input."""
     d1 = weights[0][0].shape[0]
-    build.require(not f32 or d1 <= HIDDEN, what,
-                  f"the f32 kernels take a layer-1 input of at most {HIDDEN} columns, got {d1}")
+    build.require(d1 <= HIDDEN, what,
+                  f"the kernel takes a layer-1 input of at most {HIDDEN} columns, got {d1}")
 
 
 def _wsplit(n_slabs: int, device) -> torch.Tensor:
@@ -254,7 +262,8 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
                                            freq_mult, method)
     f32 = feat_t.dtype == torch.float32
     _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
-    _check_d1(what, f32, weights)
+    if f32:
+        _check_d1(what, weights)
     d1 = weights[0][0].shape[0]
     inst, f_dim, m = feat_t.shape
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
@@ -290,7 +299,9 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                                                freq_mult, method)
     _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
     f32 = feat_t.dtype == torch.float32
-    _check_d1(what, f32, weights)
+    _check_d1(what, weights)
+    build.require(f32 or f_dim <= BF16_BWD_MAX_F, what,
+                  f"the bf16 kernel takes at most {BF16_BWD_MAX_F} features, got {f_dim}")
     n_layers = len(weights)
     build.require(2 <= n_layers <= MAX_LAYERS, what,
                   f"the kernel takes 2 to {MAX_LAYERS} layers, got {n_layers}")
@@ -299,32 +310,37 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
     build.require(g.device == feat_t.device and g.dtype == feat_t.dtype and g.is_contiguous(),
                   what, f"g must be a contiguous {feat_t.dtype} on feat_t's device")
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
-    # the weights as the kernel reads them: f32, W^T of layers L-1 .. 1 and
-    # W_0[:F]^T split into tf32 hi + lo; bf16, W^T of every layer
     d1 = weights[0][0].shape[0]
-    if f32:
-        wt = _wsplit((n_layers - 1) * HIDDEN // 8 + -(-f_dim // 8), feat_t.device)
-    else:
-        wt = torch.cat([w.t().contiguous().reshape(-1) for w, _ in weights])
     dfeat_t = torch.empty_like(feat_t)
     dparams = torch.zeros_like(params)
-    tiles = inst * (-(-m // PAIRS_PER_BLOCK))
+    tile = PAIRS_PER_BLOCK if f32 else BF16_BWD_PAIRS
+    tiles = inst * (-(-m // tile))
     if tiles:
         # one block per SM: a fixed grid keeps the dW sums in a fixed order
         sms = torch.cuda.get_device_properties(feat_t.device).multi_processor_count
         n_blocks = min(sms, tiles)
-        n_partial = _partial_len(d1, n_layers) if f32 else params.numel()
+        n_partial = _partial_len(d1, n_layers)
         partial = torch.zeros((n_blocks, n_partial), device=feat_t.device, dtype=torch.float32)
-        # a block's [64, 256] buffers: the recomputed act_0 .. act_{L-3}, and (f32)
-        # the last layer's batch of hw and g_out
-        kept = n_layers if f32 else n_layers - 2
-        scratch = torch.empty((n_blocks * kept * PAIRS_PER_BLOCK * HIDDEN,),
-                              device=feat_t.device, dtype=torch.float32)
-        err = _bwd_lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
-                         wt.data_ptr(), g.data_ptr(), dfeat_t.data_ptr(),
-                         dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, m,
-                         f_dim, pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k,
-                         n_blocks, n_partial, build.stream_ptr())
+        if f32:
+            # a block's [64, 256] f32 buffers: the recomputed act_0 .. act_{L-3}
+            # and the last layer's batch of hw and g_out; W^T of layers L-1 .. 1
+            # and W_0[:F]^T split into tf32 hi + lo
+            scratch = torch.empty((n_blocks * n_layers * tile * HIDDEN,),
+                                  device=feat_t.device, dtype=torch.float32)
+            wsplit = _wsplit((n_layers - 1) * HIDDEN // 8 + -(-f_dim // 8), feat_t.device)
+            extra = [wsplit.data_ptr()]
+        else:
+            # a block's [256, 256] bf16 slots: h0, act_0 .. act_{L-3}, the last
+            # layer's batch of hw and g_out, the leaky' bits
+            scratch = torch.empty((n_blocks * (n_layers + 2) * tile * HIDDEN,),
+                                  device=feat_t.device, dtype=torch.bfloat16)
+            extra = []
+        err = _bwd_lib(feat_t.dtype)(
+            feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(), *extra,
+            g.data_ptr(), dfeat_t.data_ptr(),
+            dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, m, f_dim,
+            pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k, n_blocks, n_partial,
+            build.stream_ptr())
         build.check(err, what)
         build.count_launch(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []

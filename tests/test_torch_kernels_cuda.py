@@ -427,10 +427,23 @@ def test_fused_mlp_kernels(dev, dims, rows):
         assert torch.equal(a.grad, c) and torch.equal(b.grad, d)
 
 
-@pytest.mark.parametrize("n_pts,inst", [(13, 2), (700, 3)])
-def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst):
+# The bf16 K6b (tensor cores) takes tiles of 256 pairs and batches the last
+# layer's points 256 at a time: k 8, 13 points x 2 instances, one ragged tile
+# each; 700 x 3, 66 tiles (fewer than the SMs), the last of each instance
+# ragged; 2000 x 20, 1260 tiles (several a block, full and ragged batches);
+# k 2 (128 points a tile) and k 1 (256, a batch a tile), ragged.
+@pytest.mark.parametrize("n_pts,inst,k", [(13, 2, 8), (700, 3, 8), (2000, 20, 8), (53, 2, 2),
+                                          (101, 2, 1)])
+def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst, k):
+    """The bf16 K6f and K6b against their plain versions; K6b's outputs
+    within 1e-2 of max(1, their scale) and, each tile's contribution being
+    independent of the block that takes it, on the instances in reverse
+    order dfeat equal and dW/db at least 99% bitwise equal (f32 sums of the
+    blocks' partials in another order; a partial rounded to bf16 at each
+    update reads far less); two launches bitwise equal; autograd's backward
+    the kernel."""
     g = _gen(dev, 7)
-    k, f = 8, 32
+    f = 32
     weights = _bf16_weights((256,) * 5, f + 63, 0, dev)
     m = n_pts * k
     w = torch.rand(inst, n_pts, k, generator=g, device=dev)
@@ -452,6 +465,26 @@ def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst):
         assert a.dtype == torch.bfloat16
         _close_rel(a.float(), c.float(), 1e-2)
         _close_rel(b.float(), d.float(), 1e-2)
+    df1, dws1 = fused_mlp_posenc_wsum_bwd(*args[:3], gout, k, 10)
+    assert torch.equal(df1, df)
+    for (a, b), (c, d) in zip(dws1, dws):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    rev = torch.arange(inst - 1, -1, -1, device=dev)
+    df_r, dws_r = fused_mlp_posenc_wsum_bwd(feat_t[rev].contiguous(), pos_t[rev].contiguous(),
+                                            weights, gout[rev].contiguous(), k, 10)
+    assert torch.equal(df_r[rev], df)
+    for a, b in zip(sum(dws_r, ()), sum(dws, ())):
+        assert float((a == b).float().mean()) >= 0.99
+    # through autograd: the Function's backward is the kernel; pos_t gets none
+    ft = feat_t.clone().requires_grad_(True)
+    pt = pos_t.clone().requires_grad_(True)
+    ws = [(a.clone().requires_grad_(True), b.clone().requires_grad_(True)) for a, b in weights]
+    launches = fused_mlp_posenc_wsum_bwd.launches_bf16
+    fused_mlp_posenc_wsum(ft, pt, ws, k, 10).backward(gout)
+    assert fused_mlp_posenc_wsum_bwd.launches_bf16 == launches + 1 and pt.grad is None
+    assert torch.equal(ft.grad, df)
+    for (a, b), (c, d) in zip(ws, dws):
+        assert torch.equal(a.grad, c) and torch.equal(b.grad, d)
 
 
 def test_fused_mlp_refuses_what_it_does_not_build(dev):
