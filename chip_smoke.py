@@ -14,7 +14,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none; and in K6's
      (csrc/fused_mlp_posenc.cu) only the f32 forward and backward,
      tf::mlp_posenc_wsum and tf::mlp_posenc_wsum_bwd (3xTF32), and the bf16
-     backward, tc::mlp_posenc_wsum_bwd (bf16 mma.sync), have some;
+     forward and backward, tc::mlp_posenc_wsum and tc::mlp_posenc_wsum_bwd
+     (bf16 mma.sync), have some;
   3. kernels: each kernel of the generation path against its plain PyTorch
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events; the LayerNorm
@@ -298,6 +299,11 @@ K6B_FP32_FLOP = _K6_HIDDEN
 # bf16 backward rounds the per-pair cotangent w_r g_out[n] to bf16 before
 # that product), 1,441,536 a pair
 K6B_BF16_FLOP = K6B_FLOP - _K6_LAST + 2 * 256 * 256
+# the bf16 K6f's: its last layer per pair, not per point (npcd_tpu's bf16
+# forward rounds each pair's last-layer output z = bf16(bf16(acc) + b) before
+# the w-sum, so folding that layer after the sum would drop a rounding point),
+# 573,440 a pair
+K6F_BF16_FLOP = _K6_HIDDEN + 2 * 256 * 256 + 2 * 256
 DIST_FLOP = 9  # per (query, point): 3 sub, 3 mul, 2 add, 1 compare
 
 
@@ -369,10 +375,10 @@ def phase_build() -> None:
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
     # the bf16 K1 and K8, every f32 kernel in namespace tf (3xTF32: the f32
-    # K1b, K8f, K8b, K6f and K6b) and K6's in namespace tc (the bf16 K6b)
-    # run their products on the tensor cores; the f32 K1f (fqa_fwd: exact
-    # f32, no TF32) and every K6 kernel outside tf and tc (split_weights,
-    # split_weights_t, the bf16 forward, reduce_partials_bf16 and _tf32) on
+    # K1b, K8f, K8b, K6f and K6b) and K6's in namespace tc (the bf16 K6f and
+    # K6b) run their products on the tensor cores; the f32 K1f (fqa_fwd:
+    # exact f32, no TF32) and every K6 kernel outside tf and tc
+    # (split_weights, split_weights_t, reduce_partials_bf16 and _tf32) on
     # the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64 and
     # 128), K6 8
     in_tf = lambda k: k[0].startswith("tf::")
@@ -1163,12 +1169,35 @@ def phase_fast_kernels() -> dict:
     fargs = (feat_t, pos_t, weights, k, 10)
     gout = fused_mlp_posenc_wsum(*fargs)
     want = fused_mlp_posenc_wsum_plain(*fargs)
-    err, tol, share = _bf16_err(gout, want)
-    check("fused_mlp_posenc_wsum (bf16)", err, tol, lambda: fused_mlp_posenc_wsum(*fargs),
-          lambda: fused_mlp_posenc_wsum_plain(*fargs), flops=K6F_FLOP * inst * m,
-          nbytes=feat_t.numel() * 2 + pos_t.numel() * 4 + n_w * 2 + want.numel() * 2,
-          extra=f" bitwise share {share:.4f}", iters=5)
+    # _bf16_err, the instances reversed and a repeat raise after the timing
+    # below, so that an edited kernel's time reads too
+    faults = []
+    try:
+        err, tol, share = _bf16_err(gout, want)
+    except AssertionError as e:
+        faults.append(str(e))
+        err, tol = _err(gout, want), 2 ** -7 * 2 * float(want.abs().max())
+        share = float((gout == want).float().mean())
     del want
+    # each tile's output does not depend on the block that takes it: a
+    # second launch, and the instances in reverse order, give it bitwise
+    if not torch.equal(fused_mlp_posenc_wsum(*fargs), gout):
+        faults.append("two runs on the same inputs differ")
+    rev = torch.arange(inst - 1, -1, -1, device=dev)
+    again = fused_mlp_posenc_wsum(feat_t[rev].contiguous(), pos_t[rev].contiguous(), weights,
+                                  k, 10)[rev]
+    if not torch.equal(again, gout):
+        faults.append(f"the instances reversed give {float((again == gout).float().mean())} "
+                      f"bitwise")
+    del again
+    torch.cuda.empty_cache()
+    check("fused_mlp_posenc_wsum (bf16)", err, tol, lambda: fused_mlp_posenc_wsum(*fargs),
+          lambda: fused_mlp_posenc_wsum_plain(*fargs), flops=K6F_BF16_FLOP * inst * m,
+          nbytes=feat_t.numel() * 2 + pos_t.numel() * 4 + n_w * 2 + gout.numel() * 2,
+          extra=f" bitwise share {share:.4f}"
+                + ("" if faults else "; instances reversed and repeated bitwise"), iters=5)
+    if faults:
+        raise AssertionError("fused_mlp_posenc_wsum (bf16): " + "; ".join(faults))
     torch.cuda.empty_cache()
     bargs = (feat_t, pos_t, weights, gout, k, 10)
     flat = lambda df, dws: [df] + [t for wb in dws for t in wb]
@@ -1181,7 +1210,6 @@ def phase_fast_kernels() -> dict:
     # the instances in reverse order: each tile's contribution does not
     # depend on the block that takes it, so dfeat is equal and dW/db differ
     # by the f32 sums of the partials in another order only
-    rev = torch.arange(inst - 1, -1, -1, device=dev)
     again = flat(*fused_mlp_posenc_wsum_bwd(feat_t[rev].contiguous(), pos_t[rev].contiguous(),
                                             weights, gout[rev].contiguous(), k, 10))
     again[0] = again[0][rev]

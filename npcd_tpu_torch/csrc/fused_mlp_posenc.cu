@@ -1,13 +1,14 @@
 // Posenc-fused aggregation MLP with the k-neighbour weighted sum, forward
 // (K6f) and backward (K6b, below), for Hopper (sm_90a), in two flavours: f32,
 // and bf16 features and weights (T = __nv_bfloat16) with npcd_tpu's bf16
-// rounding points. The f32 forward and backward run their products on the
-// tensor cores in 3xTF32 (tf::mlp_posenc_wsum and tf::mlp_posenc_wsum_bwd,
-// below; the backward's recompute of the hidden layers in exact f32); the
-// bf16 backward on the tensor cores in bf16 (tc::mlp_posenc_wsum_bwd, below);
-// the bf16 forward (mlp_posenc_wsum_bf16) is f32 arithmetic on exact bf16
-// products on the CUDA cores. Each backward recomputes its own forward from
-// the inputs.
+// rounding points. Every kernel runs its products on the tensor cores: the
+// f32 forward and backward in 3xTF32 (tf::mlp_posenc_wsum and
+// tf::mlp_posenc_wsum_bwd, below; the backward's recompute of the hidden
+// layers in exact f32), the bf16 ones in bf16 on mma.sync.m16n8k16
+// (tc::mlp_posenc_wsum and tc::mlp_posenc_wsum_bwd, below, built from
+// csrc/bf16_mma.cuh). Each backward recomputes its own forward from the
+// inputs; the bf16 forward's hidden layers are the bf16 backward's recompute
+// (tc::layer_bf16), so the two give bitwise the same activations.
 //
 // Replaces npcd_tpu/ops/pallas/fused_mlp.py:fused_mlp_posenc_wsum
 // (_posenc_impl_fwd -> _fwd_posenc_kernel with reduce_k). Per
@@ -25,22 +26,19 @@
 // bf16 (npcd_tpu's _build_h0t, _layer and _wsum_reduce with bf16 feat_t and
 // weights): x and the octaves are computed in f32 and rounded to bf16 as
 // layer 1's input; each layer is z = bf16(bf16(f32 sum of exact bf16
-// products) + b), the activation max(z, bf16(z * bf16(0.01))); the w-sum over
-// a point's k pairs runs in f32 (products, then sums) and the output is bf16.
+// products) + b), the activation max(z, bf16(z * bf16(0.01))); the last
+// layer's z is rounded per pair, so it cannot be folded after the w-sum as
+// the f32 forward folds it; the w-sum over a point's k pairs runs in f32
+// (products, then sums, in j order) and the output is bf16.
 //
-// What bounds the bf16 forward on the H100: ~2*(d1*256 + 4*256*256) = 573
-// kflop per pair against ~(F + 4)*2 bytes read and 512 B written per k
-// pairs, so it is compute-bound, on the f32 FMA pipes (bf16 values are held
-// as f32 in shared memory; every product of two of them is exact in f32). The
-// TPU kernel keeps every [pairs, 256] activation in VMEM; here a block of 256
-// threads takes 64 pairs (8 points x k = 8), builds their 96-wide input in
-// shared memory, and walks the layers with one thread per output column
-// holding its 64 rows in registers: per 4-deep slice of the contraction a
-// thread reads 4 weights (coalesced, L2-resident) and 64 float4 broadcasts
-// of the activations, for 256 FMAs. The layer output overwrites its input
-// in place after a barrier, so shared memory holds one [64, 256] activation
-// plus the layer-1 input (~90 KB at F = 32, two blocks per SM). Lanes past
-// the last pair are zeroed before sin/cos and never written back.
+// What bounds the bf16 forward on the H100: 2 (95 * 256 + 3 * 256 * 256 +
+// 256 * 256 + 256) = 573,440 operations a pair at the configs' 95 -> 256 x 4
+// -> 256 (the last layer per pair, the w-sum), 3.288 TFLOP at the fast
+// stage-1 step's 400 x 14,336 pairs: 3.325 ms at 989 TFLOP/s dense bf16,
+// against ~0.83 GB read and written (0.25 ms), so the tensor cores' rate
+// bounds it. tc::mlp_posenc_wsum (below) runs every layer product on them,
+// 128 pairs a block, the activations in shared memory as bf16 and the
+// weights streamed from L2 by cp.async (one slab of 64 rows a barrier).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +52,6 @@
 namespace {
 
 constexpr int HID = 256;   // width of every layer; one thread per column
-constexpr int PAIRS = 64;  // (point, neighbour) pairs per block
 constexpr int ANCHOR = 5;  // direct sin/cos every 5 octaves ('anchored')
 constexpr float LEAKY_BF16 = 0.010009765625f;  // bf16(0.01)
 
@@ -75,43 +72,13 @@ __device__ __forceinline__ float leaky(float z) { return fmaxf(z, 0.01f * z); }
 template <typename T>
 __device__ __forceinline__ float as_input(float v) { return is_bf16<T>() ? rnd(v) : v; }
 
-// One bf16 layer's output from its f32 sum and bias: bf16(bf16(acc) + b),
-// then the activation unless the layer is linear.
-__device__ __forceinline__ float layer_out_bf16(float acc, float b, bool linear) {
-  const float z = rnd(rnd(acc) + b);
-  return linear ? z : fmaxf(z, rnd(z * LEAKY_BF16));
-}
-
-// out[r][t] = sum_c in[r][c] * W[c][t] for the block's 64 rows (bf16 W); `in`
-// has row stride `ld` (a multiple of 4) and is zero in columns [kin, ld).
-__device__ __forceinline__ void matmul_col(const float* in, int ldi, int kin,
-                                           const bf16* __restrict__ W, int t,
-                                           float (&acc)[PAIRS]) {
-#pragma unroll
-  for (int r = 0; r < PAIRS; ++r) acc[r] = 0.f;
-  for (int c = 0; c < kin; c += 4) {
-    const float w0 = ld(W + (long)c * HID + t);
-    const float w1 = c + 1 < kin ? ld(W + (long)(c + 1) * HID + t) : 0.f;
-    const float w2 = c + 2 < kin ? ld(W + (long)(c + 2) * HID + t) : 0.f;
-    const float w3 = c + 3 < kin ? ld(W + (long)(c + 3) * HID + t) : 0.f;
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * ldi + c);
-      acc[r] = fmaf(a.x, w0, acc[r]);
-      acc[r] = fmaf(a.y, w1, acc[r]);
-      acc[r] = fmaf(a.z, w2, acc[r]);
-      acc[r] = fmaf(a.w, w3, acc[r]);
-    }
-  }
-}
-
 // Builds the block's layer-1 input h0 [P][ld1] (feature rows, x, the
 // 'anchored' encoding, zero columns d1 .. pad - 1; x and the encoding rounded
 // to bf16 in the bf16 flavour) and the pair weights wpair [P] for pairs r0 ..
 // r0 + P - 1 of one instance, by a block of NT >= P threads; h0 is f32, or
 // bf16 (O) for the tensor cores. Lanes past the last pair are zeroed before
 // sin/cos.
-template <typename T, int P = PAIRS, int NT = HID, typename O = float>
+template <typename T, int P, int NT = HID, typename O = float>
 __device__ __forceinline__ void build_input(const T* __restrict__ feat,
                                             const float* __restrict__ pos,
                                             O* h0, float* wpair, int r0,
@@ -149,61 +116,6 @@ __device__ __forceinline__ void build_input(const T* __restrict__ feat,
   }
   if (t < P) wpair[t] = r0 + t < m ? pos[3L * m + r0 + t] : 0.f;
 }
-
-// Forward, bf16 (the fast stage-1 path's K6f), on the CUDA cores.
-__global__ void __launch_bounds__(HID)
-mlp_posenc_wsum_bf16(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t,
-                     const bf16* __restrict__ params, bf16* __restrict__ out, int m, int f_dim,
-                     int pos_rows, int n_layers, int n_freqs, float freq_c0, int k) {
-  extern __shared__ __align__(16) float sbuf[];
-  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  float* h0 = sbuf;                    // [PAIRS][ld1] layer-1 input
-  float* act = h0 + PAIRS * ld1;       // [PAIRS][HID] activations
-  float* wpair = act + PAIRS * HID;    // [PAIRS] pair weights
-
-  const int t = threadIdx.x;
-  const int inst = blockIdx.y;
-  const int r0 = blockIdx.x * PAIRS;
-  const bf16* feat = feat_t + (long)inst * f_dim * m;
-  const float* pos = pos_t + (long)inst * pos_rows * m;
-
-  build_input(feat, pos, h0, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, ld1, ld1, t);
-  __syncthreads();
-
-  // ---- layers ---------------------------------------------------------
-  float acc[PAIRS];
-  const bf16* p = params;
-  for (int layer = 0; layer < n_layers; ++layer) {
-    const int kin = layer == 0 ? d1 : HID;
-    const bf16* W = p;
-    const bf16* bias = p + (long)kin * HID;
-    p = bias + HID;
-    if (layer == 0) {
-      matmul_col(h0, ld1, kin, W, t, acc);
-    } else {
-      matmul_col(act, HID, kin, W, t, acc);
-    }
-    __syncthreads();  // every thread has read its input rows
-    const float bt = ld(bias + t);
-    const bool last = layer == n_layers - 1;
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) act[r * HID + t] = layer_out_bf16(acc[r], bt, last);
-    __syncthreads();
-  }
-
-  // ---- k-weighted sum over each point's pairs ---------------------------
-  const int n_pts = m / k;
-  const int pt0 = r0 / k;
-  for (int q = 0; q < PAIRS / k; ++q) {
-    if (pt0 + q >= n_pts) break;
-    float s = 0.f;
-    for (int j = 0; j < k; ++j)
-      s = __fadd_rn(s, __fmul_rn(act[(q * k + j) * HID + t], wpair[q * k + j]));
-    st(out + ((long)inst * n_pts + pt0 + q) * HID + t, s);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Forward, f32 (K6f), on the tensor cores: tf::mlp_posenc_wsum. What
@@ -1053,6 +965,7 @@ constexpr int STAGE = HID * LDC;
 // [TILE][LDX] and the dfeat product's W_0[:F] [64][LDA]
 constexpr int RING = 2 * TILE * LDX;
 static_assert(2 * STAGE <= RING && 16 * KS * LDA <= STAGE, "ring");
+constexpr int FWD_STAGES = 3;  // the forward's ring: two slabs ahead
 
 __device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
 #pragma unroll
@@ -1067,17 +980,18 @@ __device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
 // `steps` k-steps of 16 over W's rows, those from kin on zero) or acc = a .
 // W^T (dX; WT true: 16 k-steps over W's 256 columns); a [SUB][LDA] in
 // shared memory, W [kin][HID] row-major in global memory, streamed KS
-// k-steps a slab through the two stages of the ring by cp.async, a slab
-// ahead. Warp w computes rows 32 (w / 4) .. + 32, columns 64 (w % 4) .. + 64.
-template <bool WT>
+// k-steps a slab through the S stages of the ring ([S][STAGE]) by cp.async,
+// S - 1 slabs ahead. Warp w computes rows 32 (w / 4) .. + 32, columns 64 (w
+// % 4) .. + 64.
+template <bool WT, int S = 2>
 __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16* a,
                                               const bf16* __restrict__ W, int kin, int steps,
                                               bf16* ring) {
   const int tid = threadIdx.x, warp = tid >> 5, r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
   const int slabs = (steps + KS - 1) / KS;
-  auto load = [&](int t) {  // slab t into stage t % 2, one copy group
-    bf16* st = ring + t % 2 * STAGE;
-    for (int idx = tid; idx < 16 * KS * HID / 8; idx += NT) {
+  auto load = [&](int t) {  // slab t into stage t % S, one copy group (empty past the last)
+    bf16* st = ring + t % S * STAGE;
+    for (int idx = tid; t < slabs && idx < 16 * KS * HID / 8; idx += NT) {
       if (WT) {  // W's columns 16 KS t .. + 16 KS of its 256 rows, [HID][LDC]
         const int r = idx / (2 * KS), c = idx % (2 * KS) * 8;
         cp16(st + r * LDC + c, W + (long)r * HID + 16 * KS * t + c, true);
@@ -1091,12 +1005,12 @@ __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16*
   };
   zero(acc);
   __syncthreads();  // the last user of the ring is done with it
-  load(0);
+  for (int t = 0; t < S - 1; ++t) load(t);
   for (int t = 0; t < slabs; ++t) {
-    cp_wait<0>();
-    __syncthreads();  // slab t landed for every thread; the other stage is free
-    if (t + 1 < slabs) load(t + 1);
-    const bf16* st = ring + t % 2 * STAGE;
+    cp_wait<S - 2>();
+    __syncthreads();  // slab t landed for every thread; stage (t - 1) % S is free
+    load(t + S - 1);
+    const bf16* st = ring + t % S * STAGE;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       if (KS * t + kk < steps) {
@@ -1128,12 +1042,13 @@ __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16*
 // global memory, `steps` k-steps of 16 (act is zero in columns kin .. 16
 // steps). mask receives the thread's bits z > 0, bit 4 j + e of word i for
 // acc[i][j][e]. The bf16 forward's hidden layers are the same product and
-// epilogue.
+// epilogue (on a ring of S stages: the same sums).
+template <int S = 2>
 __device__ __forceinline__ void layer_bf16(bf16* act, const bf16* __restrict__ W,
                                            const bf16* __restrict__ bias, int kin, int steps,
                                            bf16* ring, unsigned (&mask)[2]) {
   float acc[2][8][4];
-  layer_product<false>(acc, act, W, kin, steps, ring);
+  layer_product<false, S>(acc, act, W, kin, steps, ring);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, u = lane & 3;
   const int r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
   __syncthreads();  // every warp has read its last A fragment
@@ -1458,6 +1373,95 @@ mlp_posenc_wsum_bwd(const bf16* __restrict__ feat_t, const float* __restrict__ p
   if (batched) flush();
 }
 
+// ---------------------------------------------------------------------------
+// Forward, bf16 (the fast stage-1 path's K6f), on the tensor cores:
+// tc::mlp_posenc_wsum. npcd_tpu's _fwd_posenc_kernel with bf16 weights and
+// reduce_k, on the blocks of the bf16 backward above. A block of 16 warps
+// takes a tile of 128 pairs (one sub-tile: 16 points at k 8): build_input
+// writes h0 as bf16 straight into the [128][264] tile buffer (columns d1 ..
+// d1p zero), layers 0 .. L-2 run in place through layer_bf16, the backward's
+// recompute unchanged in its arithmetic (the same k-step order over W's rows,
+// streamed through the cp.async ring 64 rows a slab, the same bf16x2
+// epilogue; its slope bits are dropped), so a hidden activation here is
+// bitwise the one the backward recomputes: an mma's sum for one output
+// element depends only on its sequence of 16-deep k-steps, not on how the
+// rows are tiled or how deep the ring is. The ring has three stages here
+// (two slabs ahead; the backward's two leave no room): on the H100 that read
+// 2-3% faster than two stages, and four no faster than three, so the weight
+// stream's latency is not what bounds the kernel (PERF.md). The last
+// layer is layer_product<false> with its own epilogue, z = bf16(bf16(acc) +
+// b) and no activation, written back to the buffer after a barrier. Then one
+// thread per (point, two columns) reads the point's k rows in j order and
+// writes bf16 of the f32 sum of __fmul_rn(z, w) (__fadd_rn, from 0). Lanes
+// past the last pair are built as zeros with weight 0 and never written. No
+// state crosses blocks, so the grid is (tiles, instances). Shared memory: the
+// tile buffer, the ring [3 STAGE] and the pair weights (~174 KB): one block
+// an SM.
+__global__ void __launch_bounds__(NT, 1)
+mlp_posenc_wsum(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t,
+                const bf16* __restrict__ params, bf16* __restrict__ out, int m, int f_dim,
+                int pos_rows, int n_layers, int n_freqs, float freq_c0, int k) {
+  extern __shared__ __align__(16) float sbuf[];
+  bf16* act = reinterpret_cast<bf16*>(sbuf);
+  bf16* ring = act + SUB * LDA;
+  float* wpair = reinterpret_cast<float*>(ring + FWD_STAGES * STAGE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, u = lane & 3;
+  const int inst = blockIdx.y, r0 = blockIdx.x * SUB;
+  const int d1 = f_dim + 3 * (1 + 2 * n_freqs), d1p = (d1 + 15) & ~15;
+  // h0; the first layer product's barrier makes it visible
+  build_input<bf16, SUB, NT>(feat_t + (long)inst * f_dim * m, pos_t + (long)inst * pos_rows * m,
+                             act, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, d1p, tid);
+
+  // ---- layers 0 .. L-2 in place, as the backward recomputes them ----------
+  const bf16* p = params;  // W_l, then b_l
+  for (int l = 0; l < n_layers - 1; ++l) {
+    const int kin = l ? HID : d1;
+    unsigned mk[2];
+    layer_bf16<FWD_STAGES>(act, p, p + (long)kin * HID, kin, (l ? HID : d1p) / 16, ring, mk);
+    p += (long)kin * HID + HID;
+  }
+
+  // ---- the last layer per pair in place: z = bf16(bf16(acc) + b) ---------
+  {
+    const int kin = n_layers > 1 ? HID : d1;
+    float acc[2][8][4];
+    layer_product<false, FWD_STAGES>(acc, act, p, kin, (n_layers > 1 ? HID : d1p) / 16, ring);
+    const bf16* bias = p + (long)kin * HID;
+    const int rw = (warp >> 2) * 32, n0 = (warp & 3) * 64;
+    __syncthreads();  // every warp has read its last A fragment
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 8 * j + 2 * u;
+      const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned y = pack(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          *reinterpret_cast<unsigned*>(act + (rw + 16 * i + g + 8 * h) * LDA + col) =
+              pack(lo(y) + b0, hi(y) + b1);
+        }
+    }
+  }
+  __syncthreads();
+
+  // ---- the k-weighted sum: thread (point q, columns c, c + 1), j order -----
+  const int n_pts = m / k, pt0 = r0 / k;
+  for (int idx = tid; idx < SUB / k * (HID / 2); idx += NT) {
+    const int q = idx / (HID / 2), c = idx % (HID / 2) * 2;
+    if (pt0 + q >= n_pts) break;
+    float s0 = 0.f, s1 = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const unsigned z = *reinterpret_cast<const unsigned*>(act + (q * k + j) * LDA + c);
+      const float w = wpair[q * k + j];
+      s0 = __fadd_rn(s0, __fmul_rn(lo(z), w));
+      s1 = __fadd_rn(s1, __fmul_rn(hi(z), w));
+    }
+    *reinterpret_cast<unsigned*>(out + ((long)inst * n_pts + pt0 + q) * HID + c) = pack(s0, s1);
+  }
+}
+
 }  // namespace tc
 
 // The backwards' partials summed over the blocks in order, partial[b][j]
@@ -1483,22 +1487,6 @@ __global__ void reduce_partials_tf32(const float* __restrict__ partial, int n_bl
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
   out[dst] = s;
-}
-
-int launch_fwd_bf16(const void* feat_t, const void* pos_t, const void* params, void* out,
-                    int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs,
-                    float freq_c0, int k, void* stream) {
-  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
-  const int ld1 = (d1 + 3) & ~3;
-  const int smem = static_cast<int>(sizeof(float)) * (PAIRS * ld1 + PAIRS * HID + PAIRS);
-  const int e = allow_smem(mlp_posenc_wsum_bf16, smem);
-  if (e) return e;
-  dim3 grid((m + PAIRS - 1) / PAIRS, inst);
-  mlp_posenc_wsum_bf16<<<grid, HID, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
-      static_cast<const bf16*>(params), static_cast<bf16*>(out), m, f_dim, pos_rows, n_layers,
-      n_freqs, freq_c0, k);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The f32 forward: split_weights, then tf::mlp_posenc_wsum.
@@ -1602,15 +1590,28 @@ extern "C" int fused_mlp_posenc_wsum_fwd(const void* feat_t, const void* pos_t,
                      freq_c0, k, static_cast<cudaStream_t>(stream));
 }
 
-// bf16 (mlp_posenc_wsum_bf16, 64 pairs a block): k must divide 64.
+// bf16 (tc::mlp_posenc_wsum, 128 pairs a block): k must divide 128, and
+// k_in0 <= 256.
 extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* pos_t,
                                               const void* params, void* out, int inst,
                                               int m, int f_dim, int pos_rows,
                                               int n_layers, int n_freqs,
                                               float freq_c0, int k,
                                               void* stream) {
-  return launch_fwd_bf16(feat_t, pos_t, params, out, inst, m, f_dim, pos_rows, n_layers,
-                         n_freqs, freq_c0, k, stream);
+  const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
+  if (n_layers < 1 || d1 > HID || k < 1 || tc::SUB % k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem =
+      static_cast<int>(sizeof(bf16)) * (tc::SUB * tc::LDA + tc::FWD_STAGES * tc::STAGE) +
+      static_cast<int>(sizeof(float)) * tc::SUB;
+  const int e = allow_smem(tc::mlp_posenc_wsum, smem);
+  if (e) return e;
+  tc::mlp_posenc_wsum<<<dim3((m + tc::SUB - 1) / tc::SUB, inst), tc::NT, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
+      static_cast<const bf16*>(params), static_cast<bf16*>(out), m, f_dim, pos_rows, n_layers,
+      n_freqs, freq_c0, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Backward of fused_mlp_posenc_wsum_fwd{,_bf16} for the same feat_t, pos_t

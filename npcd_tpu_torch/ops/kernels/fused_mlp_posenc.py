@@ -20,18 +20,21 @@ rounding points: x and the octaves rounded to bf16 as layer 1's input, each
 layer bf16(bf16(f32 sum) + b), the w-sum in f32 and its result bf16; the
 backward keeps the cotangent chain in f32 and rounds the dW and dX operands,
 dfeat and, once at the end, dW/db to bf16, and contracts the last layer's dW
-over points (npcd_tpu's ``fast_last``). The f32 forward and backward run
-their products on the tensor cores in 3xTF32 (``tf::mlp_posenc_wsum``,
-``tf::mlp_posenc_wsum_bwd``: each product a_lo b_hi + a_hi b_lo + a_hi b_hi
-of tf32 hi + lo splits, ~2**-21 of f32), 64 pairs a block, the last layer
-once per point (folded after the w-sum forward; ``fast_last`` and its dX per
-point backward); the backward's recompute of the hidden layers, which sets
-leaky_relu's slopes, is exact f32 on the CUDA cores. The bf16 backward runs
-every product on the tensor cores in bf16 (``tc::mlp_posenc_wsum_bwd``:
-mma.sync m16n8k16, exact bf16 products summed in f32), 256 pairs a block,
-its dW contracted over them; the bf16 forward runs on the CUDA cores. Every
-kernel takes any k that divides 64; each backward recomputes its own
-forward. Launches count per flavour: ``launches`` (f32) and
+over points (npcd_tpu's ``fast_last``). Every kernel runs its products on
+the tensor cores. The f32 forward and backward run them in 3xTF32
+(``tf::mlp_posenc_wsum``, ``tf::mlp_posenc_wsum_bwd``: each product a_lo
+b_hi + a_hi b_lo + a_hi b_hi of tf32 hi + lo splits, ~2**-21 of f32), 64
+pairs a block, the last layer once per point (folded after the w-sum
+forward; ``fast_last`` and its dX per point backward); the backward's
+recompute of the hidden layers, which sets leaky_relu's slopes, is exact f32
+on the CUDA cores. The bf16 forward and backward run them in bf16
+(``tc::mlp_posenc_wsum``, ``tc::mlp_posenc_wsum_bwd``: mma.sync m16n8k16,
+exact bf16 products summed in f32), 128 and 256 pairs a block; the forward's
+hidden layers are the backward's recompute, bitwise, and its last layer runs
+per pair (npcd_tpu rounds each pair's output to bf16 before the w-sum); the
+backward contracts dW over its tile. Each forward takes any k that divides
+its tile, each backward any k that divides 64; each backward recomputes its
+own forward. Launches count per flavour: ``launches`` (f32) and
 ``launches_bf16``.
 """
 from __future__ import annotations
@@ -50,7 +53,8 @@ from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf1
 
 _NAME = "fused_mlp_posenc"
 HIDDEN = 256  # the kernels' layer width
-PAIRS_PER_BLOCK = 64  # the forwards' and the f32 backward's tile of (point, neighbour) pairs
+PAIRS_PER_BLOCK = 64  # the f32 kernels' tile of (point, neighbour) pairs; the backwards' k limit
+BF16_FWD_PAIRS = 128  # the bf16 forward's tile
 BF16_BWD_PAIRS = 256  # the bf16 backward's tile
 BF16_BWD_MAX_F = 64  # the bf16 backward's widest feature (its dfeat product)
 MAX_LAYERS = 8  # the backward kernels' layer limit
@@ -261,9 +265,9 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
         return fused_mlp_posenc_wsum_plain(feat_t, pos_t, weights, k, n_freqs,
                                            freq_mult, method)
     f32 = feat_t.dtype == torch.float32
-    _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
-    if f32:
-        _check_d1(what, weights)
+    _check_kernel(what, feat_t, pos_t, weights, k, method,
+                  PAIRS_PER_BLOCK if f32 else BF16_FWD_PAIRS)
+    _check_d1(what, weights)
     d1 = weights[0][0].shape[0]
     inst, f_dim, m = feat_t.shape
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])

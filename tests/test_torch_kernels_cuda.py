@@ -382,6 +382,11 @@ def test_stage1_kernels_refuse_what_they_do_not_build(dev):
                                   torch.zeros(1, 2, 256, device=dev), 8, 10)
     with pytest.raises(ValueError):
         min_d2(torch.zeros(1, 4, 3, device=dev), torch.zeros(1, 5000, 3, device=dev))
+    # the bf16 forward takes a layer-1 input of at most 256 columns (d1 = 194 + 63)
+    wide = _bf16_weights((256, 256), 194 + 63, 0, dev)
+    with pytest.raises(ValueError):
+        fused_mlp_posenc_wsum(torch.zeros(1, 194, 16, device=dev).bfloat16(),
+                              torch.zeros(1, 8, 16, device=dev), wide, 8, 10)
 
 
 
@@ -438,10 +443,10 @@ def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst, k):
     """The bf16 K6f and K6b against their plain versions; K6b's outputs
     within 1e-2 of max(1, their scale) and, each tile's contribution being
     independent of the block that takes it, on the instances in reverse
-    order dfeat equal and dW/db at least 99% bitwise equal (f32 sums of the
-    blocks' partials in another order; a partial rounded to bf16 at each
-    update reads far less); two launches bitwise equal; autograd's backward
-    the kernel."""
+    order K6f's output and dfeat equal and dW/db at least 99% bitwise equal
+    (f32 sums of the blocks' partials in another order; a partial rounded to
+    bf16 at each update reads far less); two launches of each bitwise equal;
+    autograd's backward the kernel."""
     g = _gen(dev, 7)
     f = 32
     weights = _bf16_weights((256,) * 5, f + 63, 0, dev)
@@ -457,6 +462,11 @@ def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst, k):
     out = fused_mlp_posenc_wsum(*args)
     assert out.dtype == torch.bfloat16 and fused_mlp_posenc_wsum.launches == launches
     _bf16_close(out, fused_mlp_posenc_wsum_plain(*args))
+    assert torch.equal(fused_mlp_posenc_wsum(*args), out)
+    rev = torch.arange(inst - 1, -1, -1, device=dev)
+    out_r = fused_mlp_posenc_wsum(feat_t[rev].contiguous(), pos_t[rev].contiguous(), weights, k,
+                                  10)
+    assert torch.equal(out_r[rev], out)
     gout = torch.randn(inst, n_pts, 256, generator=g, device=dev).bfloat16()
     df, dws = fused_mlp_posenc_wsum_bwd(*args[:3], gout, k, 10)
     df_p, dws_p = fused_mlp_posenc_wsum_bwd_plain(*args[:3], gout, k, 10)
@@ -469,7 +479,6 @@ def test_fused_mlp_posenc_bf16_kernels(dev, n_pts, inst, k):
     assert torch.equal(df1, df)
     for (a, b), (c, d) in zip(dws1, dws):
         assert torch.equal(a, c) and torch.equal(b, d)
-    rev = torch.arange(inst - 1, -1, -1, device=dev)
     df_r, dws_r = fused_mlp_posenc_wsum_bwd(feat_t[rev].contiguous(), pos_t[rev].contiguous(),
                                             weights, gout[rev].contiguous(), k, 10)
     assert torch.equal(df_r[rev], df)
