@@ -79,14 +79,19 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  11. kernels, fast stage 1 (configs/npcd_srncars_fast.yaml: bf16 compute,
      shading budget 1792, one chunk of 400 instances), at the shapes its step
      launches them: the field heads' MLP stack forward and backward (K7f/K7b)
-     over 400 x 1,792 packed points for shape_net and channel_net, the bf16
+     over 400 x 1,792 packed points for shape_net and channel_net (K7b's
+     outputs each within 1e-2 of its own scale, dx at least 98% bitwise
+     equal; both kernels two launches bitwise equal, and with the rows
+     reversed K7f's output and K7b's dx bitwise equal, dW/db at least 99%),
+     the bf16
      aggregation MLP forward and backward (K6f/K6b bf16) over the step's one
      launch of 400 x 14,336 pairs (the backward fed K6f's own output; each
      of its outputs within its own tolerance of its own scale of the plain
      version's, dfeat at least 98% bitwise equal, every output's bitwise
      share printed, two launches bitwise equal), and the kNN over the 400 x
-     1,792 packed points; rows and pairs on a leaky_relu kink in bf16 are
-     left out of the backward checks;
+     1,792 packed points; rows and pairs on a leaky_relu kink in bf16, and
+     rows where K7f and its plain version take another slope, are left out
+     of the backward checks;
  12. main path, fast stage 1: phase 9 on configs/npcd_srncars_fast.yaml (bf16,
      budget 1792, remat off), 7 steps; also prints each instance's valid
      sample count (mean, max) and the share the budget drops;
@@ -131,6 +136,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import re
 import shutil
@@ -156,7 +162,8 @@ from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noq
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp  # noqa: E402
 from npcd_tpu_torch.ops.kernels import build  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp import (  # noqa: E402
-    fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_plain, leaky_kinks_bf16)
+    fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_plain, leaky_kinks_bf16,
+    slope_flips_bf16)
 from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (  # noqa: E402
     fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc_wsum_bwd_plain,
@@ -379,14 +386,16 @@ def phase_build() -> None:
     # K6b) run their products on the tensor cores; the f32 K1f (fqa_fwd:
     # exact f32, no TF32) and every K6 kernel outside tf and tc
     # (split_weights, split_weights_t, reduce_partials_bf16 and _tf32) on
-    # the CUDA cores; K1 has 6 kernels, K8 12 (3 per flavour at D 64 and
-    # 128), K6 8
+    # the CUDA cores; so K7f and K7b (tc::mlp_fwd, tc::mlp_bwd) but not
+    # their tc::reduce_partials; K1 has 6 kernels, K8 12 (3 per flavour at D
+    # 64 and 128), K6 8, K7 3
     in_tf = lambda k: k[0].startswith("tf::")
     tensor_cores = lambda k: k[1] == "bf16" or in_tf(k)
     for name, n_kernels, rule in (("fused_qkv_attention", 6, tensor_cores),
                                   ("flash_attention", 12, tensor_cores),
                                   ("fused_mlp_posenc", 8,
-                                   lambda k: k[0].startswith(("tf::", "tc::")))):
+                                   lambda k: k[0].startswith(("tf::", "tc::"))),
+                                  ("fused_mlp", 3, lambda k: k[0] != "tc::reduce_partials")):
         counts = _sass_mma_counts(name)
         print(f"[build] {name} SASS tensor-core instructions: "
               + ", ".join(f"{k} ({t}) {n}" for (k, t), n in sorted(counts.items())))
@@ -1150,7 +1159,7 @@ def phase_fast_kernels() -> dict:
     # own output. Pairs on a bf16 leaky_relu kink (fused_mlp_posenc.
     # leaky_kinks, checked in slices of 20 instances) get weight 0. Forward
     # within one bf16 ulp of the element plus one of the output's scale and
-    # 99% bitwise; the backward by _k6b_bf16_gate against the plain version
+    # 99% bitwise; the backward by _bf16_bwd_gate against the plain version
     # over the whole launch (its dW summed over every pair in f32, then
     # rounded once)
     weights = bf16(init_mlp((256, 256, 256, 256), 95, 256, torch.Generator().manual_seed(0),
@@ -1168,6 +1177,7 @@ def phase_fast_kernels() -> dict:
     n_w = sum(t.numel() for wb in weights for t in wb)
     fargs = (feat_t, pos_t, weights, k, 10)
     gout = fused_mlp_posenc_wsum(*fargs)
+    print(f"[kernels-fast] fused_mlp_posenc_wsum (bf16) output digest {_digest([gout])}")
     want = fused_mlp_posenc_wsum_plain(*fargs)
     # _bf16_err, the instances reversed and a repeat raise after the timing
     # below, so that an edited kernel's time reads too
@@ -1202,8 +1212,9 @@ def phase_fast_kernels() -> dict:
     bargs = (feat_t, pos_t, weights, gout, k, 10)
     flat = lambda df, dws: [df] + [t for wb in dws for t in wb]
     got = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
-    err, tol, text, faults = _k6b_bf16_gate(got,
-                                            flat(*fused_mlp_posenc_wsum_bwd_plain(*bargs)))
+    print(f"[kernels-fast] fused_mlp_posenc_wsum_bwd (bf16) output digest {_digest(got)}")
+    err, tol, text, faults = _bf16_bwd_gate(got, flat(*fused_mlp_posenc_wsum_bwd_plain(*bargs)),
+                                            "dfeat", K6B_BF16_REL, K6B_BF16_DFEAT_SHARE)
     again = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
     if not all(torch.equal(a, b) for a, b in zip(again, got)):
         faults.append("two runs on the same inputs differ")
@@ -1236,36 +1247,74 @@ def phase_fast_kernels() -> dict:
 
     # K7f and K7b for both heads over the 400 x 1,792 packed points: x is
     # K6f's output, the cotangent standard normal in bf16; rows on a bf16
-    # leaky_relu kink (leaky_kinks_bf16) get a zero cotangent. Tolerances as
-    # K6's
+    # leaky_relu kink (leaky_kinks_bf16) or where the kernel's and the plain
+    # version's forwards take another slope (slope_flips_bf16) get a zero
+    # cotangent. K7f by
+    # _bf16_err, K7b by _bf16_bwd_gate. A row's results do not depend on the
+    # tile or block that takes it, so a second launch is bitwise equal, and
+    # so are K7f's output and K7b's dx with the rows in reverse order, once
+    # put back; K7b's dW/db are then f32 sums in another order, at least
+    # K6B_BF16_ORDER_SHARE bitwise. Each kernel is timed and printed before
+    # these raise, so that an edited kernel's time reads too
     x = gout.reshape(inst * cap, 256)
     rows = x.shape[0]
+    rev = torch.arange(rows - 1, -1, -1, device=dev)
+    xr = x[rev].contiguous()
     for head, dims in (("channel_net", (256, 256, 256, 256, 3)), ("shape_net", (256, 1))):
         weights = bf16(init_mlp(dims[:-1], 256, dims[-1], torch.Generator().manual_seed(1), dev))
         n_w = sum(t.numel() for wb in weights for t in wb)
         fwd_flop, bwd_flop = _k7_flop(dims)
-        want = fused_mlp_plain(x, weights)
-        err, tol, share = _bf16_err(fused_mlp(x, weights), want)
+        want, got = fused_mlp_plain(x, weights), fused_mlp(x, weights)
+        faults = []
+        try:
+            err, tol, share = _bf16_err(got, want)
+        except AssertionError as e:
+            faults.append(str(e))
+            err, tol = _err(got, want), 2 ** -7 * 2 * float(want.abs().max())
+            share = float((got == want).float().mean())
+        if not torch.equal(fused_mlp(x, weights), got):
+            faults.append("two runs on the same inputs differ")
+        if not torch.equal(fused_mlp(xr, weights)[rev], got):
+            faults.append("the rows reversed differ")
         name = "fused_mlp" if head == "channel_net" else f"fused_mlp ({head})"
         check(name, err, tol, lambda: fused_mlp(x, weights), lambda: fused_mlp_plain(x, weights),
               flops=fwd_flop * rows, nbytes=2 * (x.numel() + n_w + want.numel()),
-              extra=f" {head}; bitwise share {share:.4f}")
+              extra=f" {head}; bitwise share {share:.4f}"
+                    + ("" if faults else "; rows reversed and repeated bitwise"))
+        if faults:
+            raise AssertionError(f"{name}: " + "; ".join(faults))
+        del want, got
         gy = torch.randn(rows, dims[-1], generator=g, device=dev).bfloat16()
         kinks = torch.cat([leaky_kinks_bf16(x[i:i + 65536], weights)
                            for i in range(0, rows, 65536)])
-        gy[kinks] = 0
+        flips = slope_flips_bf16(x, weights)
+        gy[kinks | flips] = 0
         got = flat(*fused_mlp_bwd(x, weights, gy))
-        plain = flat(*fused_mlp_bwd_plain(x, weights, gy))
-        err, tol = _worst([(a, b, 1e-2) for a, b in zip(got, plain)])
+        err, tol, text, faults = _bf16_bwd_gate(got, flat(*fused_mlp_bwd_plain(x, weights, gy)),
+                                                "dx", K7B_BF16_REL, K7B_BF16_DX_SHARE)
         again = flat(*fused_mlp_bwd(x, weights, gy))
         if not all(torch.equal(a, b) for a, b in zip(again, got)):
-            raise AssertionError(f"fused_mlp_bwd ({head}): two runs on the same inputs differ")
+            faults.append("two runs on the same inputs differ")
+        again = flat(*fused_mlp_bwd(xr, weights, gy[rev].contiguous()))
+        again[0] = again[0][rev]
+        order = min(float((a == b).float().mean()) for a, b in zip(again[1:], got[1:]))
+        text += f"; rows reversed: dW/db bitwise {order:.4f}"
+        if not torch.equal(again[0], got[0]) or order < K6B_BF16_ORDER_SHARE:
+            faults.append(f"the rows reversed give dx equal {torch.equal(again[0], got[0])}, "
+                          f"dW/db {order} bitwise, under {K6B_BF16_ORDER_SHARE}")
+        del again, got
         name = "fused_mlp_bwd" if head == "channel_net" else f"fused_mlp_bwd ({head})"
         check(name, err, tol, lambda: fused_mlp_bwd(x, weights, gy),
               lambda: fused_mlp_bwd_plain(x, weights, gy), flops=bwd_flop * rows,
               nbytes=2 * (2 * x.numel() + gy.numel() + 2 * n_w),
-              extra=f" {head}; kinked rows {int(kinks.sum())} of {rows}; repeatable bitwise")
-        del want, gy, got, plain, again, kinks
+              extra=f" {head}; kinked rows {int(kinks.sum())}, slope flips {int(flips.sum())} "
+                    f"({int((flips & ~kinks).sum())} not kinked) of {rows}; {text}"
+                    + ("" if faults else "; repeatable bitwise"))
+        if faults:
+            raise AssertionError(f"{name}: " + "; ".join(faults))
+        del gy, kinks, flips
+        torch.cuda.empty_cache()
+    del xr
     del x, gout
     torch.cuda.empty_cache()
     return results
@@ -1288,25 +1337,47 @@ K6B_BF16_DFEAT_SHARE = 0.98
 K6B_BF16_ORDER_SHARE = 0.99
 
 
-def _k6b_bf16_gate(got, want) -> tuple:
-    """The bf16 K6b's outputs (dfeat, dW_0, db_0, ...) against its plain
-    version's, by K6B_BF16_REL and K6B_BF16_DFEAT_SHARE -> (max_abs_err,
-    tol) of the output furthest past its own tolerance, a text of each
-    output's difference over its scale and bitwise share, and a list of
-    what fails beside the tolerance (dfeat's bitwise share)."""
-    names = ["dfeat"] + [f"{x}{i}" for i in range(len(got) // 2) for x in ("dW", "db")]
+def _bf16_bwd_gate(got, want, first: str, rel, share: float) -> tuple:
+    """A bf16 backward's outputs (first, then dW_0, db_0, ...) against its
+    plain version's: each output's largest difference within rel[i] of the
+    output's own largest magnitude, and at least ``share`` of the first
+    output's elements bitwise equal -> (max_abs_err, tol) of the output
+    furthest past its own tolerance, a text of each output's difference over
+    its scale and bitwise share, and a list of what fails beside the
+    tolerance (the first output's bitwise share)."""
+    names = [first] + [f"{x}{i}" for i in range(len(got) // 2) for x in ("dW", "db")]
     rows = []
-    for name, a, b, rel in zip(names, got, want, K6B_BF16_REL):
+    for name, a, b, r in zip(names, got, want, rel):
         a, b = a.float(), b.float()
         scale = float(b.abs().max())
-        rows.append((name, float((a - b).abs().max()), scale, rel,
+        rows.append((name, float((a - b).abs().max()), scale, r,
                      float((a == b).float().mean())))
     text = "err/scale, bitwise: " + ", ".join(
         f"{n} {e / max(s, 1e-30):.2e} {sh:.4f}" for n, e, s, _, sh in rows)
-    faults = [] if rows[0][4] >= K6B_BF16_DFEAT_SHARE else [
-        f"dfeat {rows[0][4]} bitwise, under {K6B_BF16_DFEAT_SHARE}"]
-    err, tol = _furthest([(e, rel * s) for _, e, s, rel, _ in rows])
+    faults = [] if rows[0][4] >= share else [f"{first} {rows[0][4]} bitwise, under {share}"]
+    err, tol = _furthest([(e, r * s) for _, e, s, r, _ in rows])
     return err, tol, text, faults
+
+
+# K7b's gate (phase 11): each output's largest difference from the plain
+# version within 1e-2 of its own scale (the CUDA-core kernel's 1e-2 x max(1,
+# scale), or tighter), and at least K7B_BF16_DX_SHARE of dx bitwise equal,
+# the rows where the two take another leaky_relu slope given a zero
+# cotangent. What differs is bf16 roundings that flip on f32 sums in another
+# order and carry down the layers: on an H100 (PERF.md section 6) the
+# tensor-core kernel read every output within 4.8e-3 of its scale and dx
+# 99.0% bitwise; with only the kinked rows zeroed, the 294 rows whose slope
+# flipped moved dx by 0.10 and db3 by 1.3e-2 of their scales.
+K7B_BF16_REL = (1e-2,) * 17  # dx, then dW and db of up to 8 layers
+K7B_BF16_DX_SHARE = 0.98
+
+
+def _digest(tensors) -> str:
+    """A short sha256 of the tensors' bits, to show two builds agree."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _bf16_err(got, want) -> tuple:

@@ -1,5 +1,8 @@
-// Fused leaky-ReLU MLP stack in bf16, forward (K7f) and backward (K7b), for
-// Hopper (sm_90a).
+// Fused leaky-ReLU MLP stack in bf16, forward (K7f, tc::mlp_fwd) and
+// backward (K7b, tc::mlp_bwd), for Hopper (sm_90a), on the tensor cores:
+// bf16 mma.sync.m16n8k16 with f32 sums through the layer routines of
+// csrc/bf16_mlp.cuh, which the bf16 K6f and K6b (csrc/fused_mlp_posenc.cu)
+// run on too.
 //
 // Replaces npcd_tpu/ops/pallas/fused_mlp.py:fused_mlp (_fwd_kernel and
 // _bwd_kernel with bf16 weights and its low-precision backward), the field
@@ -13,334 +16,376 @@
 //             operands, db += sum of the f32 g; dW and db are rounded to
 //             bf16 at the end, dx = bf16(g) after the first layer.
 //
-// What bounds it on the H100: 2 * 256 * 256 flop per row and hidden layer
-// against 512 bytes of input per row, so it is compute-bound. This first
-// version runs on the CUDA cores' f32 FMA pipes (the TPU kernel keeps every
-// activation in VMEM and runs the MXU): a block of 256 threads takes 64 rows,
-// keeps their [64, 256] activation in shared memory as f32 (every value is a
-// bf16 value), and walks the layers with one thread per output column holding
-// its 64 rows in registers, as csrc/fused_mlp_posenc.cu does; the weights
-// (128 KB per 256 x 256 bf16 layer) stream from L2 layer by layer. A last
-// layer 1 or 3 wide runs as a warp per row with a shuffle reduction.
+// What bounds them on the H100: 2 * 256 * 256 flop per row and hidden layer
+// against 512 bytes of input per row, so the tensor cores' rate: the
+// channel_net backward's 1.13 TFLOP at the fast stage-1 step's 716,800 rows
+// take 1.14 ms at 989 TFLOP/s dense bf16.
 //
-// The backward (K7b) recomputes the layers per 64-row tile, keeping each
-// layer's input h_0 .. h_{L-2} in a per-block global scratch (L2-resident)
-// and h_{L-1} in shared memory, then walks back. The dW/db reduction over
-// every row runs on a persistent grid (one block per SM, chosen by the
-// wrapper): each block accumulates into its own partial in global memory and
-// reduce_partials sums the partials in block order, so the result depends
-// only on the inputs and the grid size. Rows past the last one load x = 0
-// and g = 0; their g stays 0 through the chain, so they add exactly 0.
+// Forward: a block of 16 warps takes 128 rows; x lands by cp.async in the
+// [128][264] bf16 tile buffer (rows past the last zero), the hidden layers
+// run in place through tc::layer_bf16 on a ring three slabs deep (as the
+// bf16 K6f's), and a 256-wide last layer through layer_product and
+// last_bf16. A hidden activation is bitwise the one the backward recomputes:
+// an mma's sum for one output element depends only on its sequence of
+// 16-deep k-steps, not on how the rows are tiled or how deep the ring is. A
+// last layer 1 or 3 wide runs on the CUDA cores, a warp per row, each lane
+// 8 columns, then a shuffle reduction.
+//
+// Backward, as the bf16 K6b: a persistent grid of one block an SM takes
+// tiles of 256 rows (block b: tiles b, b + grid, ...) as two sub-tiles of
+// 128. Per tile it recomputes the hidden layers of each sub-tile in place
+// (layer_bf16), keeping each layer's input as bf16 in a per-block scratch
+// (L2-resident) and its mask bits z > 0; then walks back with the tile
+// buffer holding gd_l: dW_l += h_l^T gd_l (tc::dw_product, into the block's
+// f32 partial), g = gd_l W_l^T (layer_product<true>: W's columns through
+// the ring, no transposed copy), leaky' by the mask bits, db_{l-1} and
+// gd_{l-1} = bf16(g) (dx_epilogue); after layer 0 the same epilogue with
+// every slope 1 leaves dx = bf16(g) in the buffer. A 256-wide last layer
+// takes g_out as gd_{L-1}; a narrow one runs on the CUDA cores: its dW and
+// db in f32 from the buffer's h_{L-1} and g_out, and g = g_out W^T per
+// accumulator of the dX epilogue's layout. reduce_partials sums the
+// partials in block order and rounds once, so the result depends only on
+// the inputs and the grid. Rows past the last load x = 0 and g = 0; their g
+// stays 0 through the chain, so they add exactly 0. The partials' f32
+// read-modify-write is paid at every tile: 512 KB a 256-wide layer, 2.1 MB
+// a tile for channel_net, whose 132 partials of 1.06 MB do not fit in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16_mlp.cuh"
+
 namespace {
+namespace tc {
 
-constexpr int HID = 256;   // input and hidden width; one thread per column
-constexpr int ROWS = 64;   // rows per block (tile)
 constexpr int MAX_OUT = 3;  // widest narrow last layer
-constexpr float LEAKY_BF16 = 0.010009765625f;  // bf16(0.01)
+constexpr int MAX_LAYERS = 8;
+constexpr long SLOT = (long)TILE * HID;  // a kept layer input in the scratch
+constexpr long LAYER = (long)HID * HID + HID;  // a 256-wide layer's W and b
 
-typedef __nv_bfloat16 bf16;
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float preact(float acc, float b) { return rnd(rnd(acc) + b); }
-__device__ __forceinline__ float leaky(float z) { return fmaxf(z, rnd(z * LEAKY_BF16)); }
+// Rows 0 .. n - 1 of src [..][HID] into buf [n][LDA] by cp.async (one copy
+// group), zero from row `valid` on.
+__device__ __forceinline__ void load_tile(bf16* buf, const bf16* __restrict__ src, int n,
+                                          int valid) {
+  for (int idx = threadIdx.x; idx < n * HID / 8; idx += NT) {
+    const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+    cp16(buf + r * LDA + c, src + (r < valid ? (long)r * HID + c : 0), r < valid);
+  }
+  cp_commit();
+}
 
-// acc[r] = sum_c in[r][c] * W[c][t] over c < HID for the tile's 64 rows
-// (in: [ROWS][HID] f32 in shared memory, W: row stride HID, bf16).
-__device__ __forceinline__ void matmul_col(const float* in, const bf16* __restrict__ W, int t,
-                                           float (&acc)[ROWS]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-  for (int c = 0; c < HID; c += 4) {
-    const float w0 = ld(W + (long)c * HID + t);
-    const float w1 = ld(W + (long)(c + 1) * HID + t);
-    const float w2 = ld(W + (long)(c + 2) * HID + t);
-    const float w3 = ld(W + (long)(c + 3) * HID + t);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * HID + c);
-      acc[r] = fmaf(a.x, w0, acc[r]);
-      acc[r] = fmaf(a.y, w1, acc[r]);
-      acc[r] = fmaf(a.z, w2, acc[r]);
-      acc[r] = fmaf(a.w, w3, acc[r]);
-    }
+// Rows 0 .. valid - 1 of buf [..][LDA] to dst [..][ld], 16 bytes a thread.
+__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, long ld, const bf16* buf,
+                                           int valid) {
+  for (int idx = threadIdx.x; idx < valid * HID / 8; idx += NT) {
+    const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        *reinterpret_cast<const uint4*>(buf + r * LDA + c);
   }
 }
 
-// dW[c][t] += sum_r A[r][c] * g[r] for c < HID (A: [ROWS][HID] in shared
-// memory, dW: this block's f32 partial, row stride HID).
-__device__ __forceinline__ void accum_dw(const float* A, const float (&g)[ROWS],
-                                         float* __restrict__ dW, int t) {
-  for (int c = 0; c < HID; c += 4) {
-    float* d = dW + (long)c * HID + t;
-    const float o0 = d[0], o1 = d[HID], o2 = d[2 * HID], o3 = d[3 * HID];
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * HID + c);
-      s0 = fmaf(a.x, g[r], s0);
-      s1 = fmaf(a.y, g[r], s1);
-      s2 = fmaf(a.z, g[r], s2);
-      s3 = fmaf(a.w, g[r], s3);
-    }
-    d[0] = o0 + s0;
-    d[HID] = o1 + s1;
-    d[2 * HID] = o2 + s2;
-    d[3 * HID] = o3 + s3;
-  }
-}
-
-// Loads the tile's rows r0 .. r0 + ROWS - 1 of x [rows][HID] into X as f32,
-// zero past the last row.
-__device__ __forceinline__ void load_rows(const bf16* __restrict__ x, float* X, long r0,
-                                          int rows, int t) {
-  for (int idx = t; idx < ROWS * HID; idx += HID) {
-    const int r = idx / HID;
-    X[idx] = r0 + r < rows ? ld(x + r0 * HID + idx) : 0.f;
-  }
-}
-
-// A hidden layer over the tile: act[r][t] = leaky(z) (in place, after every
-// thread has read its input rows).
-__device__ __forceinline__ void hidden_layer(float* act, const bf16* __restrict__ W,
-                                             const bf16* __restrict__ bias, bool linear,
-                                             int t, float (&acc)[ROWS]) {
-  matmul_col(act, W, t, acc);
-  __syncthreads();
-  const float bt = ld(bias + t);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float z = preact(acc[r], bt);
-    act[r * HID + t] = linear ? z : leaky(z);
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(HID)
+// Shared memory: the tile buffer [SUB][LDA] and the ring [FWD_STAGES][STAGE]
+// bf16 (~174 KB): one block an SM.
+__global__ void __launch_bounds__(NT, 1)
 mlp_fwd(const bf16* __restrict__ x, const bf16* __restrict__ params, bf16* __restrict__ out,
         int rows, int n_layers, int d_out) {
-  extern __shared__ __align__(16) float act[];  // [ROWS][HID]
-  const int t = threadIdx.x;
-  const long r0 = (long)blockIdx.x * ROWS;
-  load_rows(x, act, r0, rows, t);
-  __syncthreads();
+  extern __shared__ __align__(16) float sbuf[];
+  bf16* act = reinterpret_cast<bf16*>(sbuf);
+  bf16* ring = act + SUB * LDA;
+  const long r0 = (long)blockIdx.x * SUB;
+  const int valid = rows - r0 < SUB ? (int)(rows - r0) : SUB;
+  load_tile(act, x + r0 * HID, SUB, valid);  // the first layer product waits for it
 
-  float acc[ROWS];
-  const bf16* p = params;
-  for (int l = 0; l < n_layers; ++l) {
-    const bool last = l == n_layers - 1;
-    const int n_out = last ? d_out : HID;
-    const bf16* W = p;
-    const bf16* bias = W + (long)HID * n_out;
-    p = bias + n_out;
-    if (n_out == HID) {
-      hidden_layer(act, W, bias, last, t, acc);
-      continue;
-    }
-    // narrow last layer: a warp per row, lanes over the inputs
-    const int warp = t / 32, lane = t % 32;
-    for (int r = warp; r < ROWS; r += HID / 32) {
-      float s[MAX_OUT] = {0.f, 0.f, 0.f};
-      for (int j = 0; j < HID / 32; ++j) {
-        const int c = lane + 32 * j;
-        const float a = act[r * HID + c];
-#pragma unroll
-        for (int o = 0; o < MAX_OUT; ++o)
-          if (o < n_out) s[o] = fmaf(a, ld(W + c * n_out + o), s[o]);
-      }
-#pragma unroll
-      for (int o = 0; o < MAX_OUT; ++o)
-        for (int m = 16; m > 0; m >>= 1) s[o] += __shfl_xor_sync(0xffffffffu, s[o], m);
-      if (lane == 0 && r0 + r < rows) {
-        for (int o = 0; o < n_out; ++o)
-          out[(r0 + r) * n_out + o] = __float2bfloat16_rn(preact(s[o], ld(bias + o)));
-      }
-    }
+  // ---- hidden layers 0 .. L-2 in place, as the backward recomputes them ----
+  const bf16* p = params;  // W_l, then b_l
+  for (int l = 0; l < n_layers - 1; ++l, p += LAYER) {
+    unsigned mk[2];
+    layer_bf16<FWD_STAGES>(act, p, p + HID * HID, HID, HID / 16, ring, mk);
+  }
+
+  if (d_out == HID) {  // ---- a 256-wide last layer: z = bf16(bf16(acc) + b) ----
+    float acc[2][8][4];
+    layer_product<false, FWD_STAGES>(acc, act, p, HID, HID / 16, ring);
+    last_bf16(acc, p + HID * HID, act);
+    __syncthreads();
+    store_tile(out + r0 * HID, HID, act, valid);
     return;
   }
-  for (int r = 0; r < ROWS; ++r)
-    if (r0 + r < rows) out[(r0 + r) * HID + t] = __float2bfloat16_rn(act[r * HID + t]);
+
+  // ---- a narrow last layer: a warp per row, lane l columns 8 l .. 8 l + 7 ---
+  cp_wait<0>();  // x, where no layer product ran
+  __syncthreads();  // act holds the last layer's input
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* bias = p + HID * d_out;
+  float w[8][MAX_OUT];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int o = 0; o < MAX_OUT; ++o)
+      w[c][o] = o < d_out ? bf(p[(8 * lane + c) * d_out + o]) : 0.f;
+  for (int r = warp; r < valid; r += NT / 32) {
+    const uint4 v = *reinterpret_cast<const uint4*>(act + r * LDA + 8 * lane);
+    const unsigned h[4] = {v.x, v.y, v.z, v.w};
+    float s[MAX_OUT] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int o = 0; o < MAX_OUT; ++o) {
+        s[o] = fmaf(lo(h[c]), w[2 * c][o], s[o]);
+        s[o] = fmaf(hi(h[c]), w[2 * c + 1][o], s[o]);
+      }
+#pragma unroll
+    for (int o = 0; o < MAX_OUT; ++o)
+      for (int m = 16; m > 0; m >>= 1) s[o] += __shfl_xor_sync(0xffffffffu, s[o], m);
+    if (lane == 0)
+      for (int o = 0; o < d_out; ++o)
+        out[(r0 + r) * d_out + o] =
+            __float2bfloat16_rn(bf(__float2bfloat16_rn(s[o])) + bf(bias[o]));
+  }
 }
 
-__global__ void __launch_bounds__(HID, 1)
+// Shared memory: the tile buffer [TILE][LDA] and the ring [RING] bf16, the
+// column sums red [4][HID] and a narrow last layer's cotangent G [TILE][4]
+// f32 (~212 KB): one block an SM.
+__global__ void __launch_bounds__(NT, 1)
 mlp_bwd(const bf16* __restrict__ x, const bf16* __restrict__ params,
-        const bf16* __restrict__ params_t, const bf16* __restrict__ g_out,
-        bf16* __restrict__ dx, float* __restrict__ partial, float* __restrict__ scratch,
-        int rows, int n_layers, int d_out, long n_params) {
-  extern __shared__ __align__(16) float smem[];
-  float* X = smem;                 // [ROWS][HID] the current layer's input
-  float* Y = X + ROWS * HID;       // [ROWS][HID] gd, staged for dX
-  float* G = Y + ROWS * HID;       // [ROWS][MAX_OUT] a narrow last layer's cotangent
+        const bf16* __restrict__ g_out, bf16* __restrict__ dx, float* __restrict__ partial,
+        bf16* __restrict__ scratch, int rows, int n_layers, int d_out, long stride) {
+  extern __shared__ __align__(16) float sbuf[];
+  bf16* tile = reinterpret_cast<bf16*>(sbuf);
+  bf16* ring = tile + TILE * LDA;
+  float* red = reinterpret_cast<float*>(ring + RING);
+  float* G = red + 4 * HID;
 
-  const int t = threadIdx.x;
-  const long n_tiles = (rows + ROWS - 1) / ROWS;
-  float* my_partial = partial + blockIdx.x * n_params;
-  float* my_scratch = scratch + (long)blockIdx.x * (n_layers - 1) * ROWS * HID;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, u = lane & 3;
+  const int n_hid = n_layers - 1;  // hidden layers
+  const bool wide = d_out == HID;
+  const int n_act = wide ? n_hid : max(n_hid - 1, 0);  // kept layer inputs act_0 ..
+  const long n_tiles = (rows + TILE - 1) / TILE;
+  // the block's scratch: act_0 .. act_{n_act-1} [TILE][HID], then the mask
+  // words [n_hid][2 sub-tiles][2][NT]
+  bf16* acts = scratch + (long)blockIdx.x * (n_act * SLOT + (long)n_hid * 8 * NT);
+  unsigned* masks = reinterpret_cast<unsigned*>(acts + n_act * SLOT);
+  auto mask_at = [&](int l, int s, int w) { return masks + ((l * 2 + s) * 2 + w) * NT + tid; };
+  // W_l, b_l in params; dW_l, db_l at the same offsets in the block's partial
+  float* part = partial + blockIdx.x * stride;
+  auto W_of = [&](int l) { return params + l * LAYER; };
+  auto db_part = [&](int l) { return part + l * LAYER + HID * HID; };
+  const bf16* W_last = W_of(n_hid);
+  // the column sums of a sub-tile's g (dx_epilogue's red) into db_l
+  auto add_db = [&](int l) {
+    if (tid < HID) db_part(l)[tid] += ((red[tid] + red[HID + tid]) + red[2 * HID + tid]) +
+                                      red[3 * HID + tid];
+  };
 
-  // offsets of W_l, b_l in params (and of dW_l, db_l in the partials) and of
-  // W_l^T in params_t
-  long w_off[8], b_off[8], wt_off[8];
-  {
-    long o = 0;
-    for (int l = 0; l < n_layers; ++l) {
-      const int n_out = l == n_layers - 1 ? d_out : HID;
-      w_off[l] = o;
-      wt_off[l] = o - (long)l * HID;  // params_t holds no biases; hidden biases are HID wide
-      b_off[l] = o + (long)HID * n_out;
-      o = b_off[l] + n_out;
-    }
-  }
-
-  float acc[ROWS];
-  const int L = n_layers;
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long r0 = tile * ROWS;
-    load_rows(x, X, r0, rows, t);
+  for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long r0 = t * TILE;
+    const int valid = rows - r0 < TILE ? (int)(rows - r0) : TILE;
+    __syncthreads();  // the last tile is done with the tile buffer, red and G
+    load_tile(tile, x + r0 * HID, TILE, valid);
+    if (!wide)
+      for (int idx = tid; idx < TILE * 4; idx += NT) {
+        const int r = idx / 4, o = idx % 4;
+        G[idx] = o < d_out && r < valid ? bf(g_out[(r0 + r) * d_out + o]) : 0.f;
+      }
+    cp_wait<0>();
     __syncthreads();
-    // ---- recompute the hidden layers, keeping each one's input ----------
-    for (int l = 0; l < L - 1; ++l) {
-      float4* keep = reinterpret_cast<float4*>(my_scratch + (long)l * ROWS * HID);
-      const float4* src = reinterpret_cast<const float4*>(X);
-      for (int idx = t; idx < ROWS * HID / 4; idx += HID) keep[idx] = src[idx];
-      hidden_layer(X, params + w_off[l], params + b_off[l], false, t, acc);
-    }
-    // X holds h_{L-1}, the last layer's input
 
-    // ---- the last (linear) layer ------------------------------------------
-    if (d_out == HID) {
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        acc[r] = r0 + r < rows ? ld(g_out + (r0 + r) * HID + t) : 0.f;
-        s += acc[r];
+    // ---- recompute the hidden layers of each sub-tile, in place ------------
+    for (int s = 0; s < 2; ++s) {
+      bf16* act = tile + s * SUB * LDA;
+      for (int l = 0; l < n_hid; ++l) {
+        unsigned mk[2];
+        layer_bf16(act, W_of(l), W_of(l) + HID * HID, HID, HID / 16, ring, mk);
+        *mask_at(l, s, 0) = mk[0];
+        *mask_at(l, s, 1) = mk[1];
+        if (l < n_act) {  // act_l to the scratch: the input of dW_{l+1}
+          __syncthreads();
+          store_tile(acts + l * SLOT + s * SUB * HID, HID, act, SUB);
+        }
       }
-      my_partial[b_off[L - 1] + t] += s;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) Y[r * HID + t] = acc[r];  // bf16 already: gd = g
+    }
+    __syncthreads();  // the tile buffer holds h_{L-1}, the last layer's input
+
+    int top;  // the layer whose gd the tile buffer holds
+    if (wide) {
+      // ---- a 256-wide last layer: gd_{L-1} = g_out, db its column sums --------
+      load_tile(tile, g_out + r0 * HID, TILE, valid);
+      cp_wait<0>();
       __syncthreads();
-      accum_dw(X, acc, my_partial + w_off[L - 1], t);
-      matmul_col(Y, params_t + wt_off[L - 1], t, acc);
+      const int c = tid % HID, half = tid / HID;
+      float s = 0.f;
+      for (int r = half * SUB; r < (half + 1) * SUB; ++r) s += bf(tile[r * LDA + c]);
+      red[half * HID + c] = s;
+      __syncthreads();
+      if (tid < HID) db_part(n_hid)[tid] += red[tid] + red[HID + tid];
+      top = n_hid;
     } else {
-      for (int idx = t; idx < ROWS * MAX_OUT; idx += HID) {
-        const int r = idx / MAX_OUT, o = idx % MAX_OUT;
-        G[idx] = o < d_out && r0 + r < rows ? ld(g_out + (r0 + r) * d_out + o) : 0.f;
-      }
-      __syncthreads();
-      const bf16* W = params + w_off[L - 1];  // [HID][d_out]
-      for (int o = 0; o < d_out; ++o) {
-        float s = 0.f;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) s = fmaf(X[r * HID + t], G[r * MAX_OUT + o], s);
-        my_partial[w_off[L - 1] + (long)t * d_out + o] += s;
-      }
-      if (t < d_out) {
-        float s = 0.f;
-        for (int r = 0; r < ROWS; ++r) s += G[r * MAX_OUT + t];
-        my_partial[b_off[L - 1] + t] += s;
-      }
-      float w[MAX_OUT];
-#pragma unroll
-      for (int o = 0; o < MAX_OUT; ++o) w[o] = o < d_out ? ld(W + (long)t * d_out + o) : 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float s = 0.f;
-#pragma unroll
-        for (int o = 0; o < MAX_OUT; ++o)
-          if (o < d_out) s = fmaf(G[r * MAX_OUT + o], w[o], s);
-        acc[r] = s;
-      }
-    }
-    // acc[r] = the cotangent of h_{L-1}[r][t], f32
-
-    // ---- hidden layers L-2 .. 0: X holds h_{l+1} = leaky(z_l) --------------
-    for (int l = L - 2; l >= 0; --l) {
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        acc[r] *= X[r * HID + t] > 0.f ? 1.f : 0.01f;  // h > 0 exactly when z > 0
-        s += acc[r];
-        acc[r] = rnd(acc[r]);  // gd = bf16(g)
-      }
-      my_partial[b_off[l] + t] += s;
-      __syncthreads();  // every thread has read its column of X
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) Y[r * HID + t] = acc[r];
+      // ---- a narrow last layer on the CUDA cores ----------------------------
+      // dW[c][o] += sum_r h[r][c] G[r][o]: thread (c, half) over its half's
+      // rows, the halves added in order; db[o] += sum_r G[r][o] by warp 0
+      float* dw_last = part + n_hid * LAYER;
       {
-        const float4* src = reinterpret_cast<const float4*>(my_scratch + (long)l * ROWS * HID);
-        float4* dst = reinterpret_cast<float4*>(X);
-        for (int idx = t; idx < ROWS * HID / 4; idx += HID) dst[idx] = src[idx];
+        const int c = tid % HID, half = tid / HID;
+        float s[MAX_OUT] = {0.f, 0.f, 0.f};
+        for (int r = half * SUB; r < (half + 1) * SUB; ++r) {
+          const float a = bf(tile[r * LDA + c]);
+          const float4 gv = *reinterpret_cast<const float4*>(G + 4 * r);
+          s[0] = fmaf(a, gv.x, s[0]);
+          s[1] = fmaf(a, gv.y, s[1]);
+          s[2] = fmaf(a, gv.z, s[2]);
+        }
+        float* sums = reinterpret_cast<float*>(ring);  // [2][MAX_OUT][HID]; the ring is idle
+#pragma unroll
+        for (int o = 0; o < MAX_OUT; ++o) sums[(half * MAX_OUT + o) * HID + c] = s[o];
+        if (warp == 0)
+          for (int o = 0; o < d_out; ++o) {
+            float b = 0.f;
+            for (int r = lane; r < TILE; r += 32) b += G[4 * r + o];
+            for (int m = 16; m > 0; m >>= 1) b += __shfl_xor_sync(0xffffffffu, b, m);
+            if (lane == 0) dw_last[HID * d_out + o] += b;
+          }
+        __syncthreads();
+        if (tid < HID)
+          for (int o = 0; o < d_out; ++o)
+            dw_last[tid * d_out + o] += sums[o * HID + tid] + sums[(MAX_OUT + o) * HID + tid];
       }
-      __syncthreads();
-      accum_dw(X, acc, my_partial + w_off[l], t);
-      matmul_col(Y, params_t + wt_off[l], t, acc);
+      // g = g_out W^T in the dX epilogue's layout, then leaky' (slope 1 when
+      // there is no hidden layer: then the buffer holds dx)
+      for (int s = 0; s < 2; ++s) {
+        __syncthreads();  // red is free
+        const int rw = s * SUB + (warp >> 2) * 32, n0 = (warp & 3) * 64;
+        float acc[2][8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int col = n0 + 8 * j + 2 * u + cc;
+            float wv[MAX_OUT];
+#pragma unroll
+            for (int o = 0; o < MAX_OUT; ++o) wv[o] = o < d_out ? bf(W_last[col * d_out + o]) : 0.f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float4 gv =
+                    *reinterpret_cast<const float4*>(G + 4 * (rw + 16 * i + g + 8 * h));
+                acc[i][j][2 * h + cc] = fmaf(gv.z, wv[2], fmaf(gv.y, wv[1], gv.x * wv[0]));
+              }
+          }
+        const unsigned one[2] = {~0u, ~0u};
+        if (n_hid) {
+          const unsigned mk[2] = {*mask_at(n_hid - 1, s, 0), *mask_at(n_hid - 1, s, 1)};
+          dx_epilogue(acc, mk, tile + s * SUB * LDA, red);
+          add_db(n_hid - 1);
+        } else {
+          dx_epilogue(acc, one, tile + s * SUB * LDA, red);
+        }
+      }
+      top = n_hid - 1;
     }
 
-    // ---- dx = bf16(g) -------------------------------------------------------
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r0 + r < rows) dx[(r0 + r) * HID + t] = __float2bfloat16_rn(acc[r]);
-    __syncthreads();  // X, Y and G are rebuilt by the next tile
+    // ---- layers top .. 0: the tile buffer holds gd_l ------------------------
+    for (int l = top; l >= 0; --l) {
+      // dW_l += h_l^T gd_l over the tile's rows (h_0 = x, its rows from valid on zero)
+      if (l)
+        dw_product(part + l * LAYER, acts + (l - 1) * SLOT, HID, HID, TILE, tile, ring);
+      else
+        dw_product(part, x + r0 * HID, HID, HID, valid, tile, ring);
+      for (int s = 0; s < 2; ++s) {  // g = (gd_l W_l^T) leaky'(z_{l-1}); dx = bf16(g) at l 0
+        float acc[2][8][4];
+        layer_product<true>(acc, tile + s * SUB * LDA, W_of(l), HID, HID / 16, ring);
+        const unsigned mk[2] = {l ? *mask_at(l - 1, s, 0) : ~0u, l ? *mask_at(l - 1, s, 1) : ~0u};
+        dx_epilogue(acc, mk, tile + s * SUB * LDA, red);
+        if (l) add_db(l - 1);
+      }
+    }
+    __syncthreads();  // the tile buffer holds dx
+    store_tile(dx + r0 * HID, HID, tile, valid);
   }
 }
 
-// out[j] = bf16(sum over blocks b, in order, of partial[b][j]).
-__global__ void reduce_partials(const float* __restrict__ partial, int n_blocks, long n,
-                                bf16* __restrict__ out) {
+// out[j] = bf16(sum over blocks b, in order, of partial[b][j']) for the n
+// floats of params, j' their place in a partial: the dW of each of the
+// first n_wide layers in dw_product's order (Acc, chunks of 64 rows), every
+// other float in place.
+__global__ void reduce_partials(const float* __restrict__ partial, int n_blocks, long stride,
+                                long n, int n_wide, bf16* __restrict__ out) {
   const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  long dst = j;
+  const long l = j / LAYER, y = j - l * LAYER;
+  if (l < n_wide && y < (long)HID * HID) {
+    int row, col;
+    Acc()((int)(y % CHUNK), row, col);
+    dst = l * LAYER + (long)(row + CHUNK_ROWS * (int)(y / CHUNK)) * HID + col;
+  }
   float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * n + j];
-  out[j] = __float2bfloat16_rn(s);
+  for (int b = 0; b < n_blocks; ++b) s += partial[(long)b * stride + j];
+  out[dst] = __float2bfloat16_rn(s);
 }
 
+bool shape_ok(int n_layers, int d_out) {
+  return n_layers >= 1 && n_layers <= MAX_LAYERS && (d_out == 1 || d_out == 3 || d_out == HID);
+}
+
+}  // namespace tc
 }  // namespace
 
 // x [rows, 256] and out [rows, d_out] bf16 contiguous; params packs the
 // layers in order as W [256, n_out] (row-major) then b [n_out], bf16, n_out =
-// 256 for every layer but the last, d_out in {1, 3, 256} for the last.
-// Returns cudaGetLastError() after launch.
+// 256 for every layer but the last, d_out in {1, 3, 256} for the last; 1 <=
+// n_layers <= 8. Returns cudaGetLastError() after launch.
 extern "C" int fused_mlp_fwd(const void* x, const void* params, void* out, int rows,
                              int n_layers, int d_out, void* stream) {
-  const size_t smem = sizeof(float) * ROWS * HID;
-  cudaError_t err =
-      cudaFuncSetAttribute(mlp_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (rows + ROWS - 1) / ROWS;
-  mlp_fwd<<<grid, HID, smem, static_cast<cudaStream_t>(stream)>>>(
+  using namespace tc;
+  if (!shape_ok(n_layers, d_out)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(bf16)) * (SUB * LDA + FWD_STAGES * STAGE);
+  const int e = allow_smem(mlp_fwd, smem);
+  if (e) return e;
+  mlp_fwd<<<(rows + SUB - 1) / SUB, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(params), static_cast<bf16*>(out),
       rows, n_layers, d_out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 elements of a block's scratch of fused_mlp_bwd: the kept layer
+// inputs, [TILE][256] each, and the mask words.
+extern "C" long fused_mlp_bwd_scratch_len(int n_layers, int d_out) {
+  using namespace tc;
+  const int n_hid = n_layers - 1, n_act = d_out == HID ? n_hid : (n_hid > 1 ? n_hid - 1 : 0);
+  return n_act * SLOT + (long)n_hid * 8 * NT;
+}
+
 // Backward of fused_mlp_fwd for the same x and params, with g_out [rows,
-// d_out] bf16 the output cotangent. params_t packs W_l^T [n_out, 256] of every
-// layer in order (no biases). Writes dx [rows, 256] bf16 and dparams (dW/db
-// packed as params, bf16) through partial [n_blocks, n_params] f32 (zeroed by
-// the caller) and scratch [n_blocks, max(n_layers - 1, 1), 64, 256] f32.
-// 1 <= n_layers <= 8. Returns the first CUDA error, or cudaSuccess.
-extern "C" int fused_mlp_bwd(const void* x, const void* params, const void* params_t,
-                             const void* g_out, void* dx, void* dparams, void* partial,
-                             void* scratch, int rows, int n_layers, int d_out, int n_blocks,
-                             long n_params, void* stream) {
-  if (n_layers < 1 || n_layers > 8) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * ROWS * HID + ROWS * MAX_OUT);
-  cudaError_t err =
-      cudaFuncSetAttribute(mlp_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// d_out] bf16 the output cotangent. Writes dx [rows, 256] bf16 and dparams
+// (dW/db packed as params, n_params of them, bf16) through partial
+// [n_blocks, stride] f32 (zeroed by the caller; stride >= n_params, a
+// multiple of 4) and scratch [n_blocks, fused_mlp_bwd_scratch_len] bf16
+// (16-byte aligned), on a grid of n_blocks (one an SM). Returns the first
+// CUDA error, or cudaSuccess.
+extern "C" int fused_mlp_bwd(const void* x, const void* params, const void* g_out, void* dx,
+                             void* dparams, void* partial, void* scratch, int rows, int n_layers,
+                             int d_out, int n_blocks, long n_params, long stride, void* stream) {
+  using namespace tc;
+  if (!shape_ok(n_layers, d_out) || stride < n_params || stride % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(bf16)) * (TILE * LDA + RING) +
+                   static_cast<int>(sizeof(float)) * (4 * HID + 4 * TILE);
+  const int e = allow_smem(mlp_bwd, smem);
+  if (e) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp_bwd<<<n_blocks, HID, smem, s>>>(
+  mlp_bwd<<<n_blocks, NT, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(params),
-      static_cast<const bf16*>(params_t), static_cast<const bf16*>(g_out),
-      static_cast<bf16*>(dx), static_cast<float*>(partial), static_cast<float*>(scratch), rows,
-      n_layers, d_out, n_params);
-  err = cudaGetLastError();
+      static_cast<const bf16*>(g_out), static_cast<bf16*>(dx), static_cast<float*>(partial),
+      static_cast<bf16*>(scratch), rows, n_layers, d_out, stride);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
   reduce_partials<<<(int)((n_params + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(partial), n_blocks, n_params, static_cast<bf16*>(dparams));
+      static_cast<const float*>(partial), n_blocks, stride, n_params,
+      d_out == HID ? n_layers : n_layers - 1, static_cast<bf16*>(dparams));
   return static_cast<int>(cudaGetLastError());
 }

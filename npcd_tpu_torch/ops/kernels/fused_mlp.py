@@ -1,5 +1,7 @@
 """K7f/K7b: the fused leaky-ReLU MLP stack of the field heads in bf16,
-forward and backward (CUDA C++, ``csrc/fused_mlp.cu``).
+forward and backward (CUDA C++ on the tensor cores, ``csrc/fused_mlp.cu``:
+bf16 mma.sync on the layer routines of ``csrc/bf16_mlp.cuh``, which the bf16
+K6f and K6b share).
 
 Replaces npcd_tpu/ops/pallas/fused_mlp.py:fused_mlp (_fwd_kernel and, with
 its bf16 low-precision backward, _bwd_kernel), which npcd_tpu's
@@ -30,9 +32,10 @@ from torch.autograd.function import once_differentiable
 from . import build
 
 _NAME = "fused_mlp"
-HIDDEN = 256  # the kernel's input and hidden width (one thread per column)
+HIDDEN = 256  # the kernels' input and hidden width
 OUT_WIDTHS = (1, 3, HIDDEN)  # the last layer's widths the kernel takes
 MAX_LAYERS = 8
+TILE = 256  # the backward's rows a tile (its dW products contract over them)
 # bf16(0.01): npcd_tpu multiplies a bf16 activation by the weakly typed 0.01,
 # which becomes a bf16 constant; torch would multiply by the f32 0.01
 LEAKY_BF16 = 0.010009765625
@@ -99,6 +102,25 @@ def leaky_kinks_bf16(h: torch.Tensor, weights: Weights, rel: float = 4e-6) -> to
     return near
 
 
+@torch.no_grad()
+def slope_flips_bf16(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """[rows] bool: the rows of x [rows, d_in] where ``fused_mlp`` and
+    ``fused_mlp_plain`` take a different leaky_relu slope at a hidden unit:
+    the sign of z_l = bf16(bf16(acc) + b), each route's output of the stack
+    cut after hidden layer l (a last layer has no activation), differs. Sums
+    in another order flip a hidden activation's rounding by an ulp and the
+    next layers carry it, so a pre-activation can change sign where
+    ``leaky_kinks_bf16``, which moves one layer's sum at a time, does not
+    see it; two correct backwards then differ by a whole row's product, so
+    a comparison of K7b with its plain version leaves those rows out too.
+    All False on the CPU, where both are the plain version."""
+    flips = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for l in range(1, len(weights)):
+        cut = list(weights[:l])
+        flips |= ((fused_mlp(x, cut) > 0) != (fused_mlp_plain(x, cut) > 0)).any(-1)
+    return flips
+
+
 def _check(what: str, x: torch.Tensor, weights: Weights) -> str:
     build.require(x.dtype == torch.bfloat16, what, f"x must be bfloat16, got {x.dtype}")
     build.require(len(weights) >= 1 and weights[0][0].shape[0] == x.shape[-1], what,
@@ -123,12 +145,9 @@ def _check_kernel(what: str, x: torch.Tensor, weights: Weights) -> None:
                       f"{HIDDEN}]) with its bias, got {tuple(w.shape)} + {tuple(b.shape)}")
 
 
-def _pack(weights: Weights) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(params: W_l [256, d_out] row-major then b_l per layer, params_t: W_l^T
-    [d_out, 256] per layer), bf16."""
-    params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
-    params_t = torch.cat([w.t().contiguous().reshape(-1) for w, _ in weights])
-    return params, params_t
+def _pack(weights: Weights) -> torch.Tensor:
+    """params: W_l [256, d_out] row-major then b_l per layer, bf16."""
+    return torch.cat([t.reshape(-1) for wb in weights for t in wb])
 
 
 def _fwd_lib():
@@ -140,9 +159,18 @@ def _fwd_lib():
 
 def _bwd_lib():
     fn = build.load(_NAME).fused_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_long, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_long] * 2 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch_len(n_layers: int, d_out: int) -> int:
+    """bf16 elements of a block's scratch in K7b: the kept layer inputs and
+    the leaky' mask words."""
+    fn = build.load(_NAME).fused_mlp_bwd_scratch_len
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_long
+    return int(fn(n_layers, d_out))
 
 
 def _forward(x: torch.Tensor, weights: Weights) -> torch.Tensor:
@@ -151,7 +179,7 @@ def _forward(x: torch.Tensor, weights: Weights) -> torch.Tensor:
         return fused_mlp_plain(x, weights)
     _check_kernel(what, x, weights)
     rows, d_out = x.shape[0], weights[-1][0].shape[1]
-    params, _ = _pack(weights)
+    params = _pack(weights)
     out = torch.empty((rows, d_out), device=x.device, dtype=torch.bfloat16)
     if rows:
         err = _fwd_lib()(x.data_ptr(), params.data_ptr(), out.data_ptr(), rows, len(weights),
@@ -175,21 +203,21 @@ def fused_mlp_bwd(x: torch.Tensor, weights: Weights, g: torch.Tensor):
     build.require(tuple(g.shape) == (rows, d_out) and g.dtype == torch.bfloat16
                   and g.is_contiguous() and g.device == x.device, what,
                   f"g must be a contiguous bf16 [{rows}, {d_out}] on x's device")
-    params, params_t = _pack(weights)
+    params = _pack(weights)
     dx = torch.empty_like(x)
     dparams = torch.zeros_like(params)
-    tiles = -(-rows // 64)
+    tiles = -(-rows // TILE)
     if tiles:
         # a fixed grid of one block per SM keeps the dW sums in a fixed order
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         n_blocks = min(sms, tiles)
-        partial = torch.zeros((n_blocks, params.numel()), device=x.device, dtype=torch.float32)
-        scratch = torch.empty((n_blocks * max(n - 1, 1) * 64 * HIDDEN,), device=x.device,
-                              dtype=torch.float32)
-        err = _bwd_lib()(x.data_ptr(), params.data_ptr(), params_t.data_ptr(), g.data_ptr(),
-                         dx.data_ptr(), dparams.data_ptr(), partial.data_ptr(),
-                         scratch.data_ptr(), rows, n, d_out, n_blocks, params.numel(),
-                         build.stream_ptr())
+        stride = -(-params.numel() // 4) * 4  # each block's partial 16-byte aligned
+        partial = torch.zeros((n_blocks, stride), device=x.device, dtype=torch.float32)
+        scratch = torch.empty((n_blocks * _scratch_len(n, d_out),), device=x.device,
+                              dtype=torch.bfloat16)
+        err = _bwd_lib()(x.data_ptr(), params.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                         dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), rows, n,
+                         d_out, n_blocks, params.numel(), stride, build.stream_ptr())
         build.check(err, what)
         fused_mlp_bwd.launches += 1
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
