@@ -9,9 +9,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   2. build: compiles the CUDA kernels of npcd_tpu_torch/csrc with nvcc,
      then counts the tensor-core instructions (HMMA, HGMMA) in each K1 and
      K8 kernel's SASS (cuobjdump): every bf16 kernel of the two and every
-     f32 one in namespace tf (3xTF32: K1b's tf::bwd_dq and tf::bwd_dkdv,
-     K8f's tf::fwd, K8b's tf::bwd_dq and tf::bwd_dkdv) must have some, the
-     f32 K1f (fqa_fwd, exact f32 on the CUDA cores) none; and in K6's
+     f32 one, all in namespace tf (3xTF32: K1f's tf::fwd, K1b's tf::bwd_dq
+     and tf::bwd_dkdv, K8f's tf::fwd, K8b's tf::bwd_dq and tf::bwd_dkdv),
+     must have some; and in K6's
      (csrc/fused_mlp_posenc.cu) only the f32 forward and backward,
      tf::mlp_posenc_wsum and tf::mlp_posenc_wsum_bwd (3xTF32), and the bf16
      forward and backward, tc::mlp_posenc_wsum and tc::mlp_posenc_wsum_bwd
@@ -20,22 +20,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      version on the card, at the shapes the main path gives it (f32), with
      the stated tolerance, and both timed with CUDA events; the LayerNorm
      forwards also by replaying a CUDA graph of 20 launches (device time
-     without the host's launch cost) against their HBM bound; the f32 K6f
-     (3xTF32 on the tensor cores) also against its plain version evaluated
-     in float64 (within 1e-5 of its scale), beside the f32 plain version's
-     own error against it. A kernel whose products run in 3xTF32 (the f32
-     K1b, K8f, K8b and K6f) has its bound at the 3xTF32 rate (495/3
-     TFLOP/s, the kernels line's bound_ms), its bound at the FP32 rate
-     printed beside it;
-  4. kernels, training: the attention forward with its log-sum-exp and its
-     backward (pad rows of dq/dk/dv exactly 0), the LayerNorm forward with
-     its mean/rstd and its backward in both forms, each backward fed its own
-     side's forward outputs, and the AdamW + EMA pass (one [4096, 1024]
-     leaf, then the whole 302M-parameter denoiser), each against its plain
-     version at the stage-2 step's shapes, timed; the attention backward
-     (3xTF32 on the tensor cores) also against a float64 evaluation of its
-     plain version (dq, dk and dv each within 1e-5 of its scale), beside
-     the f32 plain version's own error against it;
+     without the host's launch cost) against their HBM bound; the f32 K1f
+     and K6f (3xTF32 on the tensor cores) also against their plain versions
+     evaluated in float64 (within 1e-5 of each output's scale), beside the
+     f32 plain version's own error against it; the kNN (K4) with an exact
+     tie planted, indices and distances bitwise equal to the plain
+     version's, also timed as a replayed CUDA graph. A kernel whose
+     products run in 3xTF32 (the f32 K1f, K1b, K8f, K8b and K6f) has its
+     bound at the 3xTF32 rate (495/3 TFLOP/s, the kernels line's bound_ms),
+     its bound at the FP32 rate printed beside it;
+  4. kernels, training: the attention forward with its log-sum-exp (also
+     against float64, with its bounds and scaled_dot_product_attention's
+     time) and its backward (pad rows of dq/dk/dv exactly 0), the LayerNorm
+     forward with its mean/rstd and its backward in both forms, each
+     backward fed its own side's forward outputs, and the AdamW + EMA pass
+     (one [4096, 1024] leaf, then the whole 302M-parameter denoiser), each
+     against its plain version at the stage-2 step's shapes, timed; the
+     attention backward (3xTF32 on the tensor cores) also against a float64
+     evaluation of its plain version (dq, dk and dv each within 1e-5 of its
+     scale), beside the f32 plain version's own error against it;
   5. main path, generation: python -m npcd_tpu_torch.generate_samples's code
      path on configs/npcd_srncars.yaml (302M denoiser, 1000 DDPM steps) with
      seeded weights, written first as the bridged .npz its required
@@ -58,7 +61,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   8. kernels, stage 1, at the shapes the stage-1 step launches them: the
      min-distance kernel over all 400 instances x 14,336 queries (validity
      bits and distances bitwise equal to the plain version's), the kNN over
-     400 x 5,600 shading points and over the TV loss's 8 x 512 points, and
+     400 x 5,600 shading points and over the TV loss's 8 x 512 points (an
+     exact tie planted, indices and distances bitwise equal), and
      the aggregation MLP forward and backward over one 50-instance chunk
      (2.24M pairs), the backward fed K6f's own output as its cotangent
      (pairs on a leaky_relu kink left out), each against its plain version,
@@ -89,7 +93,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      of its outputs within its own tolerance of its own scale of the plain
      version's, dfeat at least 98% bitwise equal, every output's bitwise
      share printed, two launches bitwise equal), and the kNN over the 400 x
-     1,792 packed points; rows and pairs on a leaky_relu kink in bf16, and
+     1,792 packed points (as in phase 8); rows and pairs on a leaky_relu
+     kink in bf16, and
      rows where K7f and its plain version take another slope, are left out
      of the backward checks;
  12. main path, fast stage 1: phase 9 on configs/npcd_srncars_fast.yaml (bf16,
@@ -127,7 +132,7 @@ Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
 BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
-K1b, K8f, K8b, K6f and K6b also at 495 / 3 TFLOP/s, the TF32 peak over
+K1f, K1b, K8f, K8b, K6f and K6b also at 495 / 3 TFLOP/s, the TF32 peak over
 their three products, K6b's recompute at the FP32 rate, where it runs) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
@@ -283,8 +288,8 @@ STAGE1_WARMUP = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
-# operations/s (over 3, the rate of the split products of the f32 K1b, K8f,
-# K8b, K6f and K6b)
+# operations/s (over 3, the rate of the split products of the f32 K1f, K1b,
+# K8f, K8b, K6f and K6b)
 HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 989e12, 495e12
 # The operations K6 needs per (point, neighbour) pair, 95 -> 256 x 4 -> 256,
 # k 8. The last layer is linear and its output is w-summed over a point's k
@@ -382,13 +387,14 @@ def phase_build() -> None:
     names = build.build_all()
     print(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s")
     # the bf16 K1 and K8, every f32 kernel in namespace tf (3xTF32: the f32
-    # K1b, K8f, K8b, K6f and K6b) and K6's in namespace tc (the bf16 K6f and
-    # K6b) run their products on the tensor cores; the f32 K1f (fqa_fwd:
-    # exact f32, no TF32) and every K6 kernel outside tf and tc
-    # (split_weights, split_weights_t, reduce_partials_bf16 and _tf32) on
-    # the CUDA cores; so K7f and K7b (tc::mlp_fwd, tc::mlp_bwd) but not
-    # their tc::reduce_partials; K1 has 6 kernels, K8 12 (3 per flavour at D
-    # 64 and 128), K6 8, K7 3
+    # K1f, K1b, K8f, K8b, K6f and K6b; K1 and K8 have no other f32 kernel)
+    # and K6's in namespace tc (the bf16 K6f and K6b) run their products on
+    # the tensor cores; every K6 kernel outside tf and tc (split_weights,
+    # split_weights_t, reduce_partials_bf16 and _tf32) on the CUDA cores; so
+    # K7f and K7b (tc::mlp_fwd, tc::mlp_bwd) but not their
+    # tc::reduce_partials; K1 has 6 kernels (tf::fwd, tf::bwd_dq,
+    # tf::bwd_dkdv and tc's three), K8 12 (3 per flavour at D 64 and 128),
+    # K6 8, K7 3
     in_tf = lambda k: k[0].startswith("tf::")
     tensor_cores = lambda k: k[1] == "bf16" or in_tf(k)
     for name, n_kernels, rule in (("fused_qkv_attention", 6, tensor_cores),
@@ -551,7 +557,9 @@ def phase_kernels() -> dict:
 
     # K1: qkv [2*520, 3072], 16 heads x D 64, G 2, 513 valid keys; rows past
     # valid_len are discarded by the denoiser and not compared. f32 online
-    # softmax vs torch's softmax: tol 1e-4
+    # softmax vs torch's softmax: tol 1e-4; 3xTF32 on the tensor cores: out
+    # (every row) and the base-2 lse also within 1e-5 of each one's scale of
+    # float64
     qkv = 0.5 * randn(2 * 520, 3 * 1024)
     args = (qkv, 16, 2, 520, 513, 2)
     got = fused_qkv_attention(*args).reshape(2, 520, -1)[:, :513]
@@ -562,11 +570,12 @@ def phase_kernels() -> dict:
     check("fused_qkv_attention", _err(got, want), 1e-4,
           lambda: fused_qkv_attention(*args), lambda: fused_qkv_attention_plain(*args),
           flops=4 * 2 * 16 * 520 * 513 * 64, nbytes=4 * (qkv.numel() + qkv.numel() // 3),
-          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
+          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask),
+          extra=_k1f_vs_f64("fused_qkv_attention", args), tf32=True)
     del q, k, v
 
     # K4: 8 instances x (1024 rays x 5-slot block) queries, 512 points, k 8.
-    # Both sides use the direct sum((p - x)^2)
+    # Both sides use the direct ((dx*dx + dy*dy) + dz*dz)
     pts = 2 * rand(8, 512, 3) - 1
     xq = pts[:, torch.randint(0, 512, (5120,), generator=g, device=dev)] + 0.05 * randn(8, 5120, 3)
     _knn_check(check, "knn", xq, pts)
@@ -651,7 +660,16 @@ def phase_train_kernels() -> dict:
     fwd_plain = lambda: fused_qkv_attention_plain(*fargs, return_lse=True)
     (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
     err, tol = _worst([(out_k, out_p, 1e-4), (lse_k, lse_p, 1e-5)])
-    check("fused_qkv_attention (with lse)", err, tol, fwd, fwd_plain)
+    # the f32 stage-2 step's K1f row: 3xTF32, out and lse also against
+    # float64; the library call is scaled_dot_product_attention in f32
+    q, k, v = _bhsd(qkv, b, s, h, 2)
+    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
+    check("fused_qkv_attention (with lse)", err, tol, fwd, fwd_plain,
+          extra=_k1f_vs_f64("fused_qkv_attention (with lse)", fargs),
+          flops=4 * b * h * s * valid * 64, nbytes=4 * (qkv.numel() + qkv.numel() // 3),
+          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask),
+          tf32=True)
+    del q, k, v
     bwd = lambda: fused_qkv_attention_bwd(qkv, out_k, lse_k, dout, h, b, s, valid, 2)
     bwd_plain = lambda: fused_qkv_attention_bwd_plain(qkv, out_p, lse_p, dout, h, b, s, valid, 2)
     got, want = bwd(), bwd_plain()
@@ -713,6 +731,37 @@ def phase_train_kernels() -> dict:
     return results
 
 
+def _fqa_fwd_f64(qkv64, heads: int, b: int, s: int, valid: int, groups: int):
+    """(out [B*S, W], base-2 lse [B, H, S]) float64 from a float64 qkv: the
+    plain forward's arithmetic (base-2 scores, keys >= valid masked)."""
+    q, k, v = split_grouped_qkv(qkv64.reshape(b, s, -1), heads, groups)
+    s2 = torch.einsum("bthc,bshc->bhts", q * (LOG2_E / np.sqrt(q.shape[-1])), k)
+    s2[..., valid:] = -torch.inf
+    m = s2.amax(-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
+    out = torch.einsum("bhts,bshc->bthc", torch.exp2(s2 - lse), v).reshape(b * s, -1)
+    return out, lse[..., 0]
+
+
+def _k1f_vs_f64(name: str, args, step: int = 8) -> str:
+    """The f32 K1f (3xTF32) on args = (qkv, heads, batch, seq, valid,
+    groups): out (every row) and the base-2 lse against a float64 evaluation
+    of its plain version (in slices of ``step`` sequences), each within 1e-5
+    of its scale (_f64_gate), beside the f32 plain version's own errors ->
+    the errors as text; raises past the gate."""
+    qkv, heads, b, s, valid, groups = args
+    got = fused_qkv_attention_fwd(*args)
+    plain = fused_qkv_attention_plain(*args, return_lse=True)
+    parts = [_fqa_fwd_f64(qkv[i * s:(i + step) * s].double(), heads, min(step, b - i), s,
+                          valid, groups) for i in range(0, b, step)]
+    exact = [torch.cat([part[j] for part in parts]) for j in (0, 1)]
+    del parts
+    text = (f"; vs float64 out/lse (tol 1e-5 of each scale): kernel {_f64_gate(name, got, exact)}"
+            f", f32 plain " + " ".join(f"{_err64(a, e):.2e}" for a, e in zip(plain, exact)))
+    del got, plain, exact
+    return text
+
+
 def _fqa_bwd_f64(qkv, dout, heads: int, b: int, s: int, valid: int, groups: int,
                  step: int = 8):
     """dqkv [B*S, 3W] float64 from qkv and dout: the plain forward's
@@ -723,14 +772,8 @@ def _fqa_bwd_f64(qkv, dout, heads: int, b: int, s: int, valid: int, groups: int,
     for i in range(0, b, step):
         n = min(step, b - i)
         qkv64 = qkv[i * s:(i + n) * s].double()
-        q, k, v = split_grouped_qkv(qkv64.reshape(n, s, -1), heads, groups)
-        s2 = torch.einsum("bthc,bshc->bhts", q * (LOG2_E / np.sqrt(q.shape[-1])), k)
-        s2[..., valid:] = -torch.inf
-        m = s2.amax(-1, keepdim=True)
-        lse = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
-        out = torch.einsum("bhts,bshc->bthc", torch.exp2(s2 - lse), v).reshape(n * s, -1)
-        del s2
-        parts.append(fused_qkv_attention_bwd_plain(qkv64, out, lse[..., 0],
+        out, lse = _fqa_fwd_f64(qkv64, heads, n, s, valid, groups)
+        parts.append(fused_qkv_attention_bwd_plain(qkv64, out, lse,
                                                    dout[i * s:(i + n) * s].double(), heads, n,
                                                    s, valid, groups))
     return torch.cat(parts)
@@ -980,20 +1023,28 @@ def phase_cpu_step(dtype: torch.dtype = torch.float32, tag: str = "gpu-vs-cpu") 
 
 
 def _knn_check(check, name: str, xq, pts) -> None:
-    """K4 vs knn_plain (k 8): the d2 lists within 1e-5, and each kernel d2
-    the distance of the index it returns (an index that differs from the
-    plain one is then a near-tie)."""
+    """K4 vs knn_plain (k 8) with point 1 made a copy of point 0, an exact
+    tie wherever both are among a query's 8 nearest (xq is pts: the TV
+    loss's points against themselves, the copy in both): indices and
+    distances bitwise equal (the same rounded ((dx*dx + dy*dy) + dz*dz), ties
+    to the lower index). Timed, also as a replayed CUDA graph (device time
+    without the host's launch cost), and printed before it raises."""
+    same = xq is pts
+    pts = pts.clone()
+    pts[:, 1] = pts[:, 0]
+    xq = pts if same else xq
     i_k, d_k = knn(xq, pts, 8)
     i_p, d_p = knn_plain(xq, pts, 8)
     inst, n = xq.shape[:2]
-    nb = torch.gather(pts, 1, i_k.long().reshape(inst, -1, 1).expand(-1, -1, 3)).reshape(
-        inst, n, 8, 3)
-    if _err(((nb - xq[:, :, None]) ** 2).sum(-1), d_k) > 1e-6:
-        raise AssertionError(f"{name}: returned d2 is not the distance of the returned index")
-    check(name, _err(d_k, d_p), 1e-5, lambda: knn(xq, pts, 8), lambda: knn_plain(xq, pts, 8),
-          extra=f" idx_mismatch {int((i_k != i_p).sum())}",
+    mismatch = int((i_k != i_p).sum())
+    tied = int(((i_p == 0).any(-1) & (i_p == 1).any(-1)).sum())
+    check(name, _err(d_k, d_p), 0.0, lambda: knn(xq, pts, 8), lambda: knn_plain(xq, pts, 8),
+          extra=f" idx_mismatch {mismatch} of {i_p.numel()} (queries with the planted tie "
+                f"among their 8: {tied}), d2 bitwise {torch.equal(d_k, d_p)}",
           flops=DIST_FLOP * inst * n * pts.shape[1],
-          nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * 8))
+          nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * 8), graph=True)
+    if mismatch or not torch.equal(d_k, d_p):
+        raise AssertionError(f"{name}: {mismatch} indices differ from the plain version's")
 
 
 def phase_stage1_kernels() -> dict:
@@ -1030,8 +1081,9 @@ def phase_stage1_kernels() -> dict:
     xq = pts[:, torch.randint(0, 512, (112 * 50,), generator=g, device=dev)] \
         + 0.05 * torch.randn(inst, 112 * 50, 3, generator=g, device=dev)
     _knn_check(check, "knn (stage-1 aggregation)", xq, pts)
-    _knn_check(check, "knn (stage-1 TV)", pts[:8].contiguous(), pts[:8].contiguous())
-    del pts, xq
+    tv = pts[:8].contiguous()
+    _knn_check(check, "knn (stage-1 TV)", tv, tv)
+    del pts, xq, tv
     torch.cuda.empty_cache()
 
     # K6f and K6b at one 50-instance chunk of the step: 5,600 shading points

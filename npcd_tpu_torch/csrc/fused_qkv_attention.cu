@@ -22,27 +22,35 @@
 // One (sequence, head)'s K and V in f32 are 2*520*64*4 = 266 KB, above the
 // 227 KB of shared memory a block can hold, so every kernel streams tiles of
 // the other side through shared memory.
-//   * forward (exact f32 on the CUDA cores, no TF32): one block per
-//     (sequence, head, 64-query tile), two threads per query that split the
-//     64 head dims in interleaved float4 chunks (the pair reads 32
-//     contiguous bytes of shared memory per load) and combine partial dot
-//     products with one shuffle per key; K/V tiles of 32 keys, online
-//     softmax (running max and sum) in f32; the 32 keys' scores are
-//     accumulated side by side, so the FMAs form 32 independent chains.
-//   * backward (tf::bwd_dq, tf::bwd_dkdv): on the tensor cores in 3xTF32,
-//     every f32 operand split into tf32 hi + lo and each product a_lo b_hi
-//     + a_hi b_lo + a_hi b_hi on mma.sync.m16n8k8, ~2**-21 of the f32
-//     product at 495 / 3 TFLOP/s (tf32_mma.cuh holds the building blocks
-//     and the design, which the f32 flash-attention backward shares: 4
-//     warps of 16 own rows, raw in shared memory and split per 8-column
-//     slab; the other side through a two-stage cp.async ring of 16-row
-//     tiles split once by the block; a fresh f32 fragment per step;
-//     tests/test_torch_attention_tf32.py transcribes the arithmetic on the
-//     CPU against the Pallas kernel). Scores stay base 2: scale * log2(e)
-//     is folded into an operand of s before the split, p = exp2(s - lse)
-//     with the forward's base-2 lse. Shared memory 70 KB a block (three an
-//     SM); the grid is (row tile, head, sequence), 4,608 blocks at batch 32
-//     x 16 heads x 520 tokens.
+// Both run on the tensor cores in 3xTF32: every f32 operand split into tf32
+// hi + lo and each product a_lo b_hi + a_hi b_lo + a_hi b_hi on
+// mma.sync.m16n8k8, ~2**-21 of the f32 product at 495 / 3 TFLOP/s
+// (tf32_mma.cuh holds the building blocks and the design, which the f32
+// flash attention shares: warps of 16 own rows, raw in shared memory and
+// split per 8-column slab; the other side through a two-stage cp.async ring
+// of 16-row tiles split once by the block; a fresh f32 fragment per step;
+// tests/test_torch_attention_tf32.py transcribes the arithmetic on the CPU
+// against the Pallas kernel). Scores stay base 2: c2 = scale * log2(e) is
+// folded into an operand of s before the split.
+//   * forward (tf::fwd): the flash-attention forward tf::fwd of
+//     csrc/flash_attention.cu on the grouped qkv columns: own rows q (times
+//     c2), the keys [0, valid_len) and their values streamed once (the last
+//     tile's rows past valid_len zero-filled, its scores -inf; no padding of
+//     S), an online softmax in f32 with exp2 (running max m, sum l, o
+//     rescaled by exp2(m_old - m_new)), p split in registers as the A
+//     operand of p v; out = o / l, lse = m + log2(l). Bound: 4*S*valid*D
+//     flops a (sequence, head), 2.19 GFLOP at the sampler's batch 2 and
+//     34.96 at the f32 stage-2 step's batch 32 (S 520, valid 513, 16 heads):
+//     0.0326 and 0.522 ms at the 67 TFLOP/s of exact f32 on the CUDA cores
+//     (the design this replaced), 0.0133 and 0.212 ms at 495 / 3.
+//     4 warps a block, 64 own rows (288 blocks at batch 2, under one wave):
+//     0.0823 ms at batch 2 and 0.8790 at batch 32, where a 2-warp block (32
+//     rows, 544 blocks, each splitting every K/V tile for half the rows)
+//     ran 0.0934 and 1.0249 (H100 at 700 W, chip_smoke.py phases 3 and 4).
+//   * backward (tf::bwd_dq, tf::bwd_dkdv): p = exp2(s - lse) with the
+//     forward's base-2 lse. Shared memory 70 KB a block (three an SM); the
+//     grid is (row tile, head, sequence), 4,608 blocks at batch 32 x 16
+//     heads x 520 tokens.
 //     - dQ: own rows q (times c2) and dO, the keys [0, valid_len) streamed
 //       once with their values: delta = rowsum(dO * O) from the saved output
 //       (the same number as the TPU kernel's rowsum(P * dP), without a
@@ -155,136 +163,6 @@ __device__ __forceinline__ Layout<T> layout(const T* qkv, int b, int h, int seq,
   l.row_stride = 3L * l.w;
   l.base = qkv + (long)b * seq * l.row_stride;
   return l;
-}
-
-// ---------------------------------------------------------------------------
-// f32 forward: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int QT = 64;           // queries per block
-constexpr int KT = 32;           // keys per shared-memory tile
-constexpr int CH = D / 8;        // float4 chunks per thread: half h owns chunks 2c + h
-constexpr int THREADS = 128;     // two threads per query
-
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// Elements [4 c4, 4 c4 + 4) of a row.
-__device__ __forceinline__ float4 ld4(const float* row, int c4) {
-  return reinterpret_cast<const float4*>(row)[c4];
-}
-
-__device__ __forceinline__ void st4(float* row, int c4, float4 v) {
-  reinterpret_cast<float4*>(row)[c4] = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
-  y.x = fmaf(s, x.x, y.x);
-  y.y = fmaf(s, x.y, y.y);
-  y.z = fmaf(s, x.z, y.z);
-  y.w = fmaf(s, x.w, y.w);
-}
-
-// Stage keys [k0, k0 + nk) of K and V into shared memory (zeros past nk).
-__device__ __forceinline__ void load_kv_tile(const Layout<float>& l, int k0, int nk,
-                                             float (*ks)[D], float (*vs)[D]) {
-  for (int idx = threadIdx.x; idx < KT * D / 4; idx += THREADS) {
-    const int j = idx / (D / 4), c4 = idx % (D / 4);
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (j < nk) {
-      const float* r = l.base + (long)(k0 + j) * l.row_stride + l.col;
-      kv = ld4(r + l.wg, c4);
-      vv = ld4(r + 2 * l.wg, c4);
-    }
-    reinterpret_cast<float4*>(&ks[j][0])[c4] = kv;
-    reinterpret_cast<float4*>(&vs[j][0])[c4] = vv;
-  }
-}
-
-// The 32 keys' scores of this thread's query (the pair's halves combined),
-// keys past nk at -inf.
-__device__ __forceinline__ void tile_scores(const float4 (&q)[CH], const float4* k4, int half,
-                                            int nk, float (&s)[KT]) {
-#pragma unroll
-  for (int j = 0; j < KT; ++j) s[j] = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-#pragma unroll
-    for (int j = 0; j < KT; ++j) s[j] = dot4(q[c], k4[j * (D / 4) + 2 * c + half], s[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    const float sj = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 1);
-    s[j] = j < nk ? sj : -INFINITY;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-fqa_fwd(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ lse,
-        int seq, int heads, int groups, int valid_len, float scale_log2) {
-  __shared__ __align__(16) float ks[KT][D];
-  __shared__ __align__(16) float vs[KT][D];
-
-  const int half = threadIdx.x & 1;
-  const int qi = blockIdx.x * QT + (threadIdx.x >> 1);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
-
-  const bool q_ok = qi < seq;
-  const float* qrow = l.base + (long)(q_ok ? qi : 0) * l.row_stride + l.col;
-  float4 q[CH], o[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    q[c] = scale4(ld4(qrow, 2 * c + half), scale_log2);
-    o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY, lsum = 0.f;
-  const float4* k4 = reinterpret_cast<const float4*>(&ks[0][0]);
-  const float4* v4 = reinterpret_cast<const float4*>(&vs[0][0]);
-
-  for (int k0 = 0; k0 < valid_len; k0 += KT) {
-    const int nk = min(KT, valid_len - k0);
-    __syncthreads();  // the previous tile is fully consumed
-    load_kv_tile(l, k0, nk, ks, vs);
-    __syncthreads();
-
-    float s[KT];
-    tile_scores(q, k4, half, nk, s);
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) mt = fmaxf(mt, s[j]);
-    const float m_new = fmaxf(m, mt);
-    const float alpha = exp2f(m - m_new);  // 0 on the first tile
-    lsum *= alpha;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      o[c].x *= alpha; o[c].y *= alpha; o[c].z *= alpha; o[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float p = exp2f(s[j] - m_new);  // masked keys give exp2(-inf) = 0
-      lsum += p;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) axpy4(p, v4[j * (D / 4) + 2 * c + half], o[c]);
-    }
-    m = m_new;
-  }
-
-  if (q_ok) {
-    float* orow = out + ((long)b * seq + qi) * l.w + h * D;
-    const float inv = 1.f / lsum;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) st4(orow, 2 * c + half, scale4(o[c], inv));
-    if (lse != nullptr && half == 0) lse[((long)b * heads + h) * seq + qi] = m + log2f(lsum);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -755,13 +633,106 @@ bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 backward: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async; the
-// building blocks in tf32_mma.cuh)
+// f32: tensor cores, 3xTF32 (mma.sync m16n8k8 tf32, cp.async; the building
+// blocks in tf32_mma.cuh)
 // ---------------------------------------------------------------------------
 
 namespace tf {
 
 constexpr int TILE = tile_rows<D>(), TILE_N = TILE / 8;
+
+// shared memory of the forward: the block's queries and a ring of 2 x 2
+// split K/V tiles
+constexpr int fwd_smem = sizeof(Own<D>) + 4 * sizeof(Split<D>);
+
+__global__ void __launch_bounds__(NT, min_blocks<D>())
+fwd(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ lse, int seq,
+    int heads, int groups, int valid_len, float c2) {
+  extern __shared__ __align__(128) unsigned char shm[];
+  Own<D>* own = reinterpret_cast<Own<D>*>(shm);           // the block's q (times c2)
+  Split<D>* ring = reinterpret_cast<Split<D>*>(own + 1);  // K tiles in 0-1, V tiles in 2-3
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Layout<float> l = layout(qkv, b, h, seq, heads, groups);
+  const float* qsrc = l.base + l.col;
+  const int wq = 16 * warp;  // the warp's first row in own
+  const bool active = q0 + wq < seq;
+  const int nkt = (valid_len + TILE - 1) / TILE;
+
+  load_rows<D, ROWS>(own, qsrc, l.row_stride, q0, seq);
+  load_rows<D, TILE>(ring[0].hi, qsrc + l.wg, l.row_stride, 0, valid_len);
+  load_rows<D, TILE>(ring[2].hi, qsrc + 2 * l.wg, l.row_stride, 0, valid_len);
+  cp_commit();
+
+  // online softmax in base 2 over one tile of keys a step: running max m,
+  // sum l and o, rescaled by exp2(m_old - m_new) when the max moves
+  float o[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f};
+  for (int t = 0; t < nkt; ++t) {
+    if (t + 1 < nkt) {
+      const int k1 = (t + 1) * TILE, buf = (t + 1) & 1;
+      load_rows<D, TILE>(ring[buf].hi, qsrc + l.wg, l.row_stride, k1, valid_len);
+      load_rows<D, TILE>(ring[2 + buf].hi, qsrc + 2 * l.wg, l.row_stride, k1, valid_len);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (t == 0) scale_rows(*own, c2);
+    Split<D>& kt = ring[t & 1];
+    Split<D>& vt = ring[2 + (t & 1)];
+    split_tile(kt);
+    split_tile(vt);
+    __syncthreads();
+    if (active) {
+      const int kc = t * TILE;
+      float s[TILE_N][4];
+      rows_product(s, *own, wq, kt, 0);
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // keys at or past valid_len: -inf, so p = 0
+          s[j][e] = kc + 8 * j + c + (e & 1) < valid_len ? s[j][e] : -INFINITY;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = quad_max(mt[r]);  // finite: key 0 is valid
+        alpha[r] = exp2f(m[r] - mt[r]);  // 0 on the first step
+        ls[r] *= alpha[r];
+        m[r] = mt[r];
+      }
+#pragma unroll
+      for (int j = 0; j < TILE_N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // p = exp2(s - m), the A operand of o
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+          ls[e >> 1] += s[j][e];
+        }
+      split_product(o, s, vt, 0, alpha[0], alpha[1]);
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+  // out = o / l (divided, not multiplied by 1 / l); lse = m + log2(l)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ls[r] = quad_sum(ls[r]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][2 * r] /= ls[r];
+      o[n][2 * r + 1] /= ls[r];
+    }
+    const int row = q0 + wq + g + 8 * r;
+    if (lse != nullptr && c == 0 && row < seq)
+      lse[((long)b * heads + h) * seq + row] = m[r] + log2f(ls[r]);
+  }
+  store_rows<D>(out + (long)b * seq * l.w + h * D, l.w, o, q0 + wq, seq);
+}
 
 // shared memory: the block's own two row sets and a ring of 2 x 2 split
 // tiles (and, in the dK/dV pass, the tiles' lse and delta)
@@ -984,8 +955,10 @@ bwd_dkdv(const float* __restrict__ qkv, const float* __restrict__ dout,
 
 int launch_fwd(const float* qkv, float* out, float* lse, int batch, int seq, int heads,
                int groups, int valid_len, float scale_log2, cudaStream_t s) {
-  dim3 grid((seq + QT - 1) / QT, heads, batch);
-  fqa_fwd<<<grid, THREADS, 0, s>>>(qkv, out, lse, seq, heads, groups, valid_len, scale_log2);
+  dim3 grid((seq + tf::ROWS - 1) / tf::ROWS, heads, batch);
+  if (int err = allow_smem(tf::fwd, tf::fwd_smem)) return err;
+  tf::fwd<<<grid, tf::NT, tf::fwd_smem, s>>>(qkv, out, lse, seq, heads, groups, valid_len,
+                                             scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,72 +12,227 @@
 //
 // What bounds it on the H100: about 9 flops per (query, point) pair and 12
 // bytes read per query; at P = 512 that is ~4.6 kflop per 44 bytes, so it
-// is bound by the FP32 pipes and the per-pair compare/insert, not by memory.
-// Design: one thread per query and one block per (instance, 128-query
-// tile); the instance's P x 3 points are staged in shared memory (6 KB at
-// P = 512) and read as warp-wide broadcasts; the running top-k lives in
-// registers as a sorted insertion list (k = 8, the config's, fully
-// unrolled).
-// The TPU kernel packs the point index into the low mantissa bits of d2 to
-// get one-pass min reductions; here d2 keeps all its bits. The products and
-// sums use round-to-nearest intrinsics so nvcc does not contract them into
-// FMAs: d2 is then the same float as the plain PyTorch ((p - x)**2).sum().
+// is bound by issuing instructions and by shared-memory loads, not by
+// HBM: the exact distance takes 8 FP32 instructions a pair (no FMA: see
+// below), and keeping the k best costs more than that wherever it runs.
+// The plain way, one thread per query with a sorted insertion list, spends
+// ~40 instructions per insertion and a warp pays one whenever any of its 32
+// queries inserts, which is on most of the 512 steps (a query inserts ~8 (1
+// + ln(P / 8)) times, mostly early, and 32 queries rarely all skip): 2.23
+// ms at the stage-1 shape. Four lanes a query with its list spread over
+// them, one insertion round per step that has a candidate, ran 2.20; the
+// sweeps below with the four lanes reading their own points, 2.81 (a
+// warp's 128-bit shared load then serves several addresses).
+// Design: two sweeps over the points that insert nothing, every lane of a
+// warp loading the same four points at once (the points in shared memory
+// as x, y and z arrays, three 128-bit broadcast loads per four points), L
+// lanes per query taking the four-point groups in turn. L = 1, one thread
+// per query, where that fills the card: device time on the H100 at 700 W
+// (chip_smoke.py phases 8 and 11, a replayed CUDA graph) 1.228 ms at the
+// stage-1 shape (400 x 5,600 queries) against 1.666 at L = 4, 0.429 at the
+// fast step's (400 x 1,792) against 0.541; L = 4 below FEW_QUERIES queries
+// a launch, where one thread a query leaves each SM fewer than 32 warps and
+// the sweeps' latency shows: 0.039 ms at the render's (8 x 5,120) against
+// 0.045, 0.0134 at the TV loss's (8 x 512) against 0.0316 (L = 2, timed
+// from the host only: 1.39 ms at the stage-1 shape, 0.46 at the fast
+// step's):
+//   1. each lane keeps the two smallest d2 of each of the four interleaved
+//      subsets of its points (a min/max chain, no branch); those are 8
+//      distinct points, so t, the largest of the eight, bounds the k-th
+//      smallest d2 of the query (k = 8), and so does the least t of its
+//      lanes;
+//   2. each lane stores the indices of its points with d2 <= t in shared
+//      memory (a predicated store): ~14 a query at P = 512 and one lane (t
+//      sits near rank 14), in ascending index;
+// then each lane inserts its candidates, with their exact d2, into a sorted
+// list of k (strict compares in ascending index: ties keep the lower
+// index), and the L lists are merged with shuffles, k rounds of the
+// lexicographic (d2, index) minimum over the query's lanes (a stable sort's
+// order). Both sweeps take d2 with two FMAs (6 instructions, not 8): within
+// 6 ulps (~2**-21.4 relative) of the exact d2, both being sums of three
+// non-negative terms from the same dx, dy, dz that round at most three
+// times; so sweep 2 keeps every point whose approximate d2 is at most t (1
+// + 2**-18) (+ 2**-100 for subnormals), which holds every point whose exact
+// d2 ties or beats the k-th smallest. A lane with more than CAP candidates
+// (many exact ties at the bound) inserts every point of its share instead.
+// The exact d2 uses round-to-nearest intrinsics so nvcc does not contract
+// them into FMAs: it is the same float as the plain PyTorch version's
+// ((dx*dx + dy*dy) + dz*dz). Shared memory: the points, P rounded up to 4
+// (+inf past P, so their d2 is inf), 12 bytes each (6 KB at P = 512, 48 KB
+// at the limit of 4096), and 12 KB of candidate indices. The TPU kernel
+// packs the point index into the low mantissa bits of d2 to get one-pass
+// min reductions; here d2 keeps all its bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int K = 8;  // neighbours per query
+constexpr int THREADS = 128;  // a block, of min_d2_kernel and of knn_kernel
+constexpr int K = 8;          // neighbours per query
+constexpr int CAP = 48;       // candidates a lane keeps
+// below this many queries a launch, one thread a query gives each of the
+// H100's 132 SMs fewer than 32 warps: four lanes a query there
+constexpr long FEW_QUERIES = 132L * 32 * 32;
+constexpr unsigned FULL = 0xffffffffu;
 
+// d2 as the plain version rounds it: ((dx*dx + dy*dy) + dz*dz)
+__device__ __forceinline__ float dist2(float px, float py, float pz, float x0, float x1,
+                                       float x2) {
+  const float dx = __fsub_rn(px, x0);
+  const float dy = __fsub_rn(py, x1);
+  const float dz = __fsub_rn(pz, x2);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// d2 with two FMAs, within 6 ulps of dist2
+__device__ __forceinline__ float dist2_fma(float px, float py, float pz, float x0, float x1,
+                                           float x2) {
+  const float dx = __fsub_rn(px, x0);
+  const float dy = __fsub_rn(py, x1);
+  const float dz = __fsub_rn(pz, x2);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// The four points of group g's approximate d2.
+__device__ __forceinline__ float4 dist2_fma4(const float4* px, const float4* py,
+                                             const float4* pz, int g, float x0, float x1,
+                                             float x2) {
+  const float4 a = px[g], b = py[g], c = pz[g];
+  return make_float4(dist2_fma(a.x, b.x, c.x, x0, x1, x2), dist2_fma(a.y, b.y, c.y, x0, x1, x2),
+                     dist2_fma(a.z, b.z, c.z, x0, x1, x2), dist2_fma(a.w, b.w, c.w, x0, x1, x2));
+}
+
+// (d, j) into the sorted list (bd, bi) after every entry <= d.
+__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int j) {
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {  // from the end: each reads the old s - 1
+    if (s > 0 && bd[s - 1] > d) {
+      bd[s] = bd[s - 1];
+      bi[s] = bi[s - 1];
+    } else if (bd[s] > d) {
+      bd[s] = d;
+      bi[s] = j;
+    }
+  }
+}
+
+template <int L>
 __global__ void __launch_bounds__(THREADS)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
-           int* __restrict__ idx_out, float* __restrict__ d2_out, int n,
-           int p) {
-  extern __shared__ float sp[];  // [p][3]
+           int* __restrict__ idx_out, float* __restrict__ d2_out, int n, int p) {
+  constexpr int QB = THREADS / L;  // queries a block
+  extern __shared__ float4 sp4[];  // x, y, z of the points: 3 arrays of p4 / 4 float4
+  __shared__ unsigned short cj[CAP][THREADS];  // each lane's candidates (p <= 4096)
+  const int groups = (p + 3) / 4, p4 = 4 * groups;
+  float* sp = reinterpret_cast<float*>(sp4);
   const int inst = blockIdx.y;
   const float* src = pts + (long)inst * p * 3;
-  for (int i = threadIdx.x; i < p * 3; i += THREADS) sp[i] = src[i];
+  for (int i = threadIdx.x; i < p4; i += THREADS) {
+    const bool real = i < p;
+    sp[i] = real ? src[3 * i] : INFINITY;
+    sp[p4 + i] = real ? src[3 * i + 1] : INFINITY;
+    sp[2 * p4 + i] = real ? src[3 * i + 2] : INFINITY;
+  }
   __syncthreads();
+  const float4 *px = sp4, *py = sp4 + groups, *pz = sp4 + 2 * groups;
 
-  const int q = blockIdx.x * THREADS + threadIdx.x;
-  if (q >= n) return;
-  const float* xq = x + ((long)inst * n + q) * 3;
-  const float x0 = xq[0], x1 = xq[1], x2 = xq[2];
+  const int lane = threadIdx.x & 31, r = lane & (L - 1);  // r: the lane's rank in its query
+  const int q = blockIdx.x * QB + threadIdx.x / L;
+  const bool ok = q < n;  // the same for a query's L lanes
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (ok) {
+    const float* xq = x + ((long)inst * n + q) * 3;
+    x0 = xq[0];
+    x1 = xq[1];
+    x2 = xq[2];
+  }
 
+  // sweep 1: the two smallest approximate d2 of each subset u of the lane's
+  // points (4 g + u for its groups g = r, r + L, ...)
+  float m1[4] = {INFINITY, INFINITY, INFINITY, INFINITY}, m2[4] = {INFINITY, INFINITY,
+                                                                   INFINITY, INFINITY};
+  for (int g = r; g < groups; g += L) {
+    const float4 d = dist2_fma4(px, py, pz, g, x0, x1, x2);
+    const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      m2[u] = fminf(m2[u], fmaxf(m1[u], dv[u]));
+      m1[u] = fminf(m1[u], dv[u]);
+    }
+  }
+  float t = fmaxf(fmaxf(m2[0], m2[1]), fmaxf(m2[2], m2[3]));  // inf without 8 points
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1) t = fminf(t, __shfl_xor_sync(FULL, t, o));
+  const float bound = ok ? __fmaf_rn(t, 1.f + 0x1p-18f, 0x1p-100f) : -1.f;
+
+  // sweep 2: the lane's candidates, in ascending index
+  int c = 0;
+  for (int g = r; g < groups; g += L) {
+    const float4 d = dist2_fma4(px, py, pz, g, x0, x1, x2);
+    const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (dv[u] <= bound) {
+        if (c < CAP) cj[c][threadIdx.x] = static_cast<unsigned short>(4 * g + u);
+        ++c;
+      }
+  }
+
+  // the lane's k best by exact d2: its candidates, or (past CAP) its points;
+  // empty slots (inf, an index past every point's, distinct per lane)
   float bd[K];
   int bi[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     bd[s] = INFINITY;
-    bi[s] = 0;
+    bi[s] = 0x7fffffff - r;
   }
-  for (int j = 0; j < p; ++j) {
-    const float dx = __fsub_rn(sp[3 * j], x0);
-    const float dy = __fsub_rn(sp[3 * j + 1], x1);
-    const float dz = __fsub_rn(sp[3 * j + 2], x2);
-    const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                              __fmul_rn(dz, dz));
-    if (d < bd[K - 1]) {
-      // insert after every entry <= d (equal distances keep index order)
-#pragma unroll
-      for (int s = K - 1; s >= 0; --s) {
-        if (s > 0 && bd[s - 1] > d) {
-          bd[s] = bd[s - 1];
-          bi[s] = bi[s - 1];
-        } else if (bd[s] > d) {
-          bd[s] = d;
-          bi[s] = j;
-        }
-      }
+  if (c <= CAP) {
+    for (int i = 0; i < c; ++i) {
+      const int j = cj[i][threadIdx.x];
+      if (j >= p) continue;  // a pad point (p < 8: every point is a candidate)
+      const float d = dist2(sp[j], sp[p4 + j], sp[2 * p4 + j], x0, x1, x2);
+      if (d < bd[K - 1]) insert(bd, bi, d, j);
     }
+  } else {
+    for (int g = r; g < groups; g += L)
+      for (int j = 4 * g; j < min(4 * g + 4, p); ++j) {
+        const float d = dist2(sp[j], sp[p4 + j], sp[2 * p4 + j], x0, x1, x2);
+        if (d < bd[K - 1]) insert(bd, bi, d, j);
+      }
   }
+
+  // merge the query's L lists: k rounds of the (d2, index) minimum of their
+  // heads; the winner (indices are distinct) pops its head; lane s % L
+  // writes slot s, slots past p (0, inf)
   const long o = ((long)inst * n + q) * K;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    idx_out[o + s] = bi[s];
-    d2_out[o + s] = bd[s];
+    float md = bd[L > 1 ? 0 : s];
+    int mi = bi[L > 1 ? 0 : s];
+#pragma unroll
+    for (int w = 1; w < L; w <<= 1) {
+      const float od = __shfl_xor_sync(FULL, md, w);
+      const int oi = __shfl_xor_sync(FULL, mi, w);
+      if (od < md || (od == md && oi < mi)) {
+        md = od;
+        mi = oi;
+      }
+    }
+    if (ok && r == s % L) {
+      idx_out[o + s] = mi < p ? mi : 0;
+      d2_out[o + s] = md;
+    }
+    if (L > 1 && bi[0] == mi) {
+#pragma unroll
+      for (int e = 0; e < K - 1; ++e) {
+        bd[e] = bd[e + 1];
+        bi[e] = bi[e + 1];
+      }
+      bd[K - 1] = INFINITY;
+      bi[K - 1] = 0x7fffffff - r;
+    }
   }
 }
 
@@ -85,7 +240,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
 //
 // Replaces npcd_tpu/ops/pallas/knn.py:pallas_min_d2_t (_min_d2_kernel), the
 // sample-validity test of stage-1 training and of `validity: knn` renders
-// (min d2 < radius^2). Same layout and arithmetic as knn_kernel with k = 1
+// (min d2 < radius^2). The same layout and distance as knn_kernel, k = 1
 // and no index: one thread per query, the P x 3 points in shared memory, a
 // running min of the round-to-nearest sum ((dx*dx + dy*dy) + dz*dz), so
 // the result is the same float as the plain PyTorch version and a validity
@@ -116,6 +271,21 @@ min_d2_kernel(const float* __restrict__ x, const float* __restrict__ pts,
   out[(long)inst * n + q] = best;
 }
 
+template <int L>
+int launch_knn(const float* x, const float* pts, int* idx, float* d2, int inst, int n, int p,
+               cudaStream_t stream) {
+  const int smem = 3 * ((p + 3) / 4) * static_cast<int>(sizeof(float4));
+  // above 48 KB in all (p > 3072) only with the attribute raised
+  if (smem + CAP * THREADS * static_cast<int>(sizeof(unsigned short)) > 48 * 1024)
+    if (int err = static_cast<int>(cudaFuncSetAttribute(
+            knn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+  constexpr int per_block = THREADS / L;  // queries a block
+  dim3 grid((n + per_block - 1) / per_block, inst);
+  knn_kernel<L><<<grid, THREADS, smem, stream>>>(x, pts, idx, d2, n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [inst, n, 3], pts [inst, p, 3] f32 contiguous; out [inst, n] (inf
@@ -132,16 +302,13 @@ extern "C" int min_d2_fwd(const void* x, const void* pts, void* out, int inst,
 }
 
 // x [inst, n, 3], pts [inst, p, 3] f32 contiguous; idx/d2 [inst, n, 8].
-// k must be 8; p * 12 bytes must fit the 48 KB of static-size shared
-// memory (p <= 4096). Returns cudaGetLastError() after launch, or
-// cudaErrorInvalidValue for another k.
+// k must be 8; p <= 4096 (p * 12 bytes of shared memory). Returns
+// cudaGetLastError() after launch, or cudaErrorInvalidValue for another k.
 extern "C" int knn_fwd(const void* x, const void* pts, void* idx, void* d2,
                        int inst, int n, int p, int k, void* stream) {
   if (k != K) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((n + THREADS - 1) / THREADS, inst);
-  knn_kernel<<<grid, THREADS, p * 3 * sizeof(float),
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(pts),
-      static_cast<int*>(idx), static_cast<float*>(d2), n, p);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = (long)inst * n < FEW_QUERIES ? &launch_knn<4> : &launch_knn<1>;
+  return launch(static_cast<const float*>(x), static_cast<const float*>(pts),
+                static_cast<int*>(idx), static_cast<float*>(d2), inst, n, p,
+                static_cast<cudaStream_t>(stream));
 }

@@ -11,11 +11,11 @@ kernel casts (the csrc file's header lists the points). Under autograd it
 goes through a ``torch.autograd.Function`` that keeps qkv, the output (f32
 only) and the base-2 log-sum-exp, and whose backward calls
 ``fused_qkv_attention_bwd`` (kernel on CUDA, plain version on the CPU) for
-dqkv in the grouped column order of qkv. The f32 forward runs exact f32
-on the CUDA cores, the f32 backward on the tensor cores in 3xTF32 (every
-operand split into tf32 hi + lo, three products summed in f32), the bf16
-flavour on the tensor cores at the TPU kernel's rounding points. Launches
-on bf16 inputs are counted apart, in each wrapper's ``launches_bf16``.
+dqkv in the grouped column order of qkv. The f32 forward and backward
+run on the tensor cores in 3xTF32 (every operand split into tf32 hi + lo,
+three products summed in f32), the bf16 flavour on the tensor cores at the
+TPU kernel's rounding points. Launches on bf16 inputs are counted apart,
+in each wrapper's ``launches_bf16``.
 """
 from __future__ import annotations
 

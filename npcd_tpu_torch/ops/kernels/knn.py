@@ -5,10 +5,14 @@ K4 replaces npcd_tpu/ops/pallas/knn.py:pallas_knn_t (and its row-major
 shim pallas_knn), K5 pallas_min_d2_t (and its shim pallas_min_d2). ``knn``
 and ``min_d2`` launch their kernels for CUDA tensors and run ``knn_plain``
 and ``min_d2_plain`` for CPU tensors. All compute the squared distance
-directly as sum((p - x)**2); K4 orders neighbours by ascending distance and
-breaks ties towards the lower point index (lax.top_k's order). npcd_tpu's
-XLA fallback computes |x|^2 - 2x.p + |p|^2 instead, so near-ties can swap
-against it.
+directly as ((dx*dx + dy*dy) + dz*dz), rounded after each operation; K4
+orders neighbours by ascending distance and breaks ties towards the lower
+point index (lax.top_k's order), so kernel and plain version return the
+same indices and distances, bitwise. K4 bounds each query's 8th-nearest
+distance in a first sweep over the points and collects the few points
+under the bound in a second, then sorts those (``csrc/knn.cu``; the CPU
+transcription in ``tests/test_torch_knn.py``). npcd_tpu's XLA fallback
+computes |x|^2 - 2x.p + |p|^2 instead, so near-ties can swap against it.
 """
 from __future__ import annotations
 
@@ -20,19 +24,23 @@ from . import build
 
 _NAME = "knn"
 KERNEL_K = 8  # the kernel's compile-time k, the configs' aggregator k
-MAX_POINTS = 4096  # the points of one instance must fit 48 KB of shared memory
+MAX_POINTS = 4096  # an instance's points in shared memory: 64 KB in K4, 48 KB in K5
 
 
 def knn_plain(x: torch.Tensor, points: torch.Tensor, k: int):
     """x [I, N, 3], points [I, P, 3] -> (idx [I, N, k] int32,
-    d2 [I, N, k] f32); slots past P hold (0, inf). Instances go in chunks,
-    so that the [chunk, N, P] temporaries stay near 2**26 elements."""
+    d2 [I, N, k] f32); slots past P hold (0, inf). The sum is written out
+    as ((dx*dx + dy*dy) + dz*dz), the kernel's order, so both give the same
+    float. Instances go in chunks, so that the [chunk, N, P] temporaries
+    stay near 2**26 elements."""
     inst, n, _ = x.shape
     k_eff = min(k, points.shape[1])
     step = max(1, (1 << 26) // max(1, n * points.shape[1]))
     d2s, idxs = [], []
     for i0 in range(0, inst, step):
-        d2 = ((points[i0:i0 + step, None, :, :] - x[i0:i0 + step, :, None, :]) ** 2).sum(-1)
+        xs, ps = x[i0:i0 + step, :, None, :], points[i0:i0 + step, None, :, :]
+        d = [ps[..., c] - xs[..., c] for c in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         d2, idx = torch.sort(d2, dim=-1, stable=True)
         d2s.append(d2[..., :k_eff])
         idxs.append(idx[..., :k_eff].to(torch.int32))

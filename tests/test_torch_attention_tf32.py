@@ -1,7 +1,7 @@
 """Why the port's f32 attention kernels on the tensor cores split every
 operand into tf32 hi + lo (3xTF32, ``csrc/tf32_mma.cuh``): transcriptions
-of the arithmetic of the f32 K1b (``csrc/fused_qkv_attention.cu``,
-``tf::bwd_dq`` and ``tf::bwd_dkdv``) and of the f32 K8f
+of the arithmetic of the f32 K1f and K1b (``csrc/fused_qkv_attention.cu``,
+``tf::fwd``, ``tf::bwd_dq`` and ``tf::bwd_dkdv``) and of the f32 K8f
 (``csrc/flash_attention.cu``, ``tf::fwd``) on the CPU, held against
 npcd_tpu's Pallas kernels in interpret mode (exact f32). With the lo
 products each lands within the card's f32 tolerance, 1e-5 of max(1, each
@@ -19,6 +19,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from npcd_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
+from npcd_tpu.ops.pallas.fused_qkv_attention import _fwd_impl as _pallas_fwd
 from npcd_tpu.ops.pallas.fused_qkv_attention import fused_qkv_attention_2d
 from npcd_tpu_torch.ops.kernels.fused_qkv_attention import (LOG2_E, fused_qkv_attention_plain,
                                                            merge_grouped_qkv, split_grouped_qkv)
@@ -136,6 +137,62 @@ def test_k8_f32_forward_tf32_split_contract(lo):
     s64 = np.einsum("bthc,bshc->bhts", q.astype(np.float64), k.astype(np.float64)) / 8.0
     want_lse = np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1)) + s64.max(-1)
     out, lse = _k8_f32_fwd_arithmetic(q, k, v, lo)
+    rel = [_rel(out, want), _rel(lse, want_lse)]
+    if lo:
+        assert max(rel) <= TOL, rel
+    else:
+        assert min(rel) > TOL, rel
+
+
+def _k1_f32_fwd_arithmetic(qkv, heads, b, s, valid, groups, lo):
+    """The f32 K1f's arithmetic (``tf::fwd`` of csrc/fused_qkv_attention.cu)
+    on qkv [B*S, 3W] (numpy): q times c2 = log2(e) / sqrt(D) before the
+    split, the keys [0, valid) in 16-key steps (rows past valid zero,
+    their scores -inf), s = (q c2) k^T with the 3xTF32 product (lo False:
+    one tf32 product), an online softmax in base 2 (running max m and sum
+    l, o = o alpha + p v with alpha = exp2(m_old - m_new)), p v as a 3xTF32
+    product; out = o / l, lse = m + log2 l -> out [B*S, W], lse [B, H, S]
+    as numpy."""
+    qkv_t = torch.from_numpy(qkv)
+    q, k, v = (x.transpose(1, 2) for x in split_grouped_qkv(qkv_t.reshape(b, s, -1), heads,
+                                                             groups))
+    c2 = torch.tensor(LOG2_E / math.sqrt(q.shape[-1]), dtype=torch.float32)
+    q = q * c2
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    lsum = torch.zeros_like(m)
+    o = torch.zeros_like(q)
+    for k0 in range(0, valid, TILE):
+        keys = torch.arange(k0, min(k0 + TILE, s)) < valid
+        kt, vt = (torch.where(keys[:, None], x[..., k0:k0 + TILE, :], 0.0) for x in (k, v))
+        sc = torch.where(keys, _tf32_product(q, kt.transpose(-1, -2), lo), -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tf32_product(p, vt, lo)
+        m = m_new
+    out = (o / lsum).transpose(1, 2).reshape(b * s, -1)
+    return out.numpy(), (m + torch.log2(lsum))[..., 0].numpy()
+
+
+@pytest.mark.parametrize("lo", [True, False])
+def test_k1_f32_forward_tf32_split_contract(lo):
+    """At [B 2, S 72, H 4, D 64], G 2, valid 70: the f32 K1f's arithmetic so
+    transcribed agrees with npcd_tpu's Pallas forward (``_fwd_impl`` of
+    fused_qkv_attention_2d, interpret mode) within 1e-5 of max(1, each
+    output's largest magnitude), the output of every query row (pad
+    queries attend to the valid keys) and the base-2 lse (6.5e-7 / 1.3e-7
+    of it measured here); with one tf32 product (hi only) neither does
+    (6.0e-4 / 6.3e-5)."""
+    b, s, heads, groups, valid = 2, 72, 4, 2, 70
+    rng = np.random.default_rng(11)
+    qkv = rng.normal(size=(b * s, 3 * heads * 64)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = (np.array(a) for a in _pallas_fwd(jnp.asarray(qkv), heads, b, s, valid,
+                                                            groups))
+    # [B, programs, S, heads a program] -> [B, H, S]
+    want_lse = want_lse.transpose(0, 1, 3, 2).reshape(b, heads, s)
+    out, lse = _k1_f32_fwd_arithmetic(qkv, heads, b, s, valid, groups, lo)
     rel = [_rel(out, want), _rel(lse, want_lse)]
     if lo:
         assert max(rel) <= TOL, rel

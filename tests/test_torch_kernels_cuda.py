@@ -18,7 +18,7 @@ where the card is:
 
 Without a GPU every test skips. Tolerances: 1e-5 on O(1) values (f32 in
 another summation order; sums over rows scale it by their magnitude); kNN
-distances 1e-6 with indices equal except at exact ties; AdamW + EMA 1e-6 of
+indices and distances bitwise equal, exact ties included; AdamW + EMA 1e-6 of
 each buffer's scale (elementwise f32, the kernel may contract into FMAs);
 the MLP backward 1e-5 of max(1, each output's largest magnitude), with the
 pairs on a leaky_relu kink (a pre-activation within 1e-5 of 0, where an
@@ -44,9 +44,9 @@ own forward's statistics). The bf16 K1f/K1b (tensor cores) are also held at
 sequences that cut their 64-row tiles raggedly on both sides, and two of
 their launches must agree bitwise; so are the bf16 K8f/K8b (tensor cores,
 P and dS as bf16 hi + lo pairs), which are also held at S 1 and 513, and
-the f32 K1b, K8f and K8b (tensor cores, 3xTF32), of which the f32 K1b and
-K8f are also held within 1e-5 of max(1, each output's scale) of a float64
-evaluation of their plain versions; so are the f32 K6f and K6b (tensor
+the f32 K1f, K1b, K8f and K8b (tensor cores, 3xTF32), of which the f32
+K1f, K1b and K8f are also held within 1e-5 of max(1, each output's scale)
+of a float64 evaluation of their plain versions; so are the f32 K6f and K6b (tensor
 cores, 3xTF32), whose two launches must agree bitwise too. The LayerNorm forward kernel (one warp
 per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
 path, and a CUDA graph of it must replay to the eager launch's bits."""
@@ -197,17 +197,24 @@ def test_adamw_ema_kernel(dev, n_ema, use_clip):
             torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
 
+# 3 x 1,000 queries take the kernel's four lanes a query, 3 x 50,000 (past
+# its FEW_QUERIES) one thread a query
+@pytest.mark.parametrize("n", [1000, 50000])
 @pytest.mark.parametrize("p", [5, 130, 600])
-def test_knn_kernel(dev, p):
+def test_knn_kernel(dev, p, n):
     k = 8
     g = _gen(dev)
     pts = torch.rand(3, p, 3, generator=g, device=dev) * 2 - 1
+    # instance 2 on two positions: ~p / 2 exact ties a query at the bound,
+    # past a lane's 48 candidates at P 600, where the kernel's lanes insert
+    # every point of their share
+    pts[2] = pts[2, torch.randint(0, 2, (p,), generator=g, device=dev)]
     pts[:, 1] = pts[:, 0]  # an exact tie: the lower index first
-    x = torch.rand(3, 1000, 3, generator=g, device=dev) * 2 - 1
+    x = torch.rand(3, n, 3, generator=g, device=dev) * 2 - 1
     i_k, d_k = knn(x, pts, k)
     i_p, d_p = knn_plain(x, pts, k)
-    torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)
-    assert ((i_k == i_p) | (d_p == d_p.roll(1, -1)) | (d_p == d_p.roll(-1, -1))).all()
+    # the same rounded distances and the stable sort's order: bitwise
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
 
 
 def _posenc_args(dev, f, n_freqs, n_pts, inst=2, k=8, seed=0):
@@ -851,18 +858,51 @@ def test_flash_attention_refuses_other_head_dims(dev):
                                multi_head_attention(x, x, x, impl="einsum"))
 
 
-def _fqa_f64(qkv, dout, h, b, s, valid, groups):
-    """dqkv in float64: the plain forward's arithmetic (base-2 scores, keys
-    >= valid masked) and fused_qkv_attention_bwd_plain on float64 inputs."""
-    qkv64 = qkv.double()
-    q, k, v = split_grouped_qkv(qkv64.reshape(b, s, -1), h, groups)
+def _fqa_fwd_f64(qkv, h, b, s, valid, groups):
+    """(out [B*S, W], base-2 lse [B, H, S]) in float64: the plain forward's
+    arithmetic (base-2 scores, keys >= valid masked) on float64 inputs."""
+    q, k, v = split_grouped_qkv(qkv.double().reshape(b, s, -1), h, groups)
     s2 = torch.einsum("bthc,bshc->bhts", q * (LOG2_E / 8.0), k)
     s2[..., valid:] = -torch.inf
     m = s2.amax(-1, keepdim=True)
     lse = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
     out = torch.einsum("bhts,bshc->bthc", torch.exp2(s2 - lse), v).reshape(b * s, -1)
-    return fused_qkv_attention_bwd_plain(qkv64, out, lse[..., 0], dout.double(), h, b, s, valid,
+    return out, lse[..., 0]
+
+
+def _fqa_f64(qkv, dout, h, b, s, valid, groups):
+    """dqkv in float64: _fqa_fwd_f64 and fused_qkv_attention_bwd_plain on
+    float64 inputs."""
+    out, lse = _fqa_fwd_f64(qkv, h, b, s, valid, groups)
+    return fused_qkv_attention_bwd_plain(qkv.double(), out, lse, dout.double(), h, b, s, valid,
                                          groups)
+
+
+@pytest.mark.parametrize("groups,valid", [(1, None), (2, 70), (4, 33)])
+def test_fused_qkv_attention_f32_forward_against_float64(dev, groups, valid):
+    """The f32 K1f (tensor cores, 3xTF32): out, every row (pad queries
+    attend to the valid keys), and the base-2 lse each within 1e-5 of
+    max(1, its largest magnitude) of a float64 evaluation of the plain
+    version, at test_fused_qkv_attention_kernel's shapes."""
+    b, s, h = 3, 72, 4
+    qkv = torch.randn(b * s, 3 * h * 64, generator=_gen(dev, 19), device=dev)
+    n = valid or s
+    out, lse = fused_qkv_attention_fwd(qkv, h, b, s, n, groups)
+    want_out, want_lse = _fqa_fwd_f64(qkv, h, b, s, n, groups)
+    _close_rel(out.double(), want_out)
+    _close_rel(lse.double(), want_lse)
+
+
+@pytest.mark.parametrize("b,s,h,valid", [(2, 130, 4, 129), (2, 520, 16, 513),
+                                         (32, 520, 16, 513)])
+def test_fused_qkv_attention_f32_forward_is_repeatable(dev, b, s, h, valid):
+    """Two launches of the f32 K1f (tensor cores, 3xTF32) give bitwise
+    equal out and lse (fixed summation orders), at a ragged shape, the
+    sampler's and the f32 stage-2 step's."""
+    qkv = 0.5 * torch.randn(b * s, 3 * h * 64, generator=_gen(dev, 20), device=dev)
+    (out0, lse0), (out1, lse1) = (fused_qkv_attention_fwd(qkv, h, b, s, valid, 2)
+                                  for _ in range(2))
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
 
 
 @pytest.mark.parametrize("b,s,h,valid", [(2, 130, 4, 129), (32, 520, 16, 513)])

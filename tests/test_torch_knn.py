@@ -9,6 +9,7 @@ differ on at most 0.1% of the slots. The occupancy grid and its query are
 integer/boolean and must match exactly."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -18,7 +19,7 @@ from npcd_tpu.ops.pallas.knn import pallas_knn_t
 from npcd_tpu.utils.config import VoxelGridOptions
 from npcd_tpu_torch.models.pointnerf.aggregator import compact_valid_samples
 from npcd_tpu_torch.ops.knn import VoxelOccupancy, dense_knn_batched
-from npcd_tpu_torch.ops.kernels.knn import knn
+from npcd_tpu_torch.ops.kernels.knn import knn, knn_plain
 
 K, RADIUS = 8, 0.5
 
@@ -93,3 +94,99 @@ def test_compact_valid_samples_matches_jax():
         torch.from_numpy(valid), torch.from_numpy(depths), 5))
     np.testing.assert_array_equal(m_got, m_ref)
     np.testing.assert_array_equal(d_got[m_got], d_ref[m_ref])
+
+
+def _k4_sweeps(x, pts, lanes, cap=48, ties_high=False):
+    """K4's arithmetic (``knn_kernel`` of csrc/knn.cu) on x [I, N, 3] and
+    pts [I, P, 3] (numpy f32): the points padded to a multiple of 4 with
+    +inf; the exact d2 ((dx*dx + dy*dy) + dz*dz), rounded after each
+    operation, and the approximate one with two FMAs (each an f64 product
+    and sum rounded to f32); the four-point groups g to lane g mod
+    ``lanes``; sweep 1: per lane the two smallest approximate d2 of each
+    subset j mod 4 of its points, t the largest of those 8, and the least t
+    of the query's lanes; sweep 2: a lane's candidates, approximate d2 <= t
+    (1 + 2**-18) + 2**-100; each lane's list of 8: its candidates below P by
+    exact d2 in ascending index (the kernel's strict insertion: a stable
+    sort), or, past ``cap`` candidates, all its points; the query's 8: the
+    lists merged by (d2, index), slots past P (0, inf). ``ties_high``: the
+    higher index first on equal d2, in the lists and the merge (the planted
+    fault) -> (idx [I, N, 8] int32, d2 [I, N, 8] f32, lanes past the cap)."""
+    f32, f64 = np.float32, np.float64
+    inst, n, _ = x.shape
+    p = pts.shape[1]
+    p4 = -(-p // 4) * 4
+    padded = np.concatenate([pts, np.full((inst, p4 - p, 3), np.inf, f32)], 1)
+    dx, dy, dz = (padded[:, None, :, c] - x[:, :, None, c] for c in range(3))
+    exact = dx * dx + dy * dy + dz * dz  # [I, N, P4] f32, left to right
+    fma = lambda a, b, c: (a.astype(f64) * b + c).astype(f32)
+    approx = fma(dz, dz, fma(dy, dy, dx * dx))
+    j = np.arange(p4)
+    lane_of = (j // 4) % lanes
+    second = lambda v: np.sort(v, -1)[..., 1] if v.shape[-1] > 1 else np.full(v.shape[:-1],
+                                                                               np.inf, f32)
+    t = np.min([np.max([second(approx[..., (lane_of == r) & (j % 4 == u)]) for u in range(4)],
+                       0) for r in range(lanes)], 0)
+    bound = (t.astype(f64) * (1 + 2**-18) + 2**-100).astype(f32)
+    cand = approx <= bound[..., None]
+    idx = np.zeros((inst, n, 8), np.int32)
+    d2 = np.full((inst, n, 8), np.inf, f32)
+    sign = -1 if ties_high else 1
+    n_over = 0
+    for i in range(inst):
+        for q in range(n):
+            merged = []
+            for r in range(lanes):
+                mine = lane_of == r
+                over = (cand[i, q] & mine).sum() > cap
+                n_over += int(over)
+                js = np.nonzero(mine & (j < p) & (True if over else cand[i, q]))[0]
+                merged += list(js[np.lexsort((sign * js, exact[i, q, js]))][:8])
+            merged = np.array(merged, np.int64)
+            top = merged[np.lexsort((sign * merged, exact[i, q, merged]))][:8]
+            idx[i, q, :len(top)], d2[i, q, :len(top)] = top, exact[i, q, top]
+    return idx, d2, n_over
+
+
+def _tied_clouds(seed, p, n=160):
+    """Instance 0 uniform in [-1, 1]^3; instance 1 on a grid of step 1/4
+    (many exact ties in d2, and duplicated points); instance 2 two positions
+    only, each taken by about half the points (so many ties at the bound
+    that a lane of K4 may hold more than its cap of candidates); point 1 a
+    copy of point 0 in all three; queries near the points."""
+    rng = np.random.default_rng(seed)
+    two = rng.uniform(-1, 1, (2, 3))[rng.integers(0, 2, p)]
+    pts = np.stack([rng.uniform(-1, 1, (p, 3)), rng.integers(-3, 4, (p, 3)) / 4,
+                    two]).astype(np.float32)
+    if p > 1:
+        pts[:, 1] = pts[:, 0]
+    x = np.stack([pts[0, rng.integers(0, p, n)] + rng.normal(0, 0.05, (n, 3)),
+                  rng.integers(-4, 5, (n, 3)) / 4,
+                  two[rng.integers(0, 2, n)] + rng.normal(0, 0.5, (n, 3))]).astype(np.float32)
+    return x, pts
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("p", [5, 130, 600])
+def test_k4_lanes_contract(lanes, p):
+    """K4's arithmetic so transcribed equals knn_plain bitwise, indices and
+    distances (exact ties and duplicated points included; slots past P hold
+    (0, inf)), at its cap of 48 candidates a lane, where the two-position
+    instance's ~P / 2 ties at the bound overflow a lane above 96 points a
+    lane, and with every lane past a cap of 1; it agrees with npcd_tpu's
+    Pallas pallas_knn_t (interpret mode) as test_knn_matches_pallas_interpret
+    holds it; with ties broken toward the higher index it does not equal
+    knn_plain."""
+    x, pts = _tied_clouds(p, p)
+    i_p, d_p = (a.numpy() for a in knn_plain(torch.from_numpy(x), torch.from_numpy(pts), K))
+    for cap in (48, 1):
+        i_got, d_got, n_over = _k4_sweeps(x, pts, lanes, cap)
+        assert (n_over > 0) == (p > 96 * lanes if cap == 48 else True)
+        np.testing.assert_array_equal(i_got, i_p)
+        np.testing.assert_array_equal(d_got.view(np.int32), d_p.view(np.int32))
+    with pltpu.force_tpu_interpret_mode():
+        i_ref, d_ref = (np.swapaxes(np.asarray(a), 1, 2) for a in pallas_knn_t(
+            jnp.asarray(np.swapaxes(x, 1, 2)), jnp.asarray(pts), K))
+    np.testing.assert_allclose(d_got, d_ref, rtol=2**-13, atol=1e-7)
+    assert (i_got != i_ref).mean() < 1e-3
+    for cap in (48, 1):
+        assert (_k4_sweeps(x, pts, lanes, cap, ties_high=True)[0] != i_p).any()
