@@ -38,7 +38,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      against its plain version at the stage-2 step's shapes, timed; the
      attention backward (3xTF32 on the tensor cores) also against a float64
      evaluation of its plain version (dq, dk and dv each within 1e-5 of its
-     scale), beside the f32 plain version's own error against it;
+     scale), beside the f32 plain version's own error against it; the
+     LayerNorm backward (CUDA, csrc/layer_norm.cu, both forms) also against
+     a float64 evaluation of its plain version (dx, and dgamma/dbeta, sums
+     over 16,640 rows, each within 1e-5 of its scale), two launches bitwise
+     equal, with the rows permuted its dx the permuted dx bitwise, and timed
+     as a replayed CUDA graph too;
   5. main path, generation: python -m npcd_tpu_torch.generate_samples's code
      path on configs/npcd_srncars.yaml (302M denoiser, 1000 DDPM steps) with
      seeded weights, written first as the bridged .npz its required
@@ -107,9 +112,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      backward in both forms over [16,640, 1024] bf16, and the attention
      forward with its log-sum-exp and its backward over qkv [32*520, 3072]
      bf16, each against its bf16 plain version (the TPU kernels' rounding
-     points), timed (the LayerNorm forwards also as a replayed CUDA graph),
-     with F.layer_norm's and scaled_dot_product_attention's bf16 times
-     beside them;
+     points), timed (the LayerNorm forwards and backwards also as a
+     replayed CUDA graph), with F.layer_norm's and
+     scaled_dot_product_attention's bf16 times beside them; the LayerNorm
+     backward (CUDA) also twice bitwise equal, and with the rows permuted
+     its dx the permuted dx bitwise;
  15. attention: ops.attention.multi_head_attention(impl="auto") forward and
      backward over [32, 513, 16, 64] in f32 and in bf16, and over [32, 513,
      8, 128] in bf16 (the launch counts of its path), then the flash
@@ -217,11 +224,11 @@ KERNELS = {
     "fused_qkv_attention_bwd": (fused_qkv_attention_bwd, "launches", "cuda",
                                 "npcd_tpu_torch/csrc/fused_qkv_attention.cu",
                                 "npcd_tpu/ops/pallas/fused_qkv_attention.py:203"),
-    "layer_norm_bwd": (layer_norm_bwd, "launches", "triton",
-                       "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_bwd": (layer_norm_bwd, "launches", "cuda",
+                       "npcd_tpu_torch/csrc/layer_norm.cu",
                        "npcd_tpu/ops/pallas/layer_norm.py:114"),
-    "layer_norm_residual_bwd": (layer_norm_residual_bwd, "launches", "triton",
-                                "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_residual_bwd": (layer_norm_residual_bwd, "launches", "cuda",
+                                "npcd_tpu_torch/csrc/layer_norm.cu",
                                 "npcd_tpu/ops/pallas/layer_norm.py:221"),
     "adamw_ema": (adamw_ema, "launches", "triton", "npcd_tpu_torch/ops/kernels/fused_adamw.py",
                   "npcd_tpu/ops/pallas/fused_adamw.py:36"),
@@ -252,11 +259,11 @@ KERNELS = {
     "layer_norm_residual (bf16)": (layer_norm_residual, "launches_bf16", "cuda",
                                    "npcd_tpu_torch/csrc/layer_norm.cu",
                                    "npcd_tpu/ops/pallas/layer_norm.py:206"),
-    "layer_norm_bwd (bf16)": (layer_norm_bwd, "launches_bf16", "triton",
-                              "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_bwd (bf16)": (layer_norm_bwd, "launches_bf16", "cuda",
+                              "npcd_tpu_torch/csrc/layer_norm.cu",
                               "npcd_tpu/ops/pallas/layer_norm.py:114"),
-    "layer_norm_residual_bwd (bf16)": (layer_norm_residual_bwd, "launches_bf16", "triton",
-                                       "npcd_tpu_torch/ops/kernels/layer_norm.py",
+    "layer_norm_residual_bwd (bf16)": (layer_norm_residual_bwd, "launches_bf16", "cuda",
+                                       "npcd_tpu_torch/csrc/layer_norm.cu",
                                        "npcd_tpu/ops/pallas/layer_norm.py:221"),
     "flash_attention": (flash_attention, "launches", "cuda",
                         "npcd_tpu_torch/csrc/flash_attention.cu",
@@ -316,7 +323,15 @@ K6B_BF16_FLOP = K6B_FLOP - _K6_LAST + 2 * 256 * 256
 # the w-sum, so folding that layer after the sum would drop a rounding point),
 # 573,440 a pair
 K6F_BF16_FLOP = _K6_HIDDEN + 2 * 256 * 256 + 2 * 256
-DIST_FLOP = 9  # per (query, point): 3 sub, 3 mul, 2 add, 1 compare
+# The least work per (query, point) of K4 and K5: 3 subtractions, 1 multiply
+# and 2 FMAs (csrc/knn.cu's dist2_fma, the filter K4 sweeps every pair with;
+# the exact, unfused distance the plain versions round is needed only on the
+# few candidates under the filter's bound, ~14 a query in K4), the min or
+# compare on another pipe: six FP32-pipe instructions. FP32_FLOP_S counts an
+# FMA as two operations, so they issue at half of it: 132 SMs x 128 lanes x
+# 1.98 GHz = 33.45e12 instructions/s, the rate their bound takes
+DIST_FLOP = 6
+FP32_INSTR_S = FP32_FLOP_S / 2
 
 
 def _k7_flop(dims, d_in: int = 256) -> tuple:
@@ -458,17 +473,39 @@ def _err64(a, exact) -> float:
 
 
 def _f64_gate(name: str, got, exact) -> str:
-    """A 3xTF32 kernel's outputs against a float64 evaluation of its plain
-    version: each within 1e-5 of max(1, its largest magnitude), the f32
-    tolerance of the card tests and of the CPU tests that transcribe the
-    3xTF32 arithmetic (a kernel without its lo products reads ~3e-5 to 9e-4
-    at these shapes) -> the errors as text; raises past it."""
+    """A 3xTF32 kernel's outputs, or an f32 kernel's long sums, against a
+    float64 evaluation of its plain version: each within 1e-5 of max(1, its
+    largest magnitude), the f32 tolerance of the card tests and of the CPU
+    tests that transcribe the 3xTF32 arithmetic (a kernel without its lo
+    products reads ~3e-5 to 9e-4 at these shapes) -> the errors as text;
+    raises past it."""
     errs = [(_err64(a, e), 1e-5 * max(1.0, float(e.abs().max()))) for a, e in zip(got, exact)]
     text = " ".join(f"{err:.2e}" for err, _ in errs)
     if any(err > tol for err, tol in errs):
         raise AssertionError(f"{name} disagrees with float64: {text} against "
                              + " ".join(f"{tol:.1e}" for _, tol in errs))
     return text
+
+
+def _ln_bwd_order(name: str, x, gamma, mean, rstd, gy, gr) -> str:
+    """The LayerNorm backward kernel (K2c, or K2d with ``gr``) run twice on
+    the same inputs, bitwise equal in every output, then on the rows in a
+    random order (a generator of its own, so the phase's inputs stay as
+    they were): dx must be the permuted dx bitwise (a row's dx depends on
+    that row alone; dgamma/dbeta sum the rows in another order) -> text;
+    raises otherwise."""
+    run = ((lambda *t: layer_norm_bwd(t[0], gamma, *t[1:4])) if gr is None else
+           (lambda *t: layer_norm_residual_bwd(t[0], gamma, t[1], t[2], t[4], t[3])))
+    got = run(x, mean, rstd, gy, gr)
+    if not all(torch.equal(a, b) for a, b in zip(got, run(x, mean, rstd, gy, gr))):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    perm = torch.randperm(x.shape[0], device=x.device,
+                          generator=torch.Generator(device=x.device).manual_seed(17))
+    moved = run(*(None if t is None else t[perm] for t in (x, mean, rstd, gy, gr)))[0]
+    if not torch.equal(moved, got[0][perm]):
+        raise AssertionError(f"{name}: {int((moved != got[0][perm]).sum())} elements of the "
+                             f"permuted rows' dx differ from the permuted dx")
+    return "; two launches bitwise equal, permuted rows' dx bitwise the permuted dx"
 
 
 def _furthest(pairs) -> tuple:
@@ -634,14 +671,28 @@ def phase_train_kernels() -> dict:
         else:
             bwd = lambda: layer_norm_residual_bwd(r_k, gamma, mean_k, rstd_k, gr, gy)
             bwd_plain = lambda: layer_norm_bwd_plain(r_p, gamma, mean_p, rstd_p, gy, gr)
-        err, tol = _worst([(got, want, 1e-5) for got, want in zip(bwd(), bwd_plain())])
+        got = bwd()
+        err, tol = _worst([(a, want, 1e-5) for a, want in zip(got, bwd_plain())])
+        # dx, dgamma and dbeta against float64 from the kernel forward's own
+        # r, mean and rstd: dgamma/dbeta sum 16,640 rows, a sum the f32
+        # plain version takes in another order
+        src, res = (x, None) if delta is None else (r_k, gr)
+        f64 = lambda t: None if t is None else t.double()
+        exact = layer_norm_bwd_plain(*map(f64, (src, gamma, mean_k, rstd_k, gy, res)))
+        plain = layer_norm_bwd_plain(src, gamma, mean_k, rstd_k, gy, res)
+        extra = (f"; vs float64 dx/dgamma/dbeta (tol 1e-5 of each scale): kernel "
+                 f"{_f64_gate(f'{name}_bwd', got, exact)}, f32 plain "
+                 + " ".join(f"{_err64(a, e):.2e}" for a, e in zip(plain, exact)))
+        del exact, plain, got
+        extra += _ln_bwd_order(f"{name}_bwd", src, gamma, mean_k, rstd_k, gy, res)
         library_fn = None
         if delta is None:  # the library call: autograd's backward of F.layer_norm
             xg, gg, bg = (t.clone().requires_grad_(True) for t in (x, gamma, beta))
             y_lib = F.layer_norm(xg, (w,), gg, bg, 1e-5)
             library_fn = lambda: torch.autograd.grad(y_lib, (xg, gg, bg), gy, retain_graph=True)
         check(f"{name}_bwd", err, tol, bwd, bwd_plain, flops=10 * x.numel(),
-              nbytes=4 * x.numel() * (3 if delta is None else 4), library_fn=library_fn)
+              nbytes=4 * x.numel() * (3 if delta is None else 4), library_fn=library_fn,
+              extra=extra, graph=True)
         library_fn = y_lib = None
     del x, d, gy, gr, r_k, y_k, mean_k, rstd_k, r_p, y_p, mean_p, rstd_p
 
@@ -1041,7 +1092,7 @@ def _knn_check(check, name: str, xq, pts) -> None:
     check(name, _err(d_k, d_p), 0.0, lambda: knn(xq, pts, 8), lambda: knn_plain(xq, pts, 8),
           extra=f" idx_mismatch {mismatch} of {i_p.numel()} (queries with the planted tie "
                 f"among their 8: {tied}), d2 bitwise {torch.equal(d_k, d_p)}",
-          flops=DIST_FLOP * inst * n * pts.shape[1],
+          flops=DIST_FLOP * inst * n * pts.shape[1], peak=FP32_INSTR_S,
           nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * 8), graph=True)
     if mismatch or not torch.equal(d_k, d_p):
         raise AssertionError(f"{name}: {mismatch} indices differ from the plain version's")
@@ -1071,7 +1122,7 @@ def phase_stage1_kernels() -> dict:
                              f"{_err(d_k, d_p)}")
     check("min_d2", _err(d_k, d_p), 0.0, lambda: min_d2(xq, pts), lambda: min_d2_plain(xq, pts),
           extra=f" valid share {float((d_k < radius2).float().mean()):.3f}, bits equal",
-          flops=DIST_FLOP * inst * n_q * 512,
+          flops=DIST_FLOP * inst * n_q * 512, peak=FP32_INSTR_S,
           nbytes=4 * (xq.numel() + pts.numel() + d_k.numel()))
     del xq, d_k, d_p
 
@@ -1506,6 +1557,8 @@ def phase_bf16_train_kernels() -> dict:
             raise AssertionError(f"{name}_bwd (bf16): dx is {got[0].dtype} or not finite")
         err, tol = _worst([(got[0], want[0], 1e-2), (got[1], want[1], 1e-4),
                            (got[2], want[2], 1e-4)])
+        src, res = (x, None) if delta is None else (r_k, gr)
+        extra = _ln_bwd_order(f"{name}_bwd (bf16)", src, gamma, mean_k, rstd_k, gy, res)
         library_fn = None
         if delta is None:  # the library call: autograd's backward of F.layer_norm in bf16
             xg, gg, bg = (t.clone().requires_grad_(True) for t in (x, gamma.to(bf), beta.to(bf)))
@@ -1513,7 +1566,7 @@ def phase_bf16_train_kernels() -> dict:
             library_fn = lambda: torch.autograd.grad(y_lib, (xg, gg, bg), gy, retain_graph=True)
         check(f"{name}_bwd (bf16)", err, tol, bwd, bwd_plain, flops=10 * n_el,
               nbytes=2 * n_el * (3 if delta is None else 4) + 8 * rows + 12 * w,
-              library_fn=library_fn)
+              library_fn=library_fn, extra=extra, graph=True)
         library_fn = y_lib = None
     del x, d, gy, gr, r_k, y_k, mean_k, rstd_k, r_p, y_p, mean_p, rstd_p, got, want
     torch.cuda.empty_cache()

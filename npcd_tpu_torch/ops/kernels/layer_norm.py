@@ -1,5 +1,5 @@
-"""K2: LayerNorm and residual-add + LayerNorm, forward (CUDA C++,
-``csrc/layer_norm.cu``) and backward (Triton).
+"""K2: LayerNorm and residual-add + LayerNorm, forward and backward (CUDA
+C++, ``csrc/layer_norm.cu``).
 
 Replaces npcd_tpu/ops/pallas/layer_norm.py: layer_norm (_ln_fwd_kernel,
 K2a; _ln_bwd_kernel, K2c) and layer_norm_residual (_lnres_fwd_kernel, K2b;
@@ -11,26 +11,26 @@ and the backward computes
     dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) [+ gr],
     dxhat = gy * gamma,
 
-with dgamma = sum(gy * xhat) and dbeta = sum(gy) over rows written as one
-partial row per program and summed by the wrapper (no atomics: the sums
-are deterministic). The residual form takes both cotangents, gr of r and
-gy of y, and returns the same dr for x and for delta.
+with dgamma = sum(gy * xhat) and dbeta = sum(gy) over rows, summed in a
+fixed order (no atomics: the sums are deterministic). The residual form
+takes both cotangents, gr of r and gy of y, and returns the same dr for x
+and for delta.
 
 What bounds it on the H100: a row of W = 1024 is read once (twice with the
 residual) and written once (twice), with ~10 flops per element, so forward
 and backward are bound by memory bandwidth; the denoiser's f32 [2·520,
 1024] slabs of the sampler are so small (8.5 MB, ~2.5 us of HBM) that the
-host's cost per launch sets the forward's time. The forward is one CUDA
-kernel for K2a and K2b, f32 and bf16 (one warp per row, the row in
-registers, shuffle reductions; see the source's note), bound with ctypes
-and launched from a short host path: the C function is looked up once,
-mean and rstd come from one allocation, and only the checks the kernel
-needs run. Widths up to ``MAX_WIDTH`` are built; a wider row raises. The
-backward is Triton: one program per block of 32 rows, which keeps its
-dgamma/dbeta partials in registers across the rows and writes them once.
-The sequence-pad rows of the denoiser are all zeros: their variance is 0,
-rsqrt(eps) stays finite, y = beta, and with a zero cotangent their dx is
-exactly 0.
+host's cost per launch sets the forward's time. Both directions are CUDA
+kernels for f32 and bf16 (one warp per row, the row in registers, shuffle
+reductions; see the source's note), bound with ctypes and launched from a
+short host path: the C function is looked up once, each output comes from
+one allocation, and only the checks the kernel needs run. The backward
+runs a persistent grid of the blocks the card holds resident, each warp
+keeping its dgamma/dbeta columns across its rows and each block writing
+one partial row, which a second kernel of the same call sums. Widths up to
+``MAX_WIDTH`` are built; a wider row raises. The sequence-pad rows of the
+denoiser are all zeros: their variance is 0, rsqrt(eps) stays finite, y =
+beta, and with a zero cotangent their dx is exactly 0.
 
 In bf16 (x, delta and the cotangents bf16, gamma and beta f32) every
 kernel loads into f32 and stores in the element type, as npcd_tpu's bf16
@@ -45,8 +45,7 @@ are counted apart, in each wrapper's ``launches_bf16``.
 tensors (or raise) and run the plain PyTorch versions for CPU tensors;
 under autograd they go through a ``torch.autograd.Function`` whose backward
 calls ``layer_norm_bwd`` / ``layer_norm_residual_bwd`` (kernel on CUDA,
-plain version on the CPU). Triton is imported only when a backward kernel
-is launched.
+plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -57,8 +56,7 @@ import torch
 
 from . import build
 
-BWD_ROWS = 32  # rows per backward program
-MAX_WIDTH = 2048  # the widest row the forward kernel holds in registers
+MAX_WIDTH = 2048  # the widest row the kernels take (64 values a lane)
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -89,71 +87,40 @@ def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tenso
                          gr: torch.Tensor | None = None):
     """The backward of npcd_tpu's _ln_bwd_kernel / _lnres_bwd_kernel:
     x (or r) [..., W], per-row f32 mean/rstd, cotangents gy (and gr) ->
-    (dx, dgamma, dbeta)."""
+    (dx, dgamma, dbeta). In f32 (float64 when x is float64: the gate that
+    holds the kernel's long sums against an exact evaluation)."""
     w = x.shape[-1]
-    x2 = x.reshape(-1, w).float()
-    g2 = gy.reshape(-1, w).float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x2 = x.reshape(-1, w).to(acc)
+    g2 = gy.reshape(-1, w).to(acc)
     xhat = (x2 - mean[:, None]) * rstd[:, None]
-    dxhat = g2 * gamma.float()
+    dxhat = g2 * gamma.to(acc)
     m1 = dxhat.sum(-1, keepdim=True) / w
     m2 = (dxhat * xhat).sum(-1, keepdim=True) / w
     dx = rstd[:, None] * (dxhat - m1 - xhat * m2)
     if gr is not None:
-        dx = dx + gr.reshape(-1, w).float()
+        dx = dx + gr.reshape(-1, w).to(acc)
     dgamma = (g2 * xhat).sum(0)
     dbeta = g2.sum(0)
     return dx.to(x.dtype).reshape(x.shape), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
+# the ctypes signatures of csrc/layer_norm.cu's C entry points
+ARGTYPES = {
+    "layer_norm_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_int, ctypes.c_void_p],
+    "layer_norm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "layer_norm_bwd_blocks": [ctypes.c_int] * 3,
+}
+
+
 @functools.cache
-def _fwd_fn():
-    """The C entry point of csrc/layer_norm.cu, built on first use."""
-    fn = build.load("layer_norm").layer_norm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
+def _c_fn(name: str):
+    """A C entry point of csrc/layer_norm.cu, built on first use."""
+    fn = getattr(build.load("layer_norm"), name)
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def _kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ln_bwd(x_ptr, g_ptr, mean_ptr, rstd_ptr, gy_ptr, gr_ptr, dx_ptr, dg_ptr, db_ptr,
-               rows, width, HAS_GR: tl.constexpr, ROWS: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        in_row = cols < width
-        gamma = tl.load(g_ptr + cols, mask=in_row, other=0.0).to(tl.float32)
-        dg = tl.zeros([BLOCK], dtype=tl.float32)
-        db = tl.zeros([BLOCK], dtype=tl.float32)
-        row0 = pid * ROWS
-        for row in range(row0, tl.minimum(row0 + ROWS, rows)):
-            offs = row.to(tl.int64) * width + cols
-            x = tl.load(x_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
-            gy = tl.load(gy_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
-            mean = tl.load(mean_ptr + row)
-            rstd = tl.load(rstd_ptr + row)
-            xhat = tl.where(in_row, (x - mean) * rstd, 0.0)
-            dxhat = gy * gamma
-            m1 = tl.sum(dxhat, axis=0) / width
-            m2 = tl.sum(dxhat * xhat, axis=0) / width
-            dx = rstd * (dxhat - m1 - xhat * m2)
-            if HAS_GR:
-                dx = dx + tl.load(gr_ptr + offs, mask=in_row, other=0.0).to(tl.float32)
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=in_row)
-            dg += gy * xhat
-            db += gy
-        tl.store(dg_ptr + pid.to(tl.int64) * width + cols, dg, mask=in_row)
-        tl.store(db_ptr + pid.to(tl.int64) * width + cols, db, mask=in_row)
-
-    return triton, ln_bwd
-
-
-def _num_warps(block: int) -> int:
-    return min(max(block // 256, 1), 16)
 
 
 def _check(what, x, gamma, beta, delta=None):
@@ -182,10 +149,11 @@ def _launch_fwd(x, gamma, beta, eps, delta, save_stats):
     stats = torch.empty((2, rows), device=x.device, dtype=torch.float32) if save_stats else None
     stats_ptr = stats.data_ptr() if save_stats else None
     bf16 = x.dtype == torch.bfloat16
-    err = _fwd_fn()(x.data_ptr(), None if delta is None else delta.data_ptr(), gamma.data_ptr(),
-                    beta.data_ptr(), y.data_ptr(), None if delta is None else r.data_ptr(),
-                    stats_ptr, None if stats_ptr is None else stats_ptr + 4 * rows, rows, width,
-                    eps, bf16, build.stream_ptr())
+    err = _c_fn("layer_norm_fwd")(
+        x.data_ptr(), None if delta is None else delta.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), y.data_ptr(), None if delta is None else r.data_ptr(), stats_ptr,
+        None if stats_ptr is None else stats_ptr + 4 * rows, rows, width, eps, bf16,
+        build.stream_ptr())
     wrapper = layer_norm if delta is None else layer_norm_residual
     build.check(err, wrapper.__name__)
     build.count_launch(wrapper, x.dtype)
@@ -209,34 +177,50 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _forward(x, gamma, beta, eps, delta, save_stats=True)
 
 
-def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
-    what = wrapper.__name__
-    tensors = (x, gamma, mean, rstd, gy) + ((gr,) if gr is not None else ())
-    if build.route(what, *tensors) == "cpu":
-        return layer_norm_bwd_plain(x, gamma, mean, rstd, gy, gr)
-    build.require(x.dtype in (torch.float32, torch.bfloat16) and gamma.dtype == torch.float32,
-                  what, f"unsupported dtypes x {x.dtype}, gamma {gamma.dtype}")
+def _launch_bwd(wrapper, x, gamma, mean, rstd, gy, gr):
+    """The backward kernel on CUDA tensors; the host path is kept short, as
+    the forward's: one condition, the cotangents made contiguous only where
+    they are not, one allocation for dx, one for dgamma/dbeta, one for the
+    partials (as many rows as the C side says its grid takes), one launch."""
     width = x.shape[-1]
-    rows = x.numel() // width
-    build.require(mean.shape == (rows,) and rstd.shape == (rows,), what,
-                  f"mean/rstd must be [{rows}]")
-    gy = gy.contiguous()
-    gr = gr.contiguous() if gr is not None else None
-    for t in (x, gamma, mean, rstd):
-        build.require(t.is_contiguous(), what, "inputs must be contiguous")
-    build.require(gy.shape == x.shape and (gr is None or gr.shape == x.shape), what,
-                  "cotangents must match x")
-    triton, kernel = _kernels()
-    n_prog = -(-rows // BWD_ROWS)
+    rows = x.numel() // width if width else 0
+    if not gy.is_contiguous():
+        gy = gy.contiguous()
+    if gr is not None and not gr.is_contiguous():
+        gr = gr.contiguous()
+    if not (x.dtype in _IO_DTYPES and 0 < width <= MAX_WIDTH and x.is_contiguous()
+            and gy.dtype == x.dtype and gy.shape == x.shape
+            and (gr is None or (gr.dtype == x.dtype and gr.shape == x.shape))
+            and gamma.dtype == mean.dtype == rstd.dtype == torch.float32
+            and gamma.shape == (width,) and mean.shape == rstd.shape == (rows,)
+            and gamma.is_contiguous() and mean.is_contiguous() and rstd.is_contiguous()):
+        raise ValueError(
+            f"{wrapper.__name__}: the kernel takes contiguous float32 or bfloat16 x, with "
+            f"cotangents of its shape and dtype, float32 gamma [width] and mean/rstd [rows], and "
+            f"widths up to {MAX_WIDTH}; got x {x.dtype} {tuple(x.shape)}, gy {gy.dtype} "
+            f"{tuple(gy.shape)}, gamma {gamma.dtype} {tuple(gamma.shape)}, mean "
+            f"{tuple(mean.shape)}")
+    bf16 = x.dtype == torch.bfloat16
+    blocks = _c_fn("layer_norm_bwd_blocks")(rows, width, bf16)
+    if blocks < 0:
+        build.check(-blocks, wrapper.__name__)
     dx = torch.empty_like(x)
-    dg = torch.empty((n_prog, width), device=x.device, dtype=torch.float32)
-    db = torch.empty_like(dg)
-    block = triton.next_power_of_2(width)
-    kernel[(n_prog,)](x, gamma, mean, rstd, gy, gr if gr is not None else gy, dx, dg, db,
-                      rows, width, HAS_GR=gr is not None, ROWS=BWD_ROWS, BLOCK=block,
-                      num_warps=_num_warps(block))
+    out = torch.empty((2, width), device=x.device, dtype=torch.float32)
+    part = torch.empty((max(blocks, 1), 2, width), device=x.device, dtype=torch.float32)
+    err = _c_fn("layer_norm_bwd")(
+        x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gy.data_ptr(),
+        None if gr is None else gr.data_ptr(), dx.data_ptr(), out.data_ptr(), part.data_ptr(),
+        rows, width, blocks, bf16, build.stream_ptr())
+    build.check(err, wrapper.__name__)
     build.count_launch(wrapper, x.dtype)
-    return dx, dg.sum(0), db.sum(0)
+    return dx, out[0], out[1]
+
+
+def _backward(wrapper, x, gamma, mean, rstd, gy, gr):
+    tensors = (x, gamma, mean, rstd, gy) + ((gr,) if gr is not None else ())
+    if build.route(wrapper.__name__, *tensors) == "cpu":
+        return layer_norm_bwd_plain(x, gamma, mean, rstd, gy, gr)
+    return _launch_bwd(wrapper, x, gamma, mean, rstd, gy, gr)
 
 
 def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,

@@ -49,7 +49,11 @@ K1f, K1b and K8f are also held within 1e-5 of max(1, each output's scale)
 of a float64 evaluation of their plain versions; so are the f32 K6f and K6b (tensor
 cores, 3xTF32), whose two launches must agree bitwise too. The LayerNorm forward kernel (one warp
 per row) is held at 1, 37 and 16,640 rows, on its vector and its scalar
-path, and a CUDA graph of it must replay to the eager launch's bits."""
+path, and a CUDA graph of it must replay to the eager launch's bits; its
+backward (one warp per row, a persistent grid) in f32 and bf16, with and
+without either cotangent of the residual form, at 37, 70 and 16,640 rows,
+widths 1000 (unaligned, the scalar path), 1024 and 2048, from the same
+statistics as its plain version, and through autograd to the same bits."""
 import math
 
 import pytest
@@ -142,41 +146,69 @@ def test_fused_qkv_attention_backward_kernel(dev, groups, valid):
     torch.testing.assert_close(a.grad, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("width", [1024, 1000])
-@pytest.mark.parametrize("residual", [False, True])
-def test_layer_norm_backward_kernels(dev, width, residual):
+def _rows(rows, width, g, dev, dtype, aligned):
+    """randn [rows, width] in ``dtype``, contiguous; unaligned: one element
+    past a 16-byte boundary, so the kernels take their masked scalar path."""
+    flat = torch.randn(rows * width + 1, generator=g, device=dev).to(dtype)
+    return (flat[:-1] if aligned else flat[1:]).view(rows, width)
+
+
+# rows: 70 fills no block of 8 warps evenly, 16,640 is the stage-2 step's
+# (several rows a warp of the persistent grid); width 1000 unaligned takes
+# the scalar path, 2048 keeps dgamma/dbeta in shared memory
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,width,aligned", [(70, 1024, True), (16640, 1024, True),
+                                                (70, 1000, False), (37, 2048, True)])
+@pytest.mark.parametrize("residual", ["none", "gr", "no_gr"])
+def test_layer_norm_backward_kernels(dev, dtype, rows, width, aligned, residual):
     g = _gen(dev, 2)
-    rows = 70  # two full blocks of 32 rows and a partial one
-    x, d, gy, gr = (torch.randn(rows, width, generator=g, device=dev) for _ in range(4))
+    x, d, gy, gr = (_rows(rows, width, g, dev, dtype, aligned) for _ in range(4))
     for t in (x, d, gy, gr):
         t[-2:] = 0  # zero pad rows with zero cotangents: dx exactly 0
     gamma, beta = (torch.randn(width, generator=g, device=dev) for _ in range(2))
-    delta = d if residual else None
-    r, _, mean, rstd = layer_norm_fwd_plain(x, gamma, beta, delta=delta)
-    # the forward kernel's saved statistics, then each side's backward from
-    # its own forward's r, mean and rstd
-    r_k, y_k, mean_k, rstd_k = layer_norm_fwd(x, gamma, beta, delta=delta)
-    for a, w in zip((r_k, y_k, mean_k, rstd_k), layer_norm_fwd_plain(x, gamma, beta,
-                                                                     delta=delta)):
-        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
-    if residual:
-        got = layer_norm_residual_bwd(r_k, gamma, mean_k, rstd_k, gr, gy)
-        want = layer_norm_bwd_plain(r, gamma, mean, rstd, gy, gr)
+    delta = None if residual == "none" else d
+    gr = gr if residual == "gr" else None
+    # the forward kernel's saved statistics against the plain forward's
+    fwd = layer_norm_fwd(x, gamma, beta, delta=delta)
+    want_fwd = layer_norm_fwd_plain(x, gamma, beta, delta=delta)
+    if dtype == torch.float32:
+        for a, w in zip(fwd, want_fwd):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
     else:
-        got = layer_norm_bwd(x, gamma, mean_k, rstd_k, gy)
-        want = layer_norm_bwd_plain(x, gamma, mean, rstd, gy)
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
-    if not residual:
-        assert (got[0][-2:] == 0).all()
-    # through autograd, forward stats from the kernel
+        assert torch.equal(fwd[0], want_fwd[0])  # r = bf16(x + delta)
+        for a, w in zip(fwd[2:], want_fwd[2:]):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    r, _, mean, rstd = fwd
+    # kernel and plain backward from the same r, mean and rstd: f32 outputs
+    # within 1e-5 of max(1, each scale); bf16 dx within 1e-2 of its scale
+    # (rounded once), the f32 dgamma/dbeta within 1e-4
+    if residual == "none":
+        got = layer_norm_bwd(r, gamma, mean, rstd, gy)
+    else:
+        got = layer_norm_residual_bwd(r, gamma, mean, rstd, gr, gy)
+    want = layer_norm_bwd_plain(r, gamma, mean, rstd, gy, gr)
+    tols = (1e-5,) * 3 if dtype == torch.float32 else (1e-2, 1e-4, 1e-4)
+    assert got[0].dtype == dtype and torch.isfinite(got[0]).all()
+    for a, w, tol in zip(got, want, tols):
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                   atol=tol * max(1.0, float(w.float().abs().max())))
+    assert (got[0][-2:] == 0).all()
+    # through autograd, forward and backward kernels: the same bits (the
+    # clones are aligned, so an unaligned case's row sums there run in the
+    # vector path's order: within the tolerances of the plain version)
     ts = [t.clone().requires_grad_(True) for t in (x, d, gamma, beta)]
-    if residual:
-        torch.autograd.backward(list(layer_norm_residual(*ts)), [gr, gy])
-    else:
+    if residual == "none":
         layer_norm(ts[0], ts[2], ts[3]).backward(gy)
-    for a, w in zip([ts[0].grad, ts[2].grad, ts[3].grad], want):
-        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
+    else:
+        out_r, out_y = layer_norm_residual(*ts)
+        torch.autograd.backward([out_y] if gr is None else [out_r, out_y],
+                                [gy] if gr is None else [gr, gy])
+        assert torch.equal(ts[1].grad, ts[0].grad)
+    for a, k, w, tol in zip([ts[0].grad, ts[2].grad, ts[3].grad], got, want, tols):
+        if aligned:
+            assert torch.equal(a, k)
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                   atol=tol * max(1.0, float(w.float().abs().max())))
 
 
 @pytest.mark.parametrize("n_ema,use_clip", [(0, False), (1, False), (2, True)])

@@ -1,9 +1,18 @@
 """Kernels K2c/K2d (LayerNorm backward, plain and residual) of the PyTorch
 port against npcd_tpu: the port's autograd path on the CPU (its plain
 backward) vs jax.vjp of the Pallas layer_norm / layer_norm_residual in
-interpret mode, on the same numpy inputs and cotangents, at widths 128 and
-256 with all-zero pad rows. Tolerance: 1e-5 abs/rel (f32 statistics,
-reductions in another order; dgamma/dbeta sum ~50 rows of O(1) terms)."""
+interpret mode, on the same numpy inputs and cotangents, at widths 128,
+256, the denoiser's 1024, 1000 and 1001 (not a multiple of the TPU's 128
+lanes, nor 1001 of the CUDA kernel's 16-byte vectors) with all-zero pad
+rows. Tolerance: 1e-5 abs/rel (f32 statistics, reductions in another order;
+dgamma/dbeta sum ~50 rows of O(1) terms). Also: the CUDA backward's C
+signature against the wrapper's ctypes argtypes, and no Triton import in
+the module."""
+import ast
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +21,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from npcd_tpu.ops.pallas import layer_norm as pallas_ln
+from npcd_tpu_torch.ops.kernels import layer_norm as ln_module
 from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_bwd_plain,
                                                   layer_norm_residual)
 
@@ -54,7 +64,7 @@ def _port_grads(x, d, g, b, gr, gy, residual):
     return [t[0].grad, t[2].grad, t[3].grad]
 
 
-@pytest.mark.parametrize("w", [128, 256])
+@pytest.mark.parametrize("w", [128, 256, 1024, 1000, 1001])
 @pytest.mark.parametrize("residual", [False, True])
 def test_layer_norm_backward_matches_pallas_interpret(w, residual):
     x, d, g, b, gr, gy = _inputs(w, seed=w + residual)
@@ -99,3 +109,36 @@ def test_layer_norm_bwd_plain_matches_autograd_of_forward():
                                       torch.from_numpy(gy.reshape(-1, 128)))
     for got, want in ((dx, xt.grad), (dg, gt.grad), (db, bt.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def _c_params(source: str, name: str) -> list:
+    """The parameter types of ``extern "C" int name(...)`` in a CUDA source,
+    comments and line breaks aside."""
+    source = re.sub(r"//[^\n]*|/\*.*?\*/", " ", source, flags=re.S)
+    sig = re.search(r'extern\s+"C"\s+int\s+' + name + r"\s*\(([^)]*)\)", source)
+    assert sig, name
+    return [" ".join(p.replace("*", " * ").split()[:-1]) for p in sig.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", ["layer_norm_fwd", "layer_norm_bwd", "layer_norm_bwd_blocks"])
+def test_layer_norm_c_signature_matches_ctypes(name):
+    """The wrapper's ctypes argtypes follow csrc/layer_norm.cu's C entry
+    point parameter by parameter: a pointer as c_void_p, an int as c_int, a
+    float as c_float (ctypes would cut a pointer passed as an int). The card
+    tests would catch a wrong list too, but they do not run without a card;
+    this holds the two files together on every run."""
+    source = (Path(ln_module.__file__).resolve().parents[2] / "csrc" / "layer_norm.cu").read_text()
+    params = _c_params(source, name)
+    kind = lambda t: (ctypes.c_void_p if "*" in t else
+                      {"int": ctypes.c_int, "float": ctypes.c_float}[t.replace("const ", "")])
+    assert [kind(t) for t in params] == ln_module.ARGTYPES[name]
+
+
+def test_layer_norm_module_imports_no_triton():
+    """K2 is CUDA C++ in both directions: the module imports no Triton,
+    at its top or inside a function."""
+    tree = ast.parse(Path(ln_module.__file__).read_text())
+    names = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert names and not [n for n in names if n.split(".")[0] == "triton"]
