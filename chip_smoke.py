@@ -64,8 +64,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      kernels and on the CPU through the plain versions: loss, every
      gradient leaf and the updated parameters;
   8. kernels, stage 1, at the shapes the stage-1 step launches them: the
-     min-distance kernel over all 400 instances x 14,336 queries (validity
-     bits and distances bitwise equal to the plain version's), the kNN over
+     min-distance kernel over all 400 instances x 14,336 queries, on uniform
+     clouds and on hard_min_d2_inputs' (tests/min_d2_filter.py: exact ties,
+     duplicated and two-position clouds, corner and bisector queries), and
+     at the render's shape, 8 x 128^3 queries, validity bits and distances
+     bitwise equal to the plain version's, also timed as a replayed CUDA
+     graph; the kNN over
      400 x 5,600 shading points and over the TV loss's 8 x 512 points (an
      exact tie planted, indices and distances bitwise equal), and
      the aggregation MLP forward and backward over one 50-instance chunk
@@ -140,7 +144,8 @@ the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
 BF16 tensor-core peak), whichever is larger, at the measured shape; the f32
 K1f, K1b, K8f, K8b, K6f and K6b also at 495 / 3 TFLOP/s, the TF32 peak over
-their three products, K6b's recompute at the FP32 rate, where it runs) and,
+their three products, K6b's recompute at the FP32 rate, where it runs; K4
+and K5 in FP32 instructions at half the FP32 rate: FILTER_INSTR) and,
 where one PyTorch call computes the same function, that call's time. Each
 phase prints its seconds. The line before the last is {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
@@ -158,7 +163,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # the port; the tests' K5 inputs
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -197,6 +202,7 @@ from npcd_tpu_torch.utils.builders import (  # noqa: E402
     build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
+from min_d2_filter import hard_min_d2_inputs  # noqa: E402
 
 # the generation CLI's required --out (run() itself writes no files); the
 # training path writes its checkpoints and exports under OUT / "train"
@@ -323,14 +329,17 @@ K6B_BF16_FLOP = K6B_FLOP - _K6_LAST + 2 * 256 * 256
 # the w-sum, so folding that layer after the sum would drop a rounding point),
 # 573,440 a pair
 K6F_BF16_FLOP = _K6_HIDDEN + 2 * 256 * 256 + 2 * 256
-# The least work per (query, point) of K4 and K5: 3 subtractions, 1 multiply
-# and 2 FMAs (csrc/knn.cu's dist2_fma, the filter K4 sweeps every pair with;
-# the exact, unfused distance the plain versions round is needed only on the
-# few candidates under the filter's bound, ~14 a query in K4), the min or
-# compare on another pipe: six FP32-pipe instructions. FP32_FLOP_S counts an
-# FMA as two operations, so they issue at half of it: 132 SMs x 128 lanes x
-# 1.98 GHz = 33.45e12 instructions/s, the rate their bound takes
-DIST_FLOP = 6
+# The least work of K4 and K5: a filter over every (query, point) pair, s =
+# fma(-pz, 2 x2, fma(-py, 2 x1, fma(-px, 2 x0, |p|^2))) = |p - x|^2 - |x|^2
+# up to rounding, three FP32-pipe instructions (csrc/knn.cu's min_d2_kernel
+# sweeps every pair so), and the exact distance ((dx*dx + dy*dy) + dz*dz)
+# the plain versions round, eight (3 sub, 3 mul, 2 add), for each result
+# alone: K5's one a query, K4's k = 8. The exact distances a design takes
+# beyond those (K5's whole groups, K4's candidates) are its own cost, not
+# the work's. The min or compare on another pipe is not counted.
+# FP32_FLOP_S counts an FMA as two operations, so they issue at half of it:
+# 132 SMs x 128 lanes x 1.98 GHz = 33.45e12 instructions/s, their bound's rate
+FILTER_INSTR, EXACT_INSTR = 3, 8
 FP32_INSTR_S = FP32_FLOP_S / 2
 
 
@@ -1092,10 +1101,28 @@ def _knn_check(check, name: str, xq, pts) -> None:
     check(name, _err(d_k, d_p), 0.0, lambda: knn(xq, pts, 8), lambda: knn_plain(xq, pts, 8),
           extra=f" idx_mismatch {mismatch} of {i_p.numel()} (queries with the planted tie "
                 f"among their 8: {tied}), d2 bitwise {torch.equal(d_k, d_p)}",
-          flops=DIST_FLOP * inst * n * pts.shape[1], peak=FP32_INSTR_S,
+          flops=FILTER_INSTR * inst * n * pts.shape[1] + EXACT_INSTR * inst * n * 8,
+          peak=FP32_INSTR_S,
           nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * 8), graph=True)
     if mismatch or not torch.equal(d_k, d_p):
         raise AssertionError(f"{name}: {mismatch} indices differ from the plain version's")
+
+
+def _min_d2_check(check, name: str, xq, pts, radius2: float) -> None:
+    """K5 vs min_d2_plain: distances and validity bits bitwise equal. Timed,
+    also as a replayed CUDA graph, against a bound of FILTER_INSTR a pair and
+    EXACT_INSTR a query; printed before it raises."""
+    d_k, d_p = min_d2(xq, pts), min_d2_plain(xq, pts)
+    bits_differ = int(((d_k < radius2) != (d_p < radius2)).sum())
+    inst, n, p = xq.shape[0], xq.shape[1], pts.shape[1]
+    check(name, _err(d_k, d_p), 0.0, lambda: min_d2(xq, pts), lambda: min_d2_plain(xq, pts),
+          extra=f" valid share {float((d_k < radius2).float().mean()):.3f}, validity bits "
+                f"differing {bits_differ}, d2 differing {int((d_k != d_p).sum())}",
+          flops=FILTER_INSTR * inst * n * p + EXACT_INSTR * inst * n, peak=FP32_INSTR_S,
+          nbytes=4 * (xq.numel() + pts.numel() + d_k.numel()), graph=True)
+    if bits_differ or not torch.equal(d_k, d_p):
+        raise AssertionError(f"{name}: {bits_differ} validity bits differ, max distance error "
+                             f"{_err(d_k, d_p)}")
 
 
 def phase_stage1_kernels() -> dict:
@@ -1109,22 +1136,24 @@ def phase_stage1_kernels() -> dict:
 
     # K5: the step's one launch, 400 instances x 14,336 queries against each
     # instance's 512 points; queries in the render cube [-1, 1]^3, points in
-    # [-0.5, 0.5]^3, radius 0.16 as the config's. The same rounded
-    # arithmetic on both sides: distances and validity bits equal
+    # [-0.5, 0.5]^3, radius 0.16 as the config's; then the same shape of
+    # hard_min_d2_inputs (ties, duplicated and two-position clouds, corner
+    # and bisector queries)
     radius2 = build_pointnerf_options(load_config(str(SRNCARS))).knn_radius ** 2
     inst, n_q = 400, 112 * 128
     pts = torch.rand(inst, 512, 3, generator=g, device=dev) - 0.5
     xq = 2 * torch.rand(inst, n_q, 3, generator=g, device=dev) - 1
-    d_k, d_p = min_d2(xq, pts), min_d2_plain(xq, pts)
-    bits_differ = int(((d_k < radius2) != (d_p < radius2)).sum())
-    if bits_differ or not torch.equal(d_k, d_p):
-        raise AssertionError(f"min_d2: {bits_differ} validity bits differ, max distance error "
-                             f"{_err(d_k, d_p)}")
-    check("min_d2", _err(d_k, d_p), 0.0, lambda: min_d2(xq, pts), lambda: min_d2_plain(xq, pts),
-          extra=f" valid share {float((d_k < radius2).float().mean()):.3f}, bits equal",
-          flops=DIST_FLOP * inst * n_q * 512, peak=FP32_INSTR_S,
-          nbytes=4 * (xq.numel() + pts.numel() + d_k.numel()))
-    del xq, d_k, d_p
+    _min_d2_check(check, "min_d2", xq, pts, radius2)
+    del xq
+    _min_d2_check(check, "min_d2 (hard input)",
+                  *hard_min_d2_inputs(inst, n_q, 512, seed=2, device=dev), radius2)
+    # and the render's one launch where it tests validity by 'knn' (the
+    # generation CLI's default; phase 5 renders with 'voxel'): 2 objects x 4
+    # poses x 128^2 rays x 128 samples against the 512 points, uniform as above
+    xq = 2 * torch.rand(8, 128 ** 3, 3, generator=g, device=dev) - 1
+    _min_d2_check(check, "min_d2 (render, validity knn)", xq, pts[:8], radius2)
+    del xq
+    torch.cuda.empty_cache()
 
     # K4: the aggregation's launch, 400 instances x 112 selected rays x 50
     # slots = 5,600 shading points near the cloud, and the TV loss's, the 8

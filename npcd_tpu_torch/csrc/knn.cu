@@ -75,6 +75,8 @@ constexpr int CAP = 48;       // candidates a lane keeps
 // H100's 132 SMs fewer than 32 warps: four lanes a query there
 constexpr long FEW_QUERIES = 132L * 32 * 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int QUERIES = 4;  // min_d2_kernel: queries a thread
+constexpr int GROUPS = 32;  // min_d2_kernel: groups of points a query keeps a minimum of
 
 // d2 as the plain version rounds it: ((dx*dx + dy*dy) + dz*dz)
 __device__ __forceinline__ float dist2(float px, float py, float pz, float x0, float x1,
@@ -236,39 +238,157 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
   }
 }
 
-// Minimum squared distance from each query to the instance's points.
+// Minimum squared distance from each query to the instance's points (K5).
 //
 // Replaces npcd_tpu/ops/pallas/knn.py:pallas_min_d2_t (_min_d2_kernel), the
 // sample-validity test of stage-1 training and of `validity: knn` renders
-// (min d2 < radius^2). The same layout and distance as knn_kernel, k = 1
-// and no index: one thread per query, the P x 3 points in shared memory, a
-// running min of the round-to-nearest sum ((dx*dx + dy*dy) + dz*dz), so
-// the result is the same float as the plain PyTorch version and a validity
-// bit cannot flip between the card and the CPU. ~9 flops per (query,
-// point) pair against 16 bytes per query: bound by the FP32 pipes.
+// (min d2 < radius^2). The result is bitwise the plain PyTorch version's:
+// the f32 minimum over all P points of d = ((dx*dx + dy*dy) + dz*dz), each
+// operation rounded, so a validity bit cannot flip between the card and the
+// CPU. x [I, N, 3], points [I, P, 3] -> [I, N]; inf where P = 0.
+//
+// What bounds it on the H100: issuing instructions. Every pair is needed
+// (the minimum over all P points, as the TPU kernel computes it): at P = 512
+// ~1,550 FP32 instructions a query (3 a pair and the exact pass) against 16
+// bytes. A direct loop over the pairs (this kernel until it was redesigned)
+// issues 11 instructions a pair in its SASS (44 a 4 points: 5 FADD, 3 FMUL,
+// 1 FMNMX, 3/4 LDS.128, 3/4 of the loop's):
+// 1.067 ms at the stage-1 shape (400 x 14,336 x 512; H100 at 700 W, a
+// replayed CUDA graph), near full issue. The redesign sweeps every pair with
+// a cheaper filter and takes the exact d only where the filter cannot rule
+// a point out:
+//   - point j sits in shared memory as one float4 (-px, -py, -pz, |p|^2),
+//     |p|^2 = fma(pz, pz, fma(py, py, px*px)); one broadcast LDS.128 serves
+//     a thread's QUERIES = 4 queries (168 registers, 3 blocks an SM; 2 and 3
+//     queries a thread, more loads a pair, ran 8% and 4% slower: PERF.md);
+//   - the filter s = fma(-pz, 2 x2, fma(-py, 2 x1, fma(-px, 2 x0, |p|^2))),
+//     |p - x|^2 - |x|^2 up to rounding: 3 FFMA and 1 FMNMX a pair; the
+//     sweep's SASS is 548 instructions a 128 pairs (384 FFMA, 128 FMNMX, 32
+//     LDS.128, 4 of the loop's), 4.28 a pair;
+//   - each query keeps the minimum of s per group of points, group g holding
+//     points g, g + 32, g + 64, ... (GROUPS = 32: 128 registers a thread);
+//     with s_min the least of them, the groups whose minimum is at most the
+//     bound t = fl(s_min + fma(2^-18, fl(r2 + |x|^2), 2^-100)) (r2 the
+//     instance's largest |p|^2, |x|^2 computed as |p|^2 is) take the exact
+//     pass: dist2 of every point of the group, 11 instructions a point in
+//     the SASS; usually one group, 16 points at P = 512. Lanes of a warp in
+//     different groups read points g + 32 k at the same k: distinct banks.
+// Why the exact minimum is never lost (u = 2^-24, gamma_k = k u / (1 - k u),
+// no overflow): d is within gamma_5 |p - x|^2 of |p - x|^2 (five roundings
+// of non-negative terms); |p|^2 is within gamma_3 of its value and the
+// three FMAs add at most gamma_3 (|p|^2 (1 + gamma_3) + 2 |p| |x|), so with
+// 2 |p| |x| <= |p|^2 + |x|^2 and |p - x|^2 <= 2 (|p|^2 + |x|^2), |s + |x|^2
+// - d| <= E = (gamma_3 (3 + gamma_3) + 2 gamma_5) (|p|^2 + |x|^2) ~ 19 u
+// (|p|^2 + |x|^2). If point a has the least d and point b the least s, then
+// s_a <= d_a - |x|^2 + E <= d_b - |x|^2 + E <= s_b + 2E = s_min + 2E, and t
+// covers s_min + 2E: 2E <= 38 u (1 + 4u) (r2 + |x|^2) as computed, t's own
+// roundings cost at most ~2 u (r2 + |x|^2), against 2^-18 = 64 u of it; the
+// 2^-100 covers underflow (each rounding's absolute error is at most
+// 2^-150). So a's group is taken, and the least exact d over the taken
+// groups' points is the least over all points. Where r2 + |x|^2 is above
+// 2^100 or not finite, every group is taken. Only exact d reach the output:
+// npcd_tpu's XLA path returns |x|^2 - 2 x.p + |p|^2 itself, and flips
+// validity bits against the direct sum.
 __global__ void __launch_bounds__(THREADS)
 min_d2_kernel(const float* __restrict__ x, const float* __restrict__ pts,
               float* __restrict__ out, int n, int p) {
-  extern __shared__ float sp[];  // [p][3]
-  const int inst = blockIdx.y;
-  const float* src = pts + (long)inst * p * 3;
-  for (int i = threadIdx.x; i < p * 3; i += THREADS) sp[i] = src[i];
-  __syncthreads();
-
-  const int q = blockIdx.x * THREADS + threadIdx.x;
-  if (q >= n) return;
-  const float* xq = x + ((long)inst * n + q) * 3;
-  const float x0 = xq[0], x1 = xq[1], x2 = xq[2];
-  float best = INFINITY;
-  for (int j = 0; j < p; ++j) {
-    const float dx = __fsub_rn(sp[3 * j], x0);
-    const float dy = __fsub_rn(sp[3 * j + 1], x1);
-    const float dz = __fsub_rn(sp[3 * j + 2], x2);
-    const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                              __fmul_rn(dz, dz));
-    best = fminf(best, d);
+  extern __shared__ float4 fp[];  // point j: (-px, -py, -pz, |p|^2); (0, 0, 0, inf) past p
+  __shared__ float warp_r2[THREADS / 32];
+  const int rounds = (p + GROUPS - 1) / GROUPS;
+  const float* src = pts + (long)blockIdx.y * p * 3;
+  float r2 = 0.f;  // the largest |p|^2 of the instance
+  for (int i = threadIdx.x; i < rounds * GROUPS; i += THREADS) {
+    float4 v = make_float4(0.f, 0.f, 0.f, INFINITY);
+    if (i < p) {
+      const float a = src[3 * i], b = src[3 * i + 1], c = src[3 * i + 2];
+      v = make_float4(-a, -b, -c, __fmaf_rn(c, c, __fmaf_rn(b, b, __fmul_rn(a, a))));
+      r2 = fmaxf(r2, v.w);
+    }
+    fp[i] = v;
   }
-  out[(long)inst * n + q] = best;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) r2 = fmaxf(r2, __shfl_xor_sync(FULL, r2, o));
+  if ((threadIdx.x & 31) == 0) warp_r2[threadIdx.x >> 5] = r2;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) r2 = fmaxf(r2, warp_r2[w]);
+
+  // the thread's queries q0 + q THREADS, zeros past n; read again after the
+  // sweep (volatile: not held in registers through it)
+  const long row = (long)blockIdx.y * n;
+  const int q0 = blockIdx.x * (QUERIES * THREADS) + threadIdx.x;
+  auto query = [&](int q, float (&xq)[3]) {
+    const int qi = q0 + q * THREADS;
+    const volatile float* xv = x + (row + qi) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) xq[c] = qi < n ? xv[c] : 0.f;
+  };
+  float x2[QUERIES][3];  // 2x, exact
+#pragma unroll
+  for (int q = 0; q < QUERIES; ++q) {
+    query(q, x2[q]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x2[q][c] = __fmul_rn(2.f, x2[q][c]);
+  }
+
+  // the sweep: every pair's s, its minimum per group
+  float m[QUERIES][GROUPS];
+#pragma unroll
+  for (int q = 0; q < QUERIES; ++q)
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) m[q][g] = INFINITY;
+  for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      const float4 v = fp[r * GROUPS + g];
+#pragma unroll
+      for (int q = 0; q < QUERIES; ++q)
+        m[q][g] = fminf(m[q][g], __fmaf_rn(v.z, x2[q][2], __fmaf_rn(v.y, x2[q][1],
+                                                                    __fmaf_rn(v.x, x2[q][0], v.w))));
+    }
+  }
+
+  // the exact pass over the groups whose minimum is at most the bound
+#pragma unroll
+  for (int q = 0; q < QUERIES; ++q) {
+    float xq[3];
+    query(q, xq);
+    float s_min = m[q][0];
+#pragma unroll
+    for (int g = 1; g < GROUPS; ++g) s_min = fminf(s_min, m[q][g]);
+    const float sum = __fadd_rn(
+        r2, __fmaf_rn(xq[2], xq[2], __fmaf_rn(xq[1], xq[1], __fmul_rn(xq[0], xq[0]))));
+    const bool all = !(sum <= 0x1p100f);
+    const float bound = __fadd_rn(s_min, __fmaf_rn(0x1p-18f, sum, 0x1p-100f));
+    unsigned taken = 0;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g)
+      if (all || m[q][g] <= bound) taken |= 1u << g;
+    float best = INFINITY;
+    while (taken) {
+      const int g = __ffs(taken) - 1;
+      taken &= taken - 1;
+      for (int j = g; j < p; j += GROUPS) {
+        const float4 v = fp[j];
+        best = fminf(best, dist2(-v.x, -v.y, -v.z, xq[0], xq[1], xq[2]));
+      }
+    }
+    const int qi = q0 + q * THREADS;
+    if (qi < n) out[row + qi] = best;
+  }
+}
+
+int launch_min_d2(const float* x, const float* pts, float* out, int inst, int n, int p,
+                  cudaStream_t stream) {
+  const int smem = (p + GROUPS - 1) / GROUPS * GROUPS * static_cast<int>(sizeof(float4));
+  // above 48 KB with warp_r2 (p > 3040) only with the attribute raised
+  if (smem + THREADS / 32 * static_cast<int>(sizeof(float)) > 48 * 1024)
+    if (int err = static_cast<int>(cudaFuncSetAttribute(
+            min_d2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+  dim3 grid((n + QUERIES * THREADS - 1) / (QUERIES * THREADS), inst);
+  min_d2_kernel<<<grid, THREADS, smem, stream>>>(x, pts, out, n, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int L>
@@ -289,16 +409,12 @@ int launch_knn(const float* x, const float* pts, int* idx, float* d2, int inst, 
 }  // namespace
 
 // x [inst, n, 3], pts [inst, p, 3] f32 contiguous; out [inst, n] (inf
-// where p = 0). p * 12 bytes must fit 48 KB of shared memory (p <= 4096).
-// Returns cudaGetLastError() after launch.
+// where p = 0); p <= 4096 (p * 16 bytes of shared memory). Returns
+// cudaGetLastError() after launch.
 extern "C" int min_d2_fwd(const void* x, const void* pts, void* out, int inst,
                           int n, int p, void* stream) {
-  dim3 grid((n + THREADS - 1) / THREADS, inst);
-  min_d2_kernel<<<grid, THREADS, p * 3 * sizeof(float),
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(pts),
-      static_cast<float*>(out), n, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_min_d2(static_cast<const float*>(x), static_cast<const float*>(pts),
+                       static_cast<float*>(out), inst, n, p, static_cast<cudaStream_t>(stream));
 }
 
 // x [inst, n, 3], pts [inst, p, 3] f32 contiguous; idx/d2 [inst, n, 8].

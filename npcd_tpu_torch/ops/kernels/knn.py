@@ -11,8 +11,12 @@ point index (lax.top_k's order), so kernel and plain version return the
 same indices and distances, bitwise. K4 bounds each query's 8th-nearest
 distance in a first sweep over the points and collects the few points
 under the bound in a second, then sorts those (``csrc/knn.cu``; the CPU
-transcription in ``tests/test_torch_knn.py``). npcd_tpu's XLA fallback
-computes |x|^2 - 2x.p + |p|^2 instead, so near-ties can swap against it.
+transcription in ``tests/test_torch_knn.py``). K5 sweeps every pair with
+|p|^2 - 2x.p as a filter, keeps its minimum per group of points, and takes
+the exact distance only of the points in the groups whose minimum lies
+within a proven error bound of the least (``csrc/knn.cu``; the CPU
+transcription in ``tests/min_d2_filter.py``). npcd_tpu's XLA fallback
+returns |x|^2 - 2x.p + |p|^2 itself, so near-ties can swap against it.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from . import build
 
 _NAME = "knn"
 KERNEL_K = 8  # the kernel's compile-time k, the configs' aggregator k
-MAX_POINTS = 4096  # an instance's points in shared memory: 64 KB in K4, 48 KB in K5
+MAX_POINTS = 4096  # an instance's points in shared memory: 64 KB in K4 and in K5
 
 
 def knn_plain(x: torch.Tensor, points: torch.Tensor, k: int):

@@ -82,6 +82,8 @@ from npcd_tpu_torch.ops.kernels.layer_norm import (layer_norm, layer_norm_bwd,
                                                   layer_norm_fwd_plain, layer_norm_plain,
                                                   layer_norm_residual, layer_norm_residual_bwd)
 
+from min_d2_filter import hard_min_d2_inputs
+
 pytestmark = pytest.mark.cuda
 
 
@@ -311,11 +313,18 @@ def test_unsupported_shapes_raise_on_cuda(dev):
                               [(l["w"], l["b"]) for l in layers], 8, 4, 1.0, "direct")
 
 
-@pytest.mark.parametrize("n,p", [(1000, 5), (77, 130), (14336, 512)])
+@pytest.mark.parametrize("n,p", [(1000, 5), (77, 130), (14336, 512), (1000, 0), (1000, 1),
+                                 (77, 3), (77, 3072), (300, 4096)])
 def test_min_d2_kernel(dev, n, p):
+    """Bitwise min_d2_plain's on uniform clouds and on hard_min_d2_inputs'
+    (exact ties, duplicated and two-position clouds, points at the extent's
+    corners, queries at the render cube's corners and on bisectors a few
+    ulps from a tie), no points (inf) to the most points the kernel takes."""
     g = _gen(dev, 4)
     pts = torch.rand(3, p, 3, generator=g, device=dev) - 0.5
     x = torch.rand(3, n, 3, generator=g, device=dev) * 2 - 1
+    assert torch.equal(min_d2(x, pts), min_d2_plain(x, pts))
+    x, pts = hard_min_d2_inputs(8, n, p, seed=n + p, device=dev)
     assert torch.equal(min_d2(x, pts), min_d2_plain(x, pts))
 
 
