@@ -136,9 +136,34 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts: every kernel must have launched during phase 5, 6, 9,
-     12, 15 or 16, each kernel of a path during that path; the bf16 launches
-     of K1, K2, K6 and K8 are counted apart from the f32 ones.
+ 18. launch counts, checked after phase 20: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19 or 20, each kernel of a path
+     during that path ("generation", "training", "bf16 training", "stage 1",
+     "fast stage 1", "attention", "fid eval", "psnr eval"); the bf16
+     launches of K1, K2, K6 and K8 are counted apart from the f32 ones;
+ 19. main path, FID eval: python -m npcd_tpu_torch.eval_diffusion's code path
+     on configs/npcd_srncars.yaml with phase 5's seeded weights and the
+     config's validity (knn): 2 samples in one group of 2, each rendered
+     from the first 32 SRN test poses at 128x128 in one call, quantized on
+     the card and fed as a CUDA tensor to a device-resident random
+     projection (16 features) against real statistics the phase writes;
+     prints sampler steps/s, render rays/s, extraction ms a group, peak
+     memory and FID/KID; checks finite results and the files, a second call
+     that skips with zero launches, the extractor's features fed a CUDA
+     tensor or host numpy bitwise equal, the quantization bitwise numpy's,
+     the renders bitwise generate_samples.render's of the same clouds; then
+     the same clouds again with render_dtype bfloat16: its cross-PSNR
+     against the f32 renders, and one object x one pose against the CPU's
+     plain bf16 render (both >= 40 dB). Path "fid eval": K1f, K2a, K2b, K4,
+     K5, K6f in f32, the bf16 K6f and K7f;
+ 20. main path, PSNR eval: python -m npcd_tpu_torch.eval_pointnerf's code
+     path on phase 9's export (f32) and phase 12's (the fast config, bf16),
+     over their seeded synthetic dataset with 4 views: 5 objects at
+     eval_batch_size 1 (3 burn-in, 2 timed); prints the time of a forward,
+     rays/s, peak memory and PSNR; renders one view of each again (its PSNR
+     bitwise the eval's) and holds the f32 one against the CPU's plain
+     render of that view (within 1e-3, and the PSNRs within what that
+     allows). Path "psnr eval": K4, K5, K6f in f32, the bf16 K6f and K7f.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -153,8 +178,10 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import hashlib
 import json
+import pickle
 import re
 import shutil
 import subprocess
@@ -169,10 +196,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from npcd_tpu_torch import train_diffusion, train_pointnerf  # noqa: E402
+from npcd_tpu_torch import (  # noqa: E402
+    eval_diffusion, eval_pointnerf, train_diffusion, train_pointnerf)
 from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
+from npcd_tpu_torch.eval import DiffusionEvaluation  # noqa: E402
 from npcd_tpu_torch.generate_samples import (  # noqa: E402
-    exact_f32, parse_args, run, write_seeded_weights)
+    exact_f32, parse_args, render, run, write_seeded_weights)
 from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # noqa: E402
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
 from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
@@ -201,7 +230,9 @@ from npcd_tpu_torch.train import DiffusionTraining, PointNeRFTraining  # noqa: E
 from npcd_tpu_torch.utils.builders import (  # noqa: E402
     build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
+from npcd_tpu_torch.utils.fidkid import FIDKID  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
+from npcd_tpu_torch.utils.util import psnr  # noqa: E402
 from min_d2_filter import hard_min_d2_inputs  # noqa: E402
 
 # the generation CLI's required --out (run() itself writes no files); the
@@ -296,6 +327,15 @@ ATTENTION = ("flash_attention", "flash_attention_bwd", "flash_attention (bf16)",
 STAGE1 = ("knn", "min_d2", "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum_bwd")
 FAST_STAGE1 = ("knn", "min_d2", "fused_mlp", "fused_mlp_bwd", "fused_mlp_posenc_wsum (bf16)",
                "fused_mlp_posenc_wsum_bwd (bf16)")
+# the evals: the FID protocol's chain on the first 32 SRN test poses with a
+# device-resident random projection to 16 features, and the PSNR eval over 5
+# objects (3 burn-in, 2 timed) x 4 views of phase 9's and phase 12's exports
+FID_EVAL = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn", "min_d2",
+            "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum (bf16)", "fused_mlp")
+PSNR_EVAL = ("knn", "min_d2", "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum (bf16)",
+             "fused_mlp")
+FID_POSES, FID_FEATURES = 32, 16
+PSNR_OBJECTS, PSNR_VIEWS = 5, 4
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
 STAGE1_WARMUP = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
@@ -1979,6 +2019,253 @@ def phase_stage1_cpu_step(path: Path = SRNCARS, tag: str = "gpu-vs-cpu-stage1") 
         raise AssertionError(f"GPU and CPU stage-1 steps disagree (zero-gradient leaves {zero})")
 
 
+def _psnr_db(a, b) -> float:
+    """Cross-PSNR of two renders in [0, 1]."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else float(10 * np.log10(1.0 / mse))
+
+
+def phase_fid_eval() -> dict:
+    """python -m npcd_tpu_torch.eval_diffusion's code path on
+    configs/npcd_srncars.yaml (phase 5's seeded weights, validity from the
+    config): 2 samples in one group, each rendered from the first 32 SRN test
+    poses at 128^2 in one call, quantized, fed to a device-resident random
+    projection against real statistics the phase writes; then one group
+    again with render_dtype bfloat16 on the same clouds."""
+    out = OUT / "fid-eval"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    weights = OUT / "seeded_npcd.npz"
+    if not weights.exists():  # phase 5 writes it
+        write_seeded_weights(str(SRNCARS), str(weights), seed=0)
+    res = 128
+    proj = np.random.default_rng(0).normal(size=(res * res * 3, FID_FEATURES)).astype(np.float32)
+    real = np.random.default_rng(1).uniform(0, 1, (64, res * res * 3)).astype(np.float32) @ proj
+    pkl = out / "real_stats.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"mean": real.mean(0), "cov": np.cov(real, rowvar=False), "feats_np": real}, f)
+    config = load_config(str(SRNCARS))
+    config["diffusion_evaluation"].update(
+        num_samples=2, generate_batch_size=2, max_poses=FID_POSES, resolution=res,
+        feature_extractor=f"random_projection:{FID_FEATURES}", inception_pkl_path=str(pkl),
+        poses_path=str(ROOT / "data/srncars_test_poses.npy"),
+        intrinsics_path=str(ROOT / "data/srncars_test_intrinsics.npy"))
+    args = eval_diffusion.parse_args([
+        "--config", str(SRNCARS), "--weights", str(weights), "--output", str(out / "run"),
+        "--device", "cuda", "--no_tensorboard", "--seed", "0", "--num_qualitatives", "1"])
+
+    # the eval's stages, each between two synchronizes, and what they saw
+    seen = {"sample_s": 0.0, "render_s": 0.0, "extract_s": [], "channels": [], "images": []}
+    orig = DiffusionEvaluation.generate, DiffusionEvaluation.render_objects, FIDKID.feed
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def generate(self, model, state, num, noise):
+        seen.update(ev=self, model=model, state=state)
+        seen["clouds"], dt = timed(lambda: orig[0](self, model, state, num, noise))
+        seen["sample_s"] += dt
+        return seen["clouds"]
+
+    def render_objects(self, pointnerf, coords, feats):
+        channels, dt = timed(lambda: orig[1](self, pointnerf, coords, feats))
+        seen["channels"].append(channels)
+        seen["render_s"] += dt
+        return channels
+
+    def feed(self, images, kind):  # on the eval's worker thread
+        _, dt = timed(lambda: orig[2](self, images, kind))
+        seen["images"].append(images)
+        seen["extract_s"].append(dt)
+        seen["extract"] = self.extract
+
+    DiffusionEvaluation.generate, DiffusionEvaluation.render_objects, FIDKID.feed = (
+        generate, render_objects, feed)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        results = eval_diffusion.evaluate(args, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+        ev, model, state = seen["ev"], seen["model"], seen["state"]
+        coords, feats = seen["clouds"]
+        channels, images = seen["channels"][0], seen["images"][0]
+        steps = model.diffusion.process.num_timesteps
+        rays = channels.shape[0] * channels.shape[1] * channels.shape[2]
+        print(f"[fid-eval] 2 samples x {FID_POSES} SRN test poses at {res}^2 in one group, "
+              f"validity {model.pointnerf.cfg.validity}, random_projection:{FID_FEATURES}: "
+              f"sampler {steps / seen['sample_s']:.2f} steps/s ({seen['sample_s']:.1f} s), "
+              f"render {rays / seen['render_s']:.0f} rays/s ({seen['render_s']:.2f} s), "
+              f"extraction {1e3 * seen['extract_s'][0]:.1f} ms a group of {len(images)} images; "
+              f"peak {peak_mib:.0f} MiB; {wall:.1f} s with the model's build and load")
+        print(f"[fid-eval] " + " ".join(f"{k} {v:.6g}" for k, v in results.items()))
+        if not np.isfinite(list(results.values())).all():
+            raise AssertionError(f"non-finite results {results}")
+        files = [out / "run" / n for n in ("results.json", "results.csv", "sample0000.png")]
+        if not all(f.exists() for f in files):
+            raise AssertionError(f"missing outputs: {[str(f) for f in files if not f.exists()]}")
+
+        _reset_launches()
+        again = ev(model, state, torch.Generator(device="cuda").manual_seed(0))
+        relaunched = {k: v for k, v in _read_launches().items() if v}
+        print(f"[fid-eval] second call: {'skipped' if again == results else 'DIFFERS'}, "
+              f"launches {relaunched or 0}")
+        if again != results or relaunched:
+            raise AssertionError("the second call did not skip")
+
+        if not (isinstance(images, torch.Tensor) and images.is_cuda):
+            raise AssertionError("the device-resident extractor was not fed a CUDA tensor")
+        host = images.cpu().numpy()
+        same_feats = np.array_equal(seen["extract"](images), seen["extract"](host))
+        want_q = np.round(np.clip(channels.cpu().numpy(), 0.0, 1.0) * 255.0) / 255.0
+        same_q = np.array_equal(host.reshape(want_q.shape), want_q)
+        again = render(model, coords.cpu().numpy(), feats.cpu().numpy(), ev.poses, ev.intrinsics,
+                       res, torch.device("cuda"))["channels"]
+        same_render = torch.equal(again, channels)
+        print(f"[fid-eval] features fed as a CUDA tensor vs as host numpy: "
+              f"{'bitwise equal' if same_feats else 'DIFFER'}; quantized on the card vs numpy's "
+              f"round(clip(x) * 255) / 255: {'bitwise equal' if same_q else 'DIFFER'}; renders vs "
+              f"generate_samples.render of the same clouds: "
+              f"{'bitwise equal' if same_render else 'DIFFER'}")
+        if not (same_feats and same_q and same_render):
+            raise AssertionError("the FID eval's feed, quantization or renders disagree")
+        del again
+
+        # one group again, the render's MLPs in bf16, on the same clouds
+        seen["channels"].clear()
+        render_s, seen["render_s"] = seen["render_s"], 0.0
+        ev16 = DiffusionEvaluation(out_dir=str(out / "bf16"), device="cuda",
+                                   **{**config["diffusion_evaluation"],
+                                      "render_dtype": "bfloat16"})
+        ev16.generate = lambda *a: (coords, feats)
+        _reset_launches()
+        r16 = ev16(model, state, torch.Generator(device="cuda").manual_seed(0), kid_seed=0)
+        torch.cuda.synchronize()
+        launches = {k: v + _read_launches()[k] for k, v in launches.items()}
+        ch16 = seen["channels"][0]
+    finally:
+        DiffusionEvaluation.generate, DiffusionEvaluation.render_objects, FIDKID.feed = orig
+    cross = _psnr_db(ch16, channels)
+    print(f"[fid-eval] bf16 render: {rays / seen['render_s']:.0f} rays/s (f32 "
+          f"{rays / render_s:.0f}); "
+          f"cross-PSNR against the f32 renders {cross:.2f} dB; "
+          + " ".join(f"{k} {v:.6g}" for k, v in r16.items()))
+
+    # one object x one pose of the bf16 render on the CPU, plain versions
+    cpu = copy.deepcopy(model.pointnerf).cpu()
+    cpu.cfg = dataclasses.replace(cpu.cfg, compute_dtype=torch.bfloat16)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    ref = cpu.render(coords[:1].transpose(1, 2).contiguous().cpu(),
+                     feats[:1].transpose(1, 2).contiguous().cpu(), t(ev.poses[None, :1]),
+                     t(ev.intrinsics[None, :1]), resolution=res)["channels"][0, 0]
+    db = _psnr_db(ch16[0, 0].cpu(), ref)
+    # the kernels round at npcd_tpu's bf16 points, the plain version too, but
+    # sum in another order, so ~1% of the roundings flip by a bf16 ulp (2**-8
+    # relative); the render is also discontinuous where a flip moves a sample
+    # across a decision. Held to the bound the bf16 render is qualified
+    # against f32 with (npcd_tpu's test_fid_eval_bf16_render): 40 dB, an rms
+    # of 1e-2 on channels in [0, 1]
+    print(f"[fid-eval] bf16 GPU vs CPU plain render (1 object x 1 pose): {db:.2f} dB "
+          f"(tol >= 40), max_abs_err {_err(ch16[0, 0].cpu(), ref):.3e}")
+    if cross < 40 or db < 40 or not np.isfinite(list(r16.values())).all():
+        raise AssertionError(f"bf16 FID render: cross-PSNR {cross} dB, CPU {db} dB, {r16}")
+    del seen, model, ev, ev16, cpu
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_psnr_eval() -> dict:
+    """python -m npcd_tpu_torch.eval_pointnerf's code path on phase 9's
+    export (configs/npcd_srncars.yaml, f32) and phase 12's (the fast config,
+    bf16), over their seeded synthetic dataset with 4 views: 5 objects at
+    eval_batch_size 1 (3 burn-in, 2 timed); one view of each rendered again
+    bitwise, and the f32 one against the CPU's plain render."""
+    launches = {}
+    for path, trained, tag in ((SRNCARS, "stage1", "psnr-eval"),
+                               (FAST, "fast-stage1", "psnr-eval-fast")):
+        exports = sorted((OUT / trained).glob("weights_only_checkpoints_dir/pointnerf-iter-*.npz"))
+        if not exports:
+            raise AssertionError(f"no stage-1 export under {OUT / trained}: run its phase first")
+        config = load_config(str(path))
+        dataset = _stage1_dataset(config, config["model"]["n_obj"], PSNR_VIEWS)
+        out = OUT / tag
+        shutil.rmtree(out, ignore_errors=True)
+        args = eval_pointnerf.parse_args([
+            "--config", str(path), "--weights", str(exports[-1]), "--output", str(out),
+            "--device", "cuda", "--no_tensorboard", "--num_samples", str(PSNR_OBJECTS),
+            "--num_qualitatives", "1"])
+        models = []
+        load = eval_pointnerf.load_stage1_weights
+        eval_pointnerf.load_stage1_weights = lambda m, p: models.append(m) or load(m, p)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = eval_pointnerf.evaluate(args, config, dataset)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: launches.get(k, 0) + v for k, v in _read_launches().items()}
+        finally:
+            eval_pointnerf.load_stage1_weights = load
+        model, rows, summary = models[0], res["rows"], res["summary"]
+        cfg, r = model.cfg, model.opts.default_resolution
+        bf16 = cfg.compute_dtype == torch.bfloat16
+        print(f"[{tag}] {PSNR_OBJECTS} objects x {PSNR_VIEWS} views at {r}^2 of "
+              f"{exports[-1].name}, eval_batch_size 1, validity {cfg.validity}, "
+              f"{str(cfg.compute_dtype).split('.')[-1]}: "
+              f"{1e3 * summary['time_per_forward_s']:.2f} ms a forward "
+              f"({r * r / summary['time_per_forward_s']:.0f} rays/s) over "
+              f"{(PSNR_OBJECTS - 3) * PSNR_VIEWS} forwards after 3 burn-in objects; peak "
+              f"{summary['peak_device_mem_mib']:.0f} MiB; PSNR {summary['psnr']:.4f}; "
+              f"{wall:.1f} s with the model's build and load")
+        if len(rows) != PSNR_OBJECTS * PSNR_VIEWS or not np.isfinite(
+                [x["psnr"] for x in rows]).all():
+            raise AssertionError(f"expected {PSNR_OBJECTS * PSNR_VIEWS} finite rows: {rows}")
+        for name in ("results.json", "results.csv", "summary.csv"):
+            if not (out / name).exists():
+                raise AssertionError(f"missing {out / name}")
+
+        # the first row's view again on the card (bitwise the eval's) and, in
+        # f32, on the CPU with the plain versions (phase 19 holds the bf16
+        # kernels against the CPU; a full view there takes ~20 s)
+        sample = dataset[rows[0]["obj_idx"]]
+        view = [torch.as_tensor(a) for a in (sample["obj_idx"][None], sample["intrinsics"][None, :1],
+                                             sample["extrinsics"][None, :1])]
+        gpu = model.eval_forward(*(a.to("cuda") for a in view))["channels"][0, 0].float().cpu()
+        gt = sample["images"][0]
+        p_gpu = psnr(gpu.numpy(), gt)
+        text = (f"[{tag}] object {rows[0]['obj_idx']} view 0: eval PSNR {rows[0]['psnr']:.6f}, "
+                f"the card again {p_gpu:.6f}")
+        if not bf16:
+            cpu = copy.deepcopy(model).cpu().eval_forward(*view)["channels"][0, 0].float()
+            p_cpu = psnr(cpu.numpy(), gt)
+            # renders within 1e-3 on every channel (phase 5's tolerance) make
+            # PSNRs within 20 log10(1 + 1e-3 / rmse) dB (Minkowski)
+            rmse = float(np.sqrt(np.mean((cpu.double().numpy() - gt) ** 2)))
+            bound = 20 * np.log10(1 + 1e-3 / rmse)
+            err = _err(gpu, cpu)
+            text += (f", CPU plain render {p_cpu:.6f} (|diff| {abs(rows[0]['psnr'] - p_cpu):.2e}, "
+                     f"tol {bound:.2e}); GPU vs CPU render max_abs_err {err:.3e} (tol 1e-03)")
+            if abs(rows[0]["psnr"] - p_cpu) > bound or err > 1e-3:
+                raise AssertionError(f"{tag}: the eval's PSNR disagrees with the CPU's render")
+        print(text)
+        if rows[0]["psnr"] != p_gpu:
+            raise AssertionError(f"{tag}: the same view rendered again gives another PSNR")
+        del model, models, dataset
+        torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2010,6 +2297,8 @@ def main() -> None:
     _timed("gpu-vs-cpu-bf16", phase_cpu_step, torch.bfloat16, "gpu-vs-cpu-bf16")
     _timed("gpu-vs-cpu-stage1", phase_stage1_cpu_step)
     _timed("gpu-vs-cpu-fast-stage1", phase_stage1_cpu_step, FAST, "gpu-vs-cpu-fast-stage1")
+    paths["fid eval"] = (_timed("fid-eval", phase_fid_eval)["launches"], FID_EVAL)
+    paths["psnr eval"] = (_timed("psnr-eval", phase_psnr_eval)["launches"], PSNR_EVAL)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

@@ -67,6 +67,14 @@ class SyntheticNPCTrain:
     def __len__(self) -> int:
         return len(self.pcs)
 
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        """Object i as npcd_tpu's sample: {obj_idx int32, images [V, H*W, 3],
+        extrinsics [V, 4, 4], intrinsics [V, 3, 3], view_indices [V] int32}."""
+        v = len(self.extrinsics)
+        images = np.ones((v, self.image_size ** 2, 3), np.float32) * self.colors[i]
+        return {"obj_idx": np.int32(i), "images": images, "extrinsics": self.extrinsics,
+                "intrinsics": self.intrinsics, "view_indices": np.arange(v, dtype=np.int32)}
+
     def batch(self, indices) -> Dict[str, np.ndarray]:
         """{obj_idx [n] int32, images [n, V, H*W, 3], intrinsics [n, V, 3, 3],
         extrinsics [n, V, 4, 4]} of the objects ``indices``."""

@@ -1,0 +1,110 @@
+"""Stage-1 eval CLI: PSNR of the autodecoder on its training scenes, with
+the PyTorch port.
+
+Port of eval_pointnerf.py (same flags and config schema), plus ``--device``
+(default cuda). ``--weights`` is the stage-1 trainer's weights-only export,
+``<output>/weights_only_checkpoints_dir/pointnerf-iter-<n>.npz`` (its
+``latents.feats_table`` is the feats mean the eval renders with):
+
+    python -m npcd_tpu_torch.eval_pointnerf --config configs/npcd_synthetic_tiny.yaml \\
+        --weights runs/pointnerf/weights_only_checkpoints_dir/pointnerf-iter-<n>.npz \\
+        --output runs/eval_psnr --device cpu
+
+Rows of (obj_idx, view, psnr) go to ``<output>/results.json`` and
+``results.csv``, their mean to ``summary.csv`` with the time of a forward
+and the peak device memory (``--eval_batch_size 1``, after 3 burn-in
+objects); a run whose results exist is skipped. The dataset is the
+config's: ``SRNCarsTrain`` raises until SRN data is in the repository, so
+the CLI runs on ``SyntheticNPCTrain`` configs. Exact f32 only
+(``--matmul_precision highest`` or ``float32``); ``--mesh`` raises
+NotImplementedError, ``--platform`` is refused.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--output", help="Path to folder for output data.")
+    p.add_argument("--config", help="Path to config file.", required=True)
+    p.add_argument("--weights", help="Path to the stage-1 export (.npz).", required=True)
+    p.add_argument("--seed", type=int, default=42, help="Random seed. Default: 42.")
+    p.add_argument("--eval_batch_size", type=int, default=1,
+                   help="Views per render batch; runtime measurement requires 1.")
+    p.add_argument("--eval_name", type=str, help="Name of the evaluation. Optional.")
+    p.add_argument("--finished_iterations", type=int,
+                   help="Training iterations of the model (logging only).")
+    p.add_argument("--num_samples", type=int, help="Number of objects to evaluate. Default: all.")
+    p.add_argument("--samples", type=int, nargs="*", help="Specific sample indices to evaluate.")
+    p.add_argument("--num_qualitatives", type=int, default=10,
+                   help="Number of qualitative renders to save.")
+    p.add_argument("--qualitatives", type=int, nargs="*", help="Specific qualitative indices.")
+    p.add_argument("--log_dir", help="Folder for tensorboard logs. Default: output dir.")
+    p.add_argument("--no_tensorboard", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="Log to Weights & Biases (requires the wandb package).")
+    p.add_argument("--exp_id", type=str)
+    p.add_argument("--comment", type=str)
+    p.add_argument("--matmul_precision", default="highest",
+                   choices=["default", "float32", "highest", "tensorfloat32"],
+                   help="highest / float32: exact f32 (the port's only setting so far).")
+    p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--platform", type=str, default=None,
+                   help="A JAX backend flag; the port refuses it (use --device).")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def load_stage1_weights(model, path: str) -> None:
+    """The stage-1 export's MLPs, coords table and feats mean into ``model``
+    (a PointNeRF with tables of the same size; strict); the log-variance
+    half of its feats table, which the eval does not read, is set to 0."""
+    import torch
+
+    from .utils.from_jax import LATENTS
+
+    with np.load(path) as z:
+        state = {k[len("pointnerf."):]: z[k] for k in z.files if k.startswith("pointnerf.")}
+        feats = z[f"{LATENTS}.feats_table"]
+        state["tables.coords_table"] = z[f"{LATENTS}.coords_table"]
+    state["tables.feats_table"] = np.concatenate([feats, np.zeros_like(feats)], -1)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32))
+                           for k, v in state.items()})
+
+
+def evaluate(args, config=None, dataset=None) -> dict:
+    """Build and run the evaluation as the CLI does; ``config`` replaces the
+    file's (a loaded config dict) and ``dataset`` the config's dataset ->
+    {"rows", "summary"}."""
+    from .eval import PointNeRFEvaluation
+    from .eval_diffusion import close_output, open_output, refuse_unported
+    from .generate_samples import _device, exact_f32
+    from .utils import logging
+    from .utils.builders import build_dataset, build_pointnerf
+    from .utils.config import load_config, print_config
+
+    refuse_unported(args)
+    exact_f32()
+    device = _device(args.device)
+    open_output(args, args.output)
+    try:
+        config = config if config is not None else load_config(args.config)
+        print_config(config)
+        dataset = dataset if dataset is not None else build_dataset(config)
+        model = build_pointnerf(config, with_tables=True)
+        load_stage1_weights(model, args.weights)
+        model = model.to(device).eval()
+        logging.info(f"Loaded weights from {args.weights}")
+        evaluation = PointNeRFEvaluation(out_dir=args.output, eval_batch_size=args.eval_batch_size)
+        return evaluation(dataset, model, samples=args.num_samples, sample_indices=args.samples,
+                          qualitatives=args.num_qualitatives,
+                          resolution=model.opts.default_resolution)
+    finally:
+        close_output(args.output)
+
+
+if __name__ == "__main__":
+    evaluate(parse_args())

@@ -5,6 +5,8 @@ clouds. Port of npcd_tpu/models/pointnerf/pointnerf.py:
     ray packing, ray chunks of ``eval_ray_chunk`` that are skipped when they
     hold no valid sample, and the slot-block staircase of
     ``eval_slot_block``;
+  * ``eval_forward``, the eval branch of npcd_tpu's ``forward``: ``render``
+    of the tables' clouds with the feats mean;
   * the latent tables (``n_obj`` given: ``set_all_coords``,
     ``get_all_coords``, ``get_all_feats``) and ``forward``, the train
     branch: depth jitter, validity, compaction, ``train_rays`` rays
@@ -388,6 +390,18 @@ class PointNeRF(nn.Module):
                 "ray_valid": reshape(out["ray_valid"]),
                 "ray_idx": reshape(pixel_idx[out["sel_idx"]]),
                 "ray_sel": reshape(out["sel_idx"])}, aux
+
+    @torch.no_grad()
+    def eval_forward(self, obj_idx: torch.Tensor, intrinsics: torch.Tensor,
+                     extrinsics: torch.Tensor,
+                     resolution: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """npcd_tpu's ``forward(train=False)``: objects obj_idx [B] of the
+        tables, their coords and the feats **mean**, rendered from
+        intrinsics [B, V, 3, 3] and world2cam extrinsics [B, V, 4, 4] at
+        ``resolution`` (default_resolution when None) -> ``render``'s dict."""
+        return self.render(self.get_all_coords()[obj_idx], self.get_all_feats()[obj_idx],
+                           extrinsics, intrinsics,
+                           resolution=resolution or self.opts.default_resolution)
 
     @torch.no_grad()
     def render(self, coords: torch.Tensor, feats: torch.Tensor, extrinsics: torch.Tensor,
