@@ -136,11 +136,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 20: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19 or 20, each kernel of a path
+ 18. launch counts, checked after phase 21: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20 or 21, each kernel of a path
      during that path ("generation", "training", "bf16 training", "stage 1",
-     "fast stage 1", "attention", "fid eval", "psnr eval"); the bf16
-     launches of K1, K2, K6 and K8 are counted apart from the f32 ones;
+     "fast stage 1", "attention", "fid eval", "psnr eval", "srn fast stage
+     1"); the bf16 launches of K1, K2, K6 and K8 are counted apart from the
+     f32 ones;
  19. main path, FID eval: python -m npcd_tpu_torch.eval_diffusion's code path
      on configs/npcd_srncars.yaml with phase 5's seeded weights and the
      config's validity (knn): 2 samples in one group of 2, each rendered
@@ -163,7 +164,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      rays/s, peak memory and PSNR; renders one view of each again (its PSNR
      bitwise the eval's) and holds the f32 one against the CPU's plain
      render of that view (within 1e-3, and the PSNRs within what that
-     allows). Path "psnr eval": K4, K5, K6f in f32, the bf16 K6f and K7f.
+     allows). Path "psnr eval": K4, K5, K6f in f32, the bf16 K6f and K7f;
+ 21. main path, SRN fast stage 1: writes an SRN-format tree (56 objects x 50
+     views at 128^2, PNGs whose rows take all five filter types, cam2world
+     poses, intrinsics.txt, 30,000-point clouds without the FPS cache; cut:
+     the object count, 2347 -> 56), then runs python -m
+     npcd_tpu_torch.train_pointnerf's code path on
+     configs/npcd_srncars_fast.yaml with SRNCarsTrain built through the
+     dataset registry over it: the preload (the port's PNG reader, FPS on
+     the CPU), 7 steps of B 8 x V 50 through the prefetched loop, a
+     qualitative re-render at step 7; prints the preload's seconds (decode,
+     FPS), steps/s over steps 3-7, peak memory, and the device busy share
+     of 3 more steps under torch.profiler; checks every decoded image
+     bitwise equal to the uint8 array it was written from (/255 in f32),
+     the caches written, FPS on the card picking the CPU's points, the
+     coords table equal to them, the re-render's PSNR finite and the
+     checkpoint restored bitwise. Path "srn fast stage 1": K4, K5, the bf16
+     K6f/K6b, K7f/K7b.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -177,6 +194,7 @@ the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -205,6 +223,7 @@ from npcd_tpu_torch.generate_samples import (  # noqa: E402
 from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # noqa: E402
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
 from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
+from npcd_tpu_torch.data import srn as srn_module  # noqa: E402
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp  # noqa: E402
 from npcd_tpu_torch.ops.kernels import build  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp import (  # noqa: E402
@@ -215,6 +234,7 @@ from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (  # noqa: E402
     fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc_wsum_bwd_plain,
     fused_mlp_posenc_wsum_plain, leaky_kinks)
 from npcd_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
+from npcd_tpu_torch.ops.fps import farthest_point_sampling  # noqa: E402
 from npcd_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain)
@@ -232,8 +252,11 @@ from npcd_tpu_torch.utils.builders import (  # noqa: E402
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
 from npcd_tpu_torch.utils.fidkid import FIDKID  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
+from npcd_tpu_torch.profile_generation import _report  # noqa: E402
+from npcd_tpu_torch.utils import builders  # noqa: E402
 from npcd_tpu_torch.utils.util import psnr  # noqa: E402
 from min_d2_filter import hard_min_d2_inputs  # noqa: E402
+from srn_fixture import VIEWS, fixture_image, write_srn_tree  # noqa: E402
 
 # the generation CLI's required --out (run() itself writes no files); the
 # training path writes its checkpoints and exports under OUT / "train"
@@ -338,6 +361,7 @@ FID_POSES, FID_FEATURES = 32, 16
 PSNR_OBJECTS, PSNR_VIEWS = 5, 4
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
 STAGE1_WARMUP = 2
+SRN_CLOUD, SRN_PROFILED = 30_000, 3  # points in an object's pointcloud3.npz; profiled steps
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
@@ -404,8 +428,14 @@ def phase_env() -> str:
         triton_version = triton.__version__
     except ImportError:
         triton_version = "missing"
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = "missing (the port reads PNGs itself)"
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} triton {triton_version} "
-          f"nvcc {build.nvcc_path()} device {torch.cuda.get_device_name(0)}")
+          f"nvcc {build.nvcc_path()} c++ {build.cxx_path()} PIL {pil} "
+          f"device {torch.cuda.get_device_name(0)}")
     exact_f32()
     return smi.splitlines()[0]
 
@@ -1824,8 +1854,8 @@ class _FirstObjects:
     def __len__(self) -> int:
         return self.n
 
-    def batch(self, indices):
-        return self.ds.batch(indices)
+    def batch(self, indices, pixel_idx=None):
+        return self.ds.batch(indices, pixel_idx)
 
     def get_all_coords(self):
         return self.ds.get_all_coords()
@@ -2266,6 +2296,147 @@ def phase_psnr_eval() -> dict:
     return {"launches": launches}
 
 
+def phase_srn_stage1(tag: str = "srn-fast-stage1") -> dict:
+    """python -m npcd_tpu_torch.train_pointnerf's code path on the fast
+    config with SRNCarsTrain, built through the registry, over an SRN-format
+    tree the phase writes."""
+    out = OUT / tag
+    shutil.rmtree(out, ignore_errors=True)
+    config = load_config(str(FAST))
+    size = build_pointnerf_options(config).default_resolution
+    t0 = time.perf_counter()
+    ids = [f"obj{o:04d}" for o in range(STAGE1_OBJECTS)]
+    sample_list = write_srn_tree(out / "srn", "cars", ids, size, SRN_CLOUD)
+    print(f"[{tag}] wrote an SRN-format tree: {len(ids)} objects x {VIEWS} views at {size}^2, "
+          f"PNG rows under all five filter types, cam2world poses, intrinsics.txt, "
+          f"{SRN_CLOUD}-point clouds without the FPS cache ({time.perf_counter() - t0:.1f} s); "
+          f"cut: the object count, {config['model']['n_obj']} -> {len(ids)}")
+    config["model"]["n_obj"] = len(ids)
+    config["dataset_kwargs"] = {"root": str(out / "srn"), "sample_list": sample_list}
+    steps = len(ids) // config["pointnerf_training"]["batch_size"]
+    config["pointnerf_training"].update(max_epochs=1, print_interval=1, log_scalars_interval=1,
+                                        log_interval=steps)
+    args = train_pointnerf.parse_args(["--config", str(FAST), "--output", str(out / "train"),
+                                       "--device", "cuda", "--no_tensorboard", "--seed", "0"])
+    spent = {"build": [], "decode": [], "fps": []}  # seconds of each call, on the loader threads
+    built = []
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name].append(time.perf_counter() - t)
+        return wrapper
+
+    patched = {(builders, "build_dataset"): builders.build_dataset,
+               (srn_module, "_load_image"): srn_module._load_image,
+               (srn_module, "farthest_point_sampling"): srn_module.farthest_point_sampling}
+
+    def build_dataset(*a, **kw):
+        built.append(patched[builders, "build_dataset"](*a, **kw))
+        return built[-1]
+
+    builders.build_dataset = timed("build", build_dataset)
+    srn_module._load_image = timed("decode", patched[srn_module, "_load_image"])
+    srn_module.farthest_point_sampling = timed("fps", patched[srn_module, "farthest_point_sampling"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = train_pointnerf.train(args, config)
+        torch.cuda.synchronize()
+    finally:
+        for (module, name), fn in patched.items():
+            setattr(module, name, fn)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dataset = built[0]
+    if type(dataset).__name__ != "SRNCarsTrain" or trainer.dataset is not dataset:
+        raise AssertionError(f"the CLI's path built {type(dataset).__name__}")
+    print(f"[{tag}] SRNCarsTrain through the registry: preload {spent['build'][0]:.2f} s on 8 "
+          f"threads (thread-seconds: PNG decode {sum(spent['decode']):.2f} for "
+          f"{len(spent['decode'])} images, FPS {sum(spent['fps']):.2f} for {len(spent['fps'])} "
+          f"clouds of {SRN_CLOUD} -> {config['model']['num_points']})")
+
+    hist = trainer.history
+    if [h["it"] for h in hist] != list(range(1, steps + 1)):
+        raise AssertionError(f"expected {steps} logged steps, got {len(hist)}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss: {[h['loss'] for h in hist]}")
+    steps_s = (steps - STAGE1_WARMUP) / (hist[-1]["time"] - hist[STAGE1_WARMUP - 1]["time"])
+    print(f"[{tag}] {steps} steps of B {trainer.batch_size} x V {VIEWS} through the prefetched "
+          f"loop in {wall:.1f} s (with the preload, the final checkpoint and export): "
+          f"{steps_s:.4f} steps/s over steps {STAGE1_WARMUP + 1}-{steps}; peak {peak_gib:.2f} GiB; "
+          f"loss " + " ".join(f"{h['loss']:.6g}" for h in hist))
+    with open(out / "train" / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    names = ("full_render_psnr", "feats_mean_abs", "feats_std_mean")
+    quali = {e["name"]: e["value"] for e in logged if e["step"] == steps
+             and e["name"] in [f"pointnerf_train/{n}" for n in names]}
+    if len(quali) != len(names) or not all(map(np.isfinite, quali.values())):
+        raise AssertionError(f"the qualitative re-render at step {steps} logged {quali}")
+    print(f"[{tag}] qualitative re-render at step {steps}: " + ", ".join(
+        f"{k.split('/')[1]} {v:.6g}" for k, v in quali.items()))
+
+    # the images bitwise what was written; the caches, FPS on the card, the coords table
+    for sample in dataset.samples:
+        o = int(sample["obj_idx"])
+        for image, v in zip(sample["images"], sample["view_indices"]):
+            want = fixture_image(0, o, int(v), size).astype(np.float32) / 255.0
+            if not np.array_equal(image, want.reshape(-1, 3)):
+                raise AssertionError(f"object {o} view {v}: the decoded image differs")
+    coords = trainer.model.tables.coords_table
+    for o, (c, name, _) in enumerate(sample_list):
+        path = out / "srn" / c / name
+        with np.load(path / "pointcloud3.npz") as z:
+            points, normals = z["points"], z["normals"]
+        with np.load(path / f"pointcloud3_{config['model']['num_points']}.npz") as z:
+            cached, cached_normals = z["points"], z["normals"]
+        sampled, idx = farthest_point_sampling(torch.from_numpy(points).cuda(),
+                                               config["model"]["num_points"])
+        if not (torch.equal(sampled.cpu(), torch.from_numpy(cached))
+                and np.array_equal(normals[idx.cpu().numpy()], cached_normals)
+                and torch.equal(coords[o], sampled)):
+            raise AssertionError(f"object {o}: FPS on the card, the cache and the coords table "
+                                 "disagree")
+    print(f"[{tag}] {len(dataset)} x {VIEWS} decoded images bitwise the uint8 arrays written "
+          f"/255; {len(ids)} caches written; FPS on the card picks the CPU's points; the coords "
+          f"table holds them")
+
+    fresh = PointNeRFTraining(str(out / "train"), build_pointnerf(config, with_tables=True),
+                              dataset, device="cuda", verbose=False, **config["pointnerf_training"])
+    a, b = trainer.state_dict(), fresh.state_dict()
+    same = a["step"] == b["step"] == steps and a["presample_rng"] == b["presample_rng"]
+    same = same and all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    opt_a, opt_b = a["optimizer"]["state"], b["optimizer"]["state"]
+    same = same and opt_a.keys() == opt_b.keys() and all(
+        torch.equal(v, opt_b[i][k]) for i, st in opt_a.items() for k, v in st.items())
+    print(f"[{tag}] checkpoint restored into a fresh trainer at step {fresh.step}: "
+          f"{'bitwise equal' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("restored stage-1 train state differs from the saved one")
+    del fresh, a, b, opt_a, opt_b
+
+    with contextlib.closing(trainer.feeds(trainer.step)) as feeds:
+        trainer.train_feed(next(feeds))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SRN_PROFILED):
+                trainer.train_feed(next(feeds))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _report(f"{tag} x{SRN_PROFILED}", prof, wall)
+    del trainer, dataset, built, prof
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2299,6 +2470,8 @@ def main() -> None:
     _timed("gpu-vs-cpu-fast-stage1", phase_stage1_cpu_step, FAST, "gpu-vs-cpu-fast-stage1")
     paths["fid eval"] = (_timed("fid-eval", phase_fid_eval)["launches"], FID_EVAL)
     paths["psnr eval"] = (_timed("psnr-eval", phase_psnr_eval)["launches"], PSNR_EVAL)
+    paths["srn fast stage 1"] = (_timed("srn-fast-stage1", phase_srn_stage1)["launches"],
+                                 FAST_STAGE1)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

@@ -10,7 +10,10 @@ from typing import Dict
 
 import numpy as np
 
+from .registry import register_dataset
 
+
+@register_dataset
 class PointNeRFDataset:
     def __init__(self, all_coords, all_feats):
         """all_coords [n_obj, P, 3], all_feats [n_obj, P, F]."""

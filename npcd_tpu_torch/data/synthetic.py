@@ -3,15 +3,16 @@
 [-0.5, 0.5]^3 and flat-coloured white-background images from cameras on a
 sphere, the same numpy draws as npcd_tpu's for the same seed. The images
 are one colour per object, so the dataset keeps the colour and a batch
-expands it: the full SRN-sized table (2347 objects x 50 views x 128^2)
-never sits in host memory. The SRN datasets are not ported: no SRN data is
-in the repository, and the GPU host has no image decoder (ROADMAP Queue 1,
-evals and CLIs)."""
+expands it, to the pixels the step keeps where it is given them: the full
+SRN-sized table (2347 objects x 50 views x 128^2) never sits in host
+memory."""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+from .registry import register_dataset
 
 
 def _look_at_world2cam(eye: np.ndarray) -> np.ndarray:
@@ -48,6 +49,7 @@ def random_cameras(num_views: int, image_size: int, radius: float = 2.2, seed: i
     return np.stack(extr), np.stack(intr)
 
 
+@register_dataset
 class SyntheticNPCTrain:
     """Random point clouds and flat-coloured images (not rendered from the
     clouds: they exercise training with the right shapes and ranges)."""
@@ -75,13 +77,14 @@ class SyntheticNPCTrain:
         return {"obj_idx": np.int32(i), "images": images, "extrinsics": self.extrinsics,
                 "intrinsics": self.intrinsics, "view_indices": np.arange(v, dtype=np.int32)}
 
-    def batch(self, indices) -> Dict[str, np.ndarray]:
+    def batch(self, indices, pixel_idx=None) -> Dict[str, np.ndarray]:
         """{obj_idx [n] int32, images [n, V, H*W, 3], intrinsics [n, V, 3, 3],
-        extrinsics [n, V, 4, 4]} of the objects ``indices``."""
+        extrinsics [n, V, 4, 4]} of the objects ``indices``; with
+        ``pixel_idx`` [R], images [n, V, R, 3] of those pixels only."""
         indices = np.asarray(indices)
         n, v = len(indices), len(self.extrinsics)
-        images = np.broadcast_to(self.colors[indices, None, None, :],
-                                 (n, v, self.image_size ** 2, 3))
+        pixels = self.image_size ** 2 if pixel_idx is None else len(pixel_idx)
+        images = np.broadcast_to(self.colors[indices, None, None, :], (n, v, pixels, 3))
         stack = lambda a: np.ascontiguousarray(np.broadcast_to(a, (n,) + a.shape))
         return {"obj_idx": indices.astype(np.int32),
                 "images": np.ascontiguousarray(images),
@@ -91,12 +94,3 @@ class SyntheticNPCTrain:
         """[n_obj, P, 3]."""
         return self.pcs
 
-
-class SRNCarsTrain:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SRNCarsTrain is not ported: no SRN data is in the repository and the GPU host "
-            "has no image decoder (ROADMAP Queue 1, evals and CLIs); use SyntheticNPCTrain")
-
-
-DATASETS = {"SyntheticNPCTrain": SyntheticNPCTrain, "SRNCarsTrain": SRNCarsTrain}

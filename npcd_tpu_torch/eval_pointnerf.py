@@ -14,14 +14,15 @@ Rows of (obj_idx, view, psnr) go to ``<output>/results.json`` and
 ``results.csv``, their mean to ``summary.csv`` with the time of a forward
 and the peak device memory (``--eval_batch_size 1``, after 3 burn-in
 objects); a run whose results exist is skipped. The dataset is the
-config's: ``SRNCarsTrain`` raises until SRN data is in the repository, so
-the CLI runs on ``SyntheticNPCTrain`` configs. Exact f32 only
+config's, built through the dataset registry as ``train_pointnerf`` builds
+it (the SRN views shuffled by ``random.Random(--seed)``). Exact f32 only
 (``--matmul_precision highest`` or ``float32``); ``--mesh`` raises
 NotImplementedError, ``--platform`` is refused.
 """
 from __future__ import annotations
 
 import argparse
+import random
 
 import numpy as np
 
@@ -93,7 +94,8 @@ def evaluate(args, config=None, dataset=None) -> dict:
     try:
         config = config if config is not None else load_config(args.config)
         print_config(config)
-        dataset = dataset if dataset is not None else build_dataset(config)
+        if dataset is None:
+            dataset = build_dataset(config, view_rng=random.Random(args.seed))
         model = build_pointnerf(config, with_tables=True)
         load_stage1_weights(model, args.weights)
         model = model.to(device).eval()

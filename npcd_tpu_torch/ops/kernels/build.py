@@ -7,7 +7,8 @@ so an edited kernel or header rebuilds), then loaded with ``ctypes``.
 Nothing here includes PyTorch's headers, so a build takes seconds, not
 minutes. The wrappers in this package pass device pointers and the
 current CUDA stream as ``c_void_p`` and raise when the C entry point
-returns a non-zero ``cudaError_t``.
+returns a non-zero ``cudaError_t``. ``load_host`` does the same for a host
+routine, ``csrc/<name>.cpp``, with the host C++ compiler.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -27,7 +29,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -88,6 +93,50 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def cxx_path() -> str:
+    for cand in ("c++", "g++"):
+        found = shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found: the host routines of "
+                       "npcd_tpu_torch/csrc/*.cpp are built with one")
+
+
+def host_so_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def compile_host(source: Path, target: Path) -> None:
+    """``source`` (C++) -> the shared library ``target``, compiled to a
+    temporary file in its directory and renamed into place, so that
+    processes building it at once never load a partial file."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    proc = subprocess.run([cxx_path(), *HOST_FLAGS, "-o", tmp, str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"the host C++ compiler failed on {source.name}:\n{proc.stdout}")
+    os.replace(tmp, target)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host routine ``csrc/<name>.cpp``, built on
+    first use."""
+    with _host_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = host_so_path(name)
+            if not path.exists():
+                compile_host(CSRC / f"{name}.cpp", path)
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

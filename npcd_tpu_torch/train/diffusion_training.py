@@ -21,6 +21,7 @@ cannot reproduce; the tests replay JAX's draws through ``train_step``'s
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -28,7 +29,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data import BatchLoader
+from ..data import BatchLoader, prefetch_to_device
 from ..models.diffusion.diffusion_model import DiffusionModel, DiffusionState
 from ..models.diffusion.normalizers import NormalizerStats
 from ..utils import logging, writer
@@ -255,6 +256,12 @@ class DiffusionTraining:
             yield from loader.batches(loader.epoch_order(), skip)
             skip = 0
 
+    def _to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The batch's coords and feats on the device (copied on the current
+        stream)."""
+        return {k: torch.as_tensor(batch[k], dtype=torch.float32).to(self.device)
+                for k in ("coords", "feats")}
+
     def __call__(self):
         if self.step >= self.max_iterations:
             logging.info("Training already finished.")
@@ -263,28 +270,32 @@ class DiffusionTraining:
         it = self.step
         last_ckpt_time = time.time()
         t_print = time.perf_counter()
-        for batch in self.batches(it):
-            if it >= self.max_iterations:
-                break
-            metrics = self.train_step(batch)
-            it += 1
-            if it % self.print_interval == 0:
-                values = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                now = time.perf_counter()
-                dt = (now - t_print) / self.print_interval
-                t_print = now
-                self.history.append({"it": it, "time": now, **values})
-                logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
-                             f"grad_norm {values['grad_norm']:.5f} ({dt * 1000:.1f} ms/it)")
-            if it % self.log_scalars_interval == 0:
-                writer.put_scalar_dict("diffusion_train",
-                                       {k: float(v) for k, v in metrics.items()}, it)
-                writer.write_out_storage()
-            if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min, iteration=it):
-                self.saver.save(self.state_dict(), it)
-                last_ckpt_time = time.time()
-            if it % self.weights_only_interval == 0:
-                self._save_weights_only(it)
+        # the loader and the copy of the next batches run on a thread ahead
+        # of the step (npcd_tpu's prefetch_to_device)
+        with contextlib.closing(prefetch_to_device(self.batches(it), self._to_device)) as feeds:
+            for batch in feeds:
+                metrics = self.train_step(batch)
+                it += 1
+                if it % self.print_interval == 0:
+                    values = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                    now = time.perf_counter()
+                    dt = (now - t_print) / self.print_interval
+                    t_print = now
+                    self.history.append({"it": it, "time": now, **values})
+                    logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
+                                 f"grad_norm {values['grad_norm']:.5f} ({dt * 1000:.1f} ms/it)")
+                if it % self.log_scalars_interval == 0:
+                    writer.put_scalar_dict("diffusion_train",
+                                           {k: float(v) for k, v in metrics.items()}, it)
+                    writer.write_out_storage()
+                if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
+                                  iteration=it):
+                    self.saver.save(self.state_dict(), it)
+                    last_ckpt_time = time.time()
+                if it % self.weights_only_interval == 0:
+                    self._save_weights_only(it)
+                if it >= self.max_iterations:
+                    break
 
         self.saver.save(self.state_dict(), it)
         self._save_weights_only(it)

@@ -13,27 +13,42 @@ depth jitter and the ray-selection scores from a torch.Generator seeded
 from (seed, step), as the stage-2 trainer does (npcd_tpu draws them from
 fold_in(PRNGKey(seed), step), which torch cannot reproduce; the tests
 replay JAX's draws through ``train_step``'s ``draws``). The batch order
-comes from a numpy generator seeded with ``seed``. Checkpoints hold the
-model, Adam's state, the step and the presample generator's state, so a
-resumed run takes the same steps as an uninterrupted one.
+comes from a numpy generator seeded with ``seed``.
+
+The loop feeds the step through ``prefetch_to_device`` (npcd_tpu's
+``to_device``): a thread ahead of the step takes each batch's indices,
+draws its pixel subset, gathers those pixels from each sample's images
+and stacks them (the same values as gathering from the stacked batch,
+~0.5 MB a step in place of the full frames), and copies the feed to the
+device on the step's stream. Each feed carries the presample generator's
+state after its own draw, and checkpoints hold the state of the last feed
+the step consumed with the model, Adam's state and the step, so a resumed
+run takes the same steps as an uninterrupted one. Every ``log_interval``
+steps the consumed batch's first object is rendered again in eval mode
+(``_log_qualitative``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..data import BatchLoader
+from ..data import BatchLoader, collate, prefetch_to_device
 from ..losses import PointNeRFLossWeights, pointnerf_loss
+from ..models.pointnerf.embeddings import feats_mean_log_var_std
 from ..models.pointnerf.pointnerf import PointNeRF
 from ..utils import logging, writer
 from ..utils.checkpoint import CheckpointSaver, timed_save_due
 from ..utils.from_jax import LATENTS, save_npz
+from ..utils.util import psnr
 from .diffusion_training import _step_seed
+
+FEED_KEYS = ("obj_idx", "images", "intrinsics", "extrinsics")
 
 
 class PointNeRFTraining:
@@ -51,6 +66,7 @@ class PointNeRFTraining:
         device: str | torch.device = "cpu",
         print_interval: int = 100,
         log_scalars_interval: int = 100,
+        log_interval: int = 5000,
         save_checkpoint_interval_min: float = 20.0,
         verbose: bool = True,
         **_,
@@ -72,6 +88,7 @@ class PointNeRFTraining:
         self.seed = seed
         self.print_interval = print_interval
         self.log_scalars_interval = log_scalars_interval
+        self.log_interval = log_interval
         self.save_checkpoint_interval_min = save_checkpoint_interval_min
         self.verbose = verbose
 
@@ -85,6 +102,8 @@ class PointNeRFTraining:
         self.optimizer = torch.optim.Adam(model.parameters(), lr=base_learning_rate,
                                           betas=(0.9, 0.999), eps=1e-8)
         self._presample_rng = np.random.default_rng(seed + 0x51D)
+        # the generator's state after the last draw the step consumed
+        self._presample_state = json.dumps(self._presample_rng.bit_generator.state)
         self._generator = torch.Generator(device=self.device)
         self.step = 0
         self.history: List[Dict[str, float]] = []
@@ -104,14 +123,14 @@ class PointNeRFTraining:
     def state_dict(self) -> Dict[str, Any]:
         """The full train state (tensors are the live buffers)."""
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step,
-                "presample_rng": json.dumps(self._presample_rng.bit_generator.state)}
+                "step": self.step, "presample_rng": self._presample_state}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-        self._presample_rng.bit_generator.state = json.loads(state["presample_rng"])
+        self._presample_state = state["presample_rng"]
+        self._presample_rng.bit_generator.state = json.loads(self._presample_state)
 
     def load_bridged_state(self, bridged: Mapping[str, Any]) -> None:
         """Start from an npcd_tpu train state carried over by
@@ -139,30 +158,70 @@ class PointNeRFTraining:
         forward -> loss -> backward -> Adam. ``draws`` replaces draws of this
         step (pixel_idx, feats_eps, depth_jitter, ray_scores; see
         PointNeRF.forward). Returns the metrics as device tensors (no sync)."""
-        dev = self.device
         draws = dict(draws or {})
         images = np.asarray(batch["images"])
         pixel_idx = draws.pop("pixel_idx", None)
         if pixel_idx is None:
-            pixel_idx = self._presample_rng.choice(
-                images.shape[2], size=self.model.opts.renderer.ray_subsamples,
-                replace=False).astype(np.int32)
-        pixel_idx = torch.as_tensor(pixel_idx)
-        images = images[:, :, pixel_idx.cpu().numpy()]  # only these pixels go to the device
-        draws = {k: torch.as_tensor(v).to(dev) for k, v in draws.items()}
-        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
-        obj_idx = torch.as_tensor(np.asarray(batch["obj_idx"]), dtype=torch.long, device=dev)
+            pixel_idx = self._draw_pixels(images.shape[2])
+        pixel_idx = np.asarray(pixel_idx)
+        feed = self._to_device({**batch, "images": images[:, :, pixel_idx]}, pixel_idx)
+        return self.train_feed(feed, draws)
+
+    def _draw_pixels(self, frame_pixels: int) -> np.ndarray:
+        """The step's shared pixel subset, npcd_tpu's draw."""
+        return self._presample_rng.choice(
+            frame_pixels, size=self.model.opts.renderer.ray_subsamples,
+            replace=False).astype(np.int32)
+
+    def _host_batch(self, indices, pixel_idx: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        """FEED_KEYS of the objects ``indices``; with ``pixel_idx`` [R], images
+        [n, V, R, 3] of those pixels only, gathered from each sample's own
+        images before they are stacked."""
+        if hasattr(self.dataset, "batch"):
+            return self.dataset.batch(indices, pixel_idx)
+        samples = []
+        for i in indices:
+            s = self.dataset[int(i)]
+            images = s["images"] if pixel_idx is None else s["images"][:, pixel_idx]
+            samples.append({**{k: s[k] for k in FEED_KEYS}, "images": images})
+        return collate(samples)
+
+    def _to_device(self, batch: Mapping[str, Any], pixel_idx: np.ndarray) -> Dict[str, Any]:
+        """The step's inputs on the device (copied on the current stream),
+        with the presample generator's state after pixel_idx's draw."""
+        dev = self.device
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(dev)
+        return {"obj_idx": torch.as_tensor(np.asarray(batch["obj_idx"]), dtype=torch.long).to(dev),
+                "images": as_t(batch["images"]), "intrinsics": as_t(batch["intrinsics"]),
+                "extrinsics": as_t(batch["extrinsics"]),
+                "pixel_idx": torch.as_tensor(pixel_idx).to(dev),
+                "presample_state": json.dumps(self._presample_rng.bit_generator.state)}
+
+    def _feed(self, indices) -> Dict[str, Any]:
+        """npcd_tpu's ``to_device`` on the prefetch thread: the device feed
+        of the objects ``indices``, its pixel subset drawn here."""
+        pixel_idx = self._draw_pixels(self.model.opts.default_resolution ** 2)
+        feed = self._to_device(self._host_batch(indices, pixel_idx), pixel_idx)
+        feed["indices"] = indices
+        return feed
+
+    def train_feed(self, feed: Mapping[str, Any], draws: Optional[Mapping[str, Any]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """``train_step`` on a device feed (an item of ``feeds``)."""
+        dev = self.device
+        draws = {k: torch.as_tensor(v).to(dev) for k, v in (draws or {}).items()}
         self.optimizer.zero_grad(set_to_none=False)
         generator = self._generator.manual_seed(_step_seed(self.seed, self.step))
-        pred, aux = self.model(obj_idx, as_t(batch["intrinsics"]), as_t(batch["extrinsics"]),
-                               pixel_idx, generator=generator, draws=draws)
-        loss, sub_losses = pointnerf_loss({"images": as_t(images)}, pred, aux, self.model.opts,
-                                          self.loss_weights)
+        pred, aux = self.model(feed["obj_idx"], feed["intrinsics"], feed["extrinsics"],
+                               feed["pixel_idx"], generator=generator, draws=draws)
+        loss, sub_losses = pointnerf_loss({"images": feed["images"]}, pred, aux,
+                                          self.model.opts, self.loss_weights)
         loss.backward()
         if self.grad_clip_max_norm:
             self._clip_by_global_norm(self.grad_clip_max_norm)
         self.optimizer.step()
         self.step += 1
+        self._presample_state = feed["presample_state"]
         return {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
 
     def _clip_by_global_norm(self, max_norm: float) -> None:
@@ -175,8 +234,9 @@ class PointNeRFTraining:
 
     # -- loop ----------------------------------------------------------------
 
-    def batches(self, start: int):
-        """Batches from iteration ``start`` on, epoch after epoch."""
+    def index_batches(self, start: int) -> Iterator[np.ndarray]:
+        """The object indices of each batch from iteration ``start`` on,
+        epoch after epoch."""
         loader = BatchLoader(self.dataset, self.batch_size, self.seed)
         per_epoch = len(loader)
         if per_epoch == 0:
@@ -186,8 +246,18 @@ class PointNeRFTraining:
         for _ in range(epoch):
             loader.epoch_order()
         while True:
-            yield from loader.batches(loader.epoch_order(), skip)
+            yield from loader.index_batches(loader.epoch_order(), skip)
             skip = 0
+
+    def batches(self, start: int) -> Iterator[Dict[str, Any]]:
+        """The full batches (``train_step``'s input) from iteration ``start``
+        on, epoch after epoch."""
+        return map(self._host_batch, self.index_batches(start))
+
+    def feeds(self, start: int):
+        """The loop's device feeds from iteration ``start`` on, prefetched on
+        a thread; close it to stop that thread."""
+        return prefetch_to_device(self.index_batches(start), self._feed)
 
     def __call__(self):
         if self.step >= self.max_iterations:
@@ -197,31 +267,63 @@ class PointNeRFTraining:
         it = self.step
         last_ckpt_time = time.time()
         t_print = time.perf_counter()
-        for batch in self.batches(it):
-            if it >= self.max_iterations:
-                break
-            metrics = self.train_step(batch)
-            it += 1
-            if it % self.print_interval == 0:
-                values = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                now = time.perf_counter()
-                dt = (now - t_print) / self.print_interval
-                t_print = now
-                self.history.append({"it": it, "time": now, **values})
-                logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
-                             f"({dt * 1000:.1f} ms/it)")
-            if it % self.log_scalars_interval == 0:
-                writer.put_scalar_dict("pointnerf_train",
-                                       {k: float(v) for k, v in metrics.items()}, it)
-                writer.write_out_storage()
-            if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min, iteration=it):
-                self.saver.save(self.state_dict(), it)
-                last_ckpt_time = time.time()
+        try:
+            with contextlib.closing(self.feeds(it)) as feeds:
+                for feed in feeds:
+                    metrics = self.train_feed(feed)
+                    it += 1
+                    if it % self.print_interval == 0:
+                        values = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                        now = time.perf_counter()
+                        dt = (now - t_print) / self.print_interval
+                        t_print = now
+                        self.history.append({"it": it, "time": now, **values})
+                        logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
+                                     f"({dt * 1000:.1f} ms/it)")
+                    if it % self.log_scalars_interval == 0:
+                        writer.put_scalar_dict("pointnerf_train",
+                                               {k: float(v) for k, v in metrics.items()}, it)
+                        writer.write_out_storage()
+                    if self.log_interval and it % self.log_interval == 0:
+                        self._log_qualitative(feed, it)
+                    if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
+                                      iteration=it):
+                        self.saver.save(self.state_dict(), it)
+                        last_ckpt_time = time.time()
+                    if it >= self.max_iterations:
+                        break
+        finally:
+            # the prefetch thread drew ahead; rewind to the last consumed draw
+            self._presample_rng.bit_generator.state = json.loads(self._presample_state)
 
         self.saver.save(self.state_dict(), it)
         self.save_weights_only(self.weights_only_path(it))
         self.saver.finish()  # the final snapshot is on disk before returning
         return self
+
+    def _log_qualitative(self, feed: Mapping[str, Any], it: int) -> None:
+        """Eval-mode render of the consumed batch's first object and first
+        view (npcd_tpu pointnerf_training.py:287-313): its PSNR against the
+        ground truth, both images, and the object's feature statistics.
+        A failure is logged and never stops training."""
+        try:
+            obj_idx = feed["obj_idx"][:1]
+            out = self.model.eval_forward(obj_idx, feed["intrinsics"][:1, :1],
+                                          feed["extrinsics"][:1, :1])
+            res = self.model.opts.default_resolution
+            img = np.clip(out["channels"][0, 0].float().cpu().numpy().reshape(res, res, 3), 0, 1)
+            gt = np.asarray(self._host_batch(feed["indices"][:1])["images"][0, 0])
+            gt = gt.reshape(res, res, 3)
+            writer.put_scalar("pointnerf_train/full_render_psnr", psnr(img, gt), it)
+            writer.put_image("pointnerf_train/render", img, it)
+            writer.put_image("pointnerf_train/gt", gt, it)
+            with torch.no_grad():
+                f_mean, _, f_std = feats_mean_log_var_std(self.model.tables.feats_table, obj_idx)
+                writer.put_scalar("pointnerf_train/feats_mean_abs", float(f_mean.abs().mean()), it)
+                writer.put_scalar("pointnerf_train/feats_std_mean", float(f_std.mean()), it)
+            writer.write_out_storage()
+        except Exception as e:  # logging must never stop training
+            logging.warning(f"qualitative logging failed at iter {it}: {e!r}")
 
     def weights_only_path(self, it: int) -> str:
         return os.path.join(self.weights_dir, f"pointnerf-iter-{it:09d}.npz")

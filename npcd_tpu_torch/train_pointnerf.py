@@ -1,10 +1,14 @@
 """Stage-1 CLI: train the PointNeRF autodecoder with the PyTorch port.
 
 Port of train_pointnerf.py (same flags and config schema), plus
-``--device`` (default cuda). TF32 is off; the MLPs run in the config's
-``render_config.compute_dtype`` (bfloat16 in configs/npcd_srncars_fast.yaml,
-whose SRNCarsTrain data the port does not read yet), the parameters, Adam's
-state, checkpoints and exports in f32. The final
+``--device`` (default cuda). The config's ``train_dataset`` is built through
+the dataset registry from its ``dataset_kwargs``: ``SRNCarsTrain`` (the SRN
+configs) reads the tree under ``NPCD_TPU_SRN_ROOT`` or ``[srn] root`` of
+npcd_tpu_torch/data/paths.toml, its views shuffled by
+``random.Random(--seed)`` as npcd_tpu's ``random.seed(--seed)`` shuffles
+them. TF32 is off; the MLPs run in the config's
+``render_config.compute_dtype`` (bfloat16 in configs/npcd_srncars_fast.yaml),
+the parameters, Adam's state, checkpoints and exports in f32. The final
 weights-only export, ``<output>/weights_only_checkpoints_dir/
 pointnerf-iter-<n>.npz``, is the bridged ``.npz`` that stage 2 and
 generation read:
@@ -23,6 +27,7 @@ from __future__ import annotations
 import argparse
 import os
 import os.path as osp
+import random
 import sys
 
 
@@ -76,7 +81,8 @@ def train(args, config=None, dataset=None):
     try:
         config = config if config is not None else load_config(args.config)
         print_config(config)
-        dataset = dataset if dataset is not None else build_dataset(config)
+        if dataset is None:
+            dataset = build_dataset(config, view_rng=random.Random(args.seed))
         training = PointNeRFTraining(
             out_dir=args.output, model=build_pointnerf(
                 config, torch.Generator().manual_seed(args.seed), with_tables=True),

@@ -67,13 +67,13 @@ def torch_dtype(name: str):
     return getattr(torch, name)
 
 
-def build_dataset(config: Dict[str, Any]):
-    from ..data.synthetic import DATASETS
+def build_dataset(config: Dict[str, Any], **kwargs):
+    """The registry's ``train_dataset`` of ``config``, built from its
+    ``dataset_kwargs`` and ``kwargs`` (e.g. the SRN datasets' view_rng)."""
+    from ..data import create_dataset
 
-    name = config["train_dataset"]
-    if name not in DATASETS:
-        raise KeyError(f"unknown train_dataset {name!r}; the port has {sorted(DATASETS)}")
-    return DATASETS[name](**dict(config.get("dataset_kwargs", {})))
+    return create_dataset(config["train_dataset"],
+                          **{**config.get("dataset_kwargs", {}), **kwargs})
 
 
 def build_diffusion_model(config: Dict[str, Any], dtype=None, remat: bool = False):

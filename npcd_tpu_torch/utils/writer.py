@@ -1,11 +1,11 @@
 """Event-buffered metric writer fan-out.
 
 Copy of npcd_tpu/utils/writer.py (which imports no JAX), a rebuild of the
-reference writer (npcd/utils/writer.py), with the scalar path only (the
-port's trainer logs scalars): training code `put`s scalars into a global
-event buffer; `write_out_storage` flushes to all registered backends.
-Backends: JSONL (always available), TensorBoard (when the tensorboard
-package is importable) and Weights & Biases (``--wandb``).
+reference writer (npcd/utils/writer.py), with scalars and images (the
+stage-1 trainer's qualitative renders): training code `put`s them into a
+global event buffer; `write_out_storage` flushes to all registered
+backends. Backends: JSONL (scalars; always available), TensorBoard (when
+the tensorboard package is importable) and Weights & Biases (``--wandb``).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import json
 import os
 import time
 from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 EVENT_STORAGE: List[Dict[str, Any]] = []
 _WRITERS: List["Writer"] = []
@@ -27,6 +29,9 @@ def set_max_iterations(n: int) -> None:
 class Writer:
     def write_scalar(self, name: str, value: float, step: int) -> None:
         raise NotImplementedError
+
+    def write_image(self, name: str, image: np.ndarray, step: int) -> None:
+        pass
 
     def close(self) -> None:
         pass
@@ -54,6 +59,10 @@ class TensorboardWriter(Writer):
     def write_scalar(self, name: str, value: float, step: int) -> None:
         self._tb.add_scalar(name, value, step)
 
+    def write_image(self, name: str, image: np.ndarray, step: int) -> None:
+        # image: [H, W, 3] float in [0, 1]
+        self._tb.add_image(name, image, step, dataformats="HWC")
+
     def close(self) -> None:
         self._tb.close()
 
@@ -76,6 +85,9 @@ class WandbWriter(Writer):
 
     def write_scalar(self, name: str, value: float, step: int) -> None:
         self._wandb.log({name: value}, step=step)
+
+    def write_image(self, name: str, image: np.ndarray, step: int) -> None:
+        self._wandb.log({name: self._wandb.Image(image)}, step=step)
 
     def close(self) -> None:
         self._run.finish()
@@ -108,7 +120,7 @@ def setup_writers(
 
 
 def put_scalar(name: str, value: float, step: int) -> None:
-    EVENT_STORAGE.append({"name": name, "value": value, "step": step})
+    EVENT_STORAGE.append({"kind": "scalar", "name": name, "value": value, "step": step})
 
 
 def put_scalar_dict(prefix: str, values: Dict[str, Any], step: int) -> None:
@@ -116,10 +128,18 @@ def put_scalar_dict(prefix: str, values: Dict[str, Any], step: int) -> None:
         put_scalar(f"{prefix}/{k}", v, step)
 
 
+def put_image(name: str, image: np.ndarray, step: int) -> None:
+    """image: [H, W, 3] float in [0, 1]."""
+    EVENT_STORAGE.append({"kind": "image", "name": name, "value": image, "step": step})
+
+
 def write_out_storage() -> None:
     for ev in EVENT_STORAGE:
         for w in _WRITERS:
-            w.write_scalar(ev["name"], float(ev["value"]), ev["step"])
+            if ev["kind"] == "image":
+                w.write_image(ev["name"], ev["value"], ev["step"])
+            else:
+                w.write_scalar(ev["name"], float(ev["value"]), ev["step"])
     EVENT_STORAGE.clear()
 
 

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from npcd_tpu.models.diffusion.normalizers import fit_minus_one_to_one, fit_unit_gaussian
 from npcd_tpu.models.npcd import NPCD as JaxNPCD
@@ -26,6 +27,16 @@ from npcd_tpu_torch.utils.from_jax import bridge, save_npz
 
 CONFIG = "configs/npcd_synthetic_tiny.yaml"
 RES = 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this file's tiny models: their small ops gain
+    nothing from a thread pool, and the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cameras(n_pose=2):

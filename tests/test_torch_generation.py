@@ -31,6 +31,16 @@ RES = 16
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this file's tiny models: their small ops gain
+    nothing from a thread pool, and the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(loader, **render):
     cfg = loader(CONFIG)
     cfg["render_config"] = {**cfg["render_config"], "validity": "voxel", **render}

@@ -65,6 +65,16 @@ WEIGHTS = (1.0, 1e-2, 1e-2)
 BATCHES = ([0, 3, 5, 6], [1, 2, 4, 7], [2, 3, 6, 7], [0, 1, 4, 5], [1, 3, 5, 7])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this file's tiny models: their small ops gain
+    nothing from a thread pool, and the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(loader):
     cfg = loader(CONFIG)
     cfg["render_config"] = {**cfg["render_config"], "train_rays": 32}

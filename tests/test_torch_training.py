@@ -49,6 +49,16 @@ EMA = (1.0, 0.9, 0.999, False)
 START = 5  # the bridged state's step and Adam count
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this file's tiny models: their small ops gain
+    nothing from a thread pool, and the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(n_obj=8, seed=0):
     rng = np.random.default_rng(seed)
     coords = rng.normal(size=(n_obj, P, C)).astype(np.float32) * 0.4
