@@ -136,12 +136,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 21: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19, 20 or 21, each kernel of a path
-     during that path ("generation", "training", "bf16 training", "stage 1",
-     "fast stage 1", "attention", "fid eval", "psnr eval", "srn fast stage
-     1"); the bf16 launches of K1, K2, K6 and K8 are counted apart from the
-     f32 ones;
+ 18. launch counts, checked after phase 22: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21 or 22, each kernel of a
+     path during that path ("generation", "training", "bf16 training",
+     "stage 1", "fast stage 1", "attention", "fid eval", "psnr eval", "srn
+     fast stage 1", "reference weights"); the bf16 launches of K1, K2, K6 and
+     K8 are counted apart from the f32 ones;
  19. main path, FID eval: python -m npcd_tpu_torch.eval_diffusion's code path
      on configs/npcd_srncars.yaml with phase 5's seeded weights and the
      config's validity (knn): 2 samples in one group of 2, each rendered
@@ -180,7 +180,26 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      the caches written, FPS on the card picking the CPU's points, the
      coords table equal to them, the re-render's PSNR finite and the
      checkpoint restored bitwise. Path "srn fast stage 1": K4, K5, the bf16
-     K6f/K6b, K7f/K7b.
+     K6f/K6b, K7f/K7b;
+ 22. main path, reference weights: writes an SRN-format tree under the
+     first 6 ids of the cars train list (cut: the object count, 2347 -> 6)
+     and a synthetic checkpoint in the reference's layout at the full width
+     of configs/npcd_srncars.yaml (tests/reference_checkpoint.py: per-head
+     [q|k|v] c_qkv, FlexEmbedding extra state, normalizer buffers; 310.8M
+     denoiser parameters, ~1.3 GB), converts it with
+     utils/convert_reference.py, saves and loads it as the bridged .npz;
+     holds the converted denoiser's forward (K1f, K2a/b) on a batch of 2 x
+     513 tokens against the reference's math on its own per-head weights
+     (exact f32 on the card, within 1e-4 of the outputs' scale; the
+     unpermuted columns must miss by 100 times that); writes a stand-in
+     TorchScript Inception graph (2048 features) and its statistics pickle
+     with python -m npcd_tpu_torch.compute_inception_stats over 4 of the
+     tree's objects; then python -m npcd_tpu_torch.parity_eval's code path
+     with --check-assets and with --stage both (validity voxel: 2 PSNR
+     samples of 5 views; 2 generated clouds x 4 SRN test poses for the
+     FID); prints the sizes and the seconds of the write, the conversion
+     and the load, PSNR, FID and KID; deletes the checkpoint. Path
+     "reference weights": K1f, K2a, K2b, K4, K6f in f32.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -199,6 +218,7 @@ import copy
 import dataclasses
 import hashlib
 import json
+import os
 import pickle
 import re
 import shutil
@@ -213,9 +233,11 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # the port; the tests' K5 input
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+import yaml  # noqa: E402
 
 from npcd_tpu_torch import (  # noqa: E402
-    eval_diffusion, eval_pointnerf, train_diffusion, train_pointnerf)
+    compute_inception_stats, eval_diffusion, eval_pointnerf, parity_eval, train_diffusion,
+    train_pointnerf)
 from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
 from npcd_tpu_torch.eval import DiffusionEvaluation  # noqa: E402
 from npcd_tpu_torch.generate_samples import (  # noqa: E402
@@ -250,12 +272,14 @@ from npcd_tpu_torch.train import DiffusionTraining, PointNeRFTraining  # noqa: E
 from npcd_tpu_torch.utils.builders import (  # noqa: E402
     build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
+from npcd_tpu_torch.utils.convert_reference import convert_checkpoint, save_converted  # noqa: E402
 from npcd_tpu_torch.utils.fidkid import FIDKID  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
 from npcd_tpu_torch.profile_generation import _report  # noqa: E402
 from npcd_tpu_torch.utils import builders  # noqa: E402
 from npcd_tpu_torch.utils.util import psnr  # noqa: E402
 from min_d2_filter import hard_min_d2_inputs  # noqa: E402
+from reference_checkpoint import reference_forward, reference_state  # noqa: E402
 from srn_fixture import VIEWS, fixture_image, write_srn_tree  # noqa: E402
 
 # the generation CLI's required --out (run() itself writes no files); the
@@ -362,6 +386,13 @@ PSNR_OBJECTS, PSNR_VIEWS = 5, 4
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
 STAGE1_WARMUP = 2
 SRN_CLOUD, SRN_PROFILED = 30_000, 3  # points in an object's pointcloud3.npz; profiled steps
+# the reference-weights phase: objects of its SRN tree (the checkpoint's
+# tables), views a dataset sample, points a cloud, PSNR samples, FID poses,
+# objects of the Inception statistics, and the stand-in graph's features
+REF_OBJECTS, REF_VIEWS, REF_CLOUD, REF_PSNR_SAMPLES, REF_POSES = 6, 5, 4096, 2, 4
+REF_STATS_OBJECTS, INCEPTION_FEATURES = 4, 2048
+REFERENCE_WEIGHTS = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
+                     "fused_mlp_posenc_wsum")
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
@@ -2437,6 +2468,161 @@ def phase_srn_stage1(tag: str = "srn-fast-stage1") -> dict:
     return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib}
 
 
+class _StandInInception(torch.nn.Module):
+    """The StyleGAN Inception graph's signature, ``model(x, return_features=True)``
+    on uint8 [N, 3, 128, 128], and its 2048 features: a fixed projection of
+    the 8x8-pooled pixels."""
+
+    def __init__(self, res: int = 128, dims: int = INCEPTION_FEATURES):
+        super().__init__()
+        g = torch.Generator().manual_seed(0)
+        self.proj = torch.nn.Parameter(torch.randn(3 * (res // 8) ** 2, dims, generator=g) / 255)
+
+    def forward(self, x: torch.Tensor, return_features: bool = False) -> torch.Tensor:
+        return F.avg_pool2d(x.float(), 8).flatten(1) @ self.proj
+
+
+def phase_reference_weights(tag: str = "reference-weights") -> dict:
+    """A synthetic checkpoint in the reference's layout at the full width of
+    configs/npcd_srncars.yaml, converted by utils/convert_reference.py and
+    loaded; the converted denoiser held against the reference's math on its
+    own per-head weights; then python -m npcd_tpu_torch.parity_eval's code
+    path with a stand-in Inception graph and its statistics pickle from
+    python -m npcd_tpu_torch.compute_inception_stats."""
+    out = OUT / tag
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    with open(ROOT / "npcd_tpu_torch/data/sample_lists/srn_cars_train.list") as f:
+        ids = [line.strip() for line in f if line.strip()][:REF_OBJECTS]
+    config = json.loads(json.dumps(load_config(str(SRNCARS))))  # plain dicts, for YAML
+    m = config["model"]
+    t0 = time.perf_counter()
+    sample_list = write_srn_tree(out / "srn", "cars", ids, 128, REF_CLOUD)
+    print(f"[{tag}] wrote an SRN-format tree under the train list's first {len(ids)} ids "
+          f"({len(ids)} objects x {VIEWS} views at 128^2, {REF_CLOUD}-point clouds; "
+          f"{time.perf_counter() - t0:.1f} s); cut: the object count, {m['n_obj']} -> {len(ids)}")
+    m["n_obj"] = len(ids)
+    config["dataset_kwargs"] = {"sample_list": [list(e) for e in sample_list],
+                                "views_per_sample": REF_VIEWS}
+    config["diffusion_evaluation"].update(
+        poses_path=str(ROOT / "data/srncars_test_poses.npy"),
+        intrinsics_path=str(ROOT / "data/srncars_test_intrinsics.npy"))
+    cfg = out / "config.yaml"
+    cfg.write_text(yaml.safe_dump(config))
+
+    ckpt, npz = out / "npcd_reference.pt", out / "npcd_reference.npz"
+    try:
+        t0 = time.perf_counter()
+        sd = reference_state(m["width"], seed=0, n_obj=len(ids), points=m["num_points"],
+                             feat_dim=m["feats_dim"], layers=m["layers"], device="cuda")
+        host = {k: ({"emb": {"weight": v["emb"]["weight"].cpu()}} if isinstance(v, dict)
+                    else v.cpu()) for k, v in sd.items()}
+        torch.save(host, ckpt)
+        del host
+        write_s = time.perf_counter() - t0
+        n_params = sum(v.numel() for k, v in sd.items() if k.startswith("diffusion.denoiser."))
+        t0 = time.perf_counter()
+        flat, layout = convert_checkpoint(str(ckpt), config)
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_converted(str(npz), flat, layout)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = NPCD.from_config(config)
+        load_npz(model, str(npz))
+        model = model.cuda().eval()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"[{tag}] reference checkpoint: denoiser {n_params / 1e6:.1f}M params "
+              f"({m['width']} x {m['layers']} x {m['heads']} heads), {len(sd)} keys, "
+              f"{ckpt.stat().st_size / 1e9:.3f} GB, drawn and written in {write_s:.1f} s; "
+              f"convert_checkpoint {convert_s:.1f} s ({len(flat)} arrays, layout {layout}); "
+              f"save_converted {save_s:.1f} s ({npz.stat().st_size / 1e9:.3f} GB); "
+              f"NPCD.from_config + load_npz + to the card {load_s:.1f} s")
+        del flat
+
+        # the converted denoiser (K1f, K2a/b) against the reference's math on
+        # its own per-head [q|k|v] weights, exact f32 on the card, a batch of
+        # 2 at the full 513 tokens
+        denoiser = model.diffusion.denoiser
+        g = torch.Generator(device="cuda").manual_seed(1)
+        coords = torch.randn(2, 3, m["num_points"], generator=g, device="cuda")
+        feats = torch.randn(2, m["feats_dim"], m["num_points"], generator=g, device="cuda")
+        t = torch.tensor([3, 700], device="cuda")
+        with torch.no_grad():
+            _reset_launches()
+            got = denoiser(coords, feats, t)
+            torch.cuda.synchronize()
+            gate_launches = {k: v for k, v in _read_launches().items() if v}
+            want = reference_forward(sd, coords, feats, t, m["heads"], m["layers"])
+            # control: the reference's own c_qkv order in the port's model
+            for i, block in enumerate(denoiser.resblocks):
+                name = f"diffusion.denoiser.backbone.resblocks.{i}.attn.c_qkv"
+                block.attn.c_qkv.weight.copy_(sd[f"{name}.weight"])
+                block.attn.c_qkv.bias.copy_(sd[f"{name}.bias"])
+            wrong = denoiser(coords, feats, t)
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(_err(a, b) for a, b in zip(got, want))
+        err_wrong = max(_err(a, b) for a, b in zip(wrong, want))
+        # f32 through 24 blocks in other summation orders, K1f's products in
+        # 3xTF32: 1e-4 of the output's scale; the unpermuted columns must miss
+        # by 100 times that
+        tol = 1e-4 * max(1.0, scale)
+        print(f"[{tag}] converted denoiser vs the reference's per-head math (2 x "
+              f"{m['num_points'] + 1} tokens, launches {gate_launches}): max_abs_err {err:.3e} "
+              f"(tol {tol:.1e}, outputs up to "
+              f"{scale:.3f}); with c_qkv left in the reference's order {err_wrong:.3e} "
+              f"(must exceed {100 * tol:.1e})")
+        if not err <= tol or not err_wrong > 100 * tol:
+            raise AssertionError(f"{tag}: converted denoiser {err}, control {err_wrong}")
+        del model, denoiser, sd, got, want, wrong
+        torch.cuda.empty_cache()
+
+        graph, pkl = out / "inception.pt", out / "stats.pkl"
+        torch.jit.save(torch.jit.script(_StandInInception()), str(graph))
+        t0 = time.perf_counter()
+        stats = compute_inception_stats.main([
+            "--srn-test-root", str(out / "srn" / "cars"), "--inception", str(graph), "--out",
+            str(pkl), "--max-objects", str(REF_STATS_OBJECTS), "--device", "cuda"])
+        print(f"[{tag}] compute_inception_stats: {stats['feats_np'].shape[0]} images -> "
+              f"{stats['feats_np'].shape[1]} features of a stand-in TorchScript graph in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        common = ["--weights", str(ckpt), "--config", str(cfg), "--srn-root", str(out / "srn"),
+                  "--inception", str(graph), "--inception-pkl", str(pkl)]
+        t0 = time.perf_counter()
+        parity_eval.main(common + ["--check-assets"])  # exits 1 on a problem
+        print(f"[{tag}] --check-assets {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        summary = parity_eval.main(common + [
+            "--out", str(out / "parity"), "--stage", "both", "--psnr-samples",
+            str(REF_PSNR_SAMPLES), "--num-samples", "2", "--max-poses", str(REF_POSES),
+            "--generate-batch-size", "2", "--seed", "0", "--device", "cuda"])
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        os.environ.pop("NPCD_TPU_SRN_ROOT", None)
+        for path in (ckpt, npz, Path(f"{npz}.layout.json")):
+            path.unlink(missing_ok=True)
+    with open(out / "parity" / "parity.json") as f:
+        written = json.load(f)
+    print(f"[{tag}] parity_eval --stage both (validity voxel, {REF_PSNR_SAMPLES} samples x "
+          f"{REF_VIEWS} views for the PSNR, 2 generated x {REF_POSES} poses for the FID): "
+          f"psnr {summary['psnr']} fid {summary['fid']} kid_x1000 {summary['kid_x1000']} in "
+          f"{parity_s:.1f} s with its conversion, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; the checkpoint deleted; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if written != summary or not np.isfinite(
+            [summary["psnr"], summary["fid"], summary["kid_x1000"]]).all():
+        raise AssertionError(f"{tag}: parity.json {written}, printed {summary}")
+    return {"launches": launches}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2472,6 +2658,8 @@ def main() -> None:
     paths["psnr eval"] = (_timed("psnr-eval", phase_psnr_eval)["launches"], PSNR_EVAL)
     paths["srn fast stage 1"] = (_timed("srn-fast-stage1", phase_srn_stage1)["launches"],
                                  FAST_STAGE1)
+    paths["reference weights"] = (_timed("reference-weights", phase_reference_weights)["launches"],
+                                  REFERENCE_WEIGHTS)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

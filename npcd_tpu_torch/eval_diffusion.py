@@ -66,8 +66,8 @@ def refuse_unported(args) -> None:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
     if args.mesh:
-        raise NotImplementedError("--mesh: the data-parallel evals are the 'Data parallelism' "
-                                  "item of ROADMAP Queue 1")
+        raise NotImplementedError("--mesh: the data-parallel evals are ROADMAP Queue 1 item 7 "
+                                  "('Data parallelism')")
     if args.matmul_precision not in ("highest", "float32"):
         raise NotImplementedError(f"--matmul_precision {args.matmul_precision}: only exact f32 "
                                   "(highest, float32) is ported; the others are ROADMAP Queue 1 "

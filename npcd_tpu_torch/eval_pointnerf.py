@@ -59,19 +59,29 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def stage1_state(flat) -> dict:
+    """A bridged flat dict's ``pointnerf.*`` MLPs, coords table and feats
+    mean -> the state dict of a PointNeRF with tables; the log-variance half
+    of its feats table, which the eval does not read, is 0."""
+    from .utils.from_jax import LATENTS
+
+    state = {k[len("pointnerf."):]: v for k, v in flat.items() if k.startswith("pointnerf.")}
+    feats = np.asarray(flat[f"{LATENTS}.feats_table"])
+    state["tables.coords_table"] = flat[f"{LATENTS}.coords_table"]
+    state["tables.feats_table"] = np.concatenate([feats, np.zeros_like(feats)], -1)
+    return state
+
+
 def load_stage1_weights(model, path: str) -> None:
-    """The stage-1 export's MLPs, coords table and feats mean into ``model``
-    (a PointNeRF with tables of the same size; strict); the log-variance
-    half of its feats table, which the eval does not read, is set to 0."""
+    """The stage-1 export at ``path`` into ``model`` (a PointNeRF with
+    tables of the same size; strict), as ``stage1_state`` lays it out."""
     import torch
 
     from .utils.from_jax import LATENTS
 
-    with np.load(path) as z:
-        state = {k[len("pointnerf."):]: z[k] for k in z.files if k.startswith("pointnerf.")}
-        feats = z[f"{LATENTS}.feats_table"]
-        state["tables.coords_table"] = z[f"{LATENTS}.coords_table"]
-    state["tables.feats_table"] = np.concatenate([feats, np.zeros_like(feats)], -1)
+    with np.load(path) as z:  # not the denoiser of a full NPCD file
+        state = stage1_state({k: z[k] for k in z.files
+                              if k.startswith(("pointnerf.", f"{LATENTS}."))})
     model.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32))
                            for k, v in state.items()})
 

@@ -108,7 +108,7 @@ def run(args) -> dict:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
     if args.mesh:
-        raise NotImplementedError("--mesh: data-parallel sampling is ROADMAP Queue 1 item 6 "
+        raise NotImplementedError("--mesh: data-parallel sampling is ROADMAP Queue 1 item 7 "
                                   "('Data parallelism'), not ported yet")
     exact_f32()
     device = _device(args.device)

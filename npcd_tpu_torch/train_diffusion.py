@@ -92,9 +92,9 @@ def train(args, config=None):
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
     if args.tp > 1 or args.mesh:
-        raise NotImplementedError("--tp > 1 and --mesh: multi-GPU training is the 'Data "
-                                  "parallelism' item of ROADMAP Queue 1; tensor parallelism is "
-                                  "not planned (ROADMAP Queue 2's note)")
+        raise NotImplementedError("--tp > 1 and --mesh: multi-GPU training is ROADMAP Queue 1 "
+                                  "item 7 ('Data parallelism'); tensor parallelism is not "
+                                  "planned (the note under that item)")
     exact_f32()
     device = _device(args.device)
     os.makedirs(args.output, exist_ok=True)

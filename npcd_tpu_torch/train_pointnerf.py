@@ -66,8 +66,8 @@ def train(args, config=None, dataset=None):
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
     if args.mesh:
-        raise NotImplementedError("--mesh: multi-GPU training is the 'Data parallelism' item "
-                                  "of ROADMAP Queue 1")
+        raise NotImplementedError("--mesh: multi-GPU training is ROADMAP Queue 1 item 7 ('Data "
+                                  "parallelism')")
     import torch
 
     exact_f32()
