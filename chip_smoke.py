@@ -136,12 +136,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 22: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21 or 22, each kernel of a
-     path during that path ("generation", "training", "bf16 training",
+ 18. launch counts, checked after phase 24: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23 or 24, each kernel
+     of a path during that path ("generation", "training", "bf16 training",
      "stage 1", "fast stage 1", "attention", "fid eval", "psnr eval", "srn
-     fast stage 1", "reference weights"); the bf16 launches of K1, K2, K6 and
-     K8 are counted apart from the f32 ones;
+     fast stage 1", "reference weights", "options V", "options O"); the bf16
+     launches of K1, K2, K6 and K8 are counted apart from the f32 ones, and
+     so are the forms of phases 23-24: K4 at a k other than 8, K6 by posenc
+     method and its no-reduction form, K7 at an input other than 256 wide
+     (the no-reduction backward and the forms of K6 the two option sets do
+     not take run on no path: their kernels-forms lines give launches 0);
  19. main path, FID eval: python -m npcd_tpu_torch.eval_diffusion's code path
      on configs/npcd_srncars.yaml with phase 5's seeded weights and the
      config's validity (knn): 2 samples in one group of 2, each rendered
@@ -200,6 +204,36 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      FID); prints the sizes and the seconds of the write, the conversion
      and the load, PSNR, FID and KID; deletes the checkpoint. Path
      "reference weights": K1f, K2a, K2b, K4, K6f in f32.
+ 23. main path, options V: configs/npcd_srncars_fast.yaml with
+     model.use_view_dir and pointnerf_options {posenc_method: direct}, built
+     in memory: phase 12's stage 1 over the first 24 objects (3 steps of B 8
+     x V 50, budget 1792, bf16), then the trained model's render of 2 objects
+     x 4 SRN test poses at 128^2, one object x one pose at 16^2 again in
+     chunks of one ray (fewer than 8 shading points a block: the
+     aggregation's no-reduction form) against the config's chunks, and at
+     64^2 against the CPU's plain bf16 render (>= 40 dB). Path "options V":
+     K4, K5, the bf16 K6f/K6b with the 'direct' posenc and the no-reduction
+     K6f, K7f/K7b for the shape net and at d_in 307 (256 + 3 x 17 encoded
+     view-direction columns) for the channel net. Its kernel forms, and phase
+     24's, are checked with the kernel phases, after phase 11
+     ("kernels-forms"): K4 at k 16 (O's aggregation over 400 x 5,600 points
+     and its TV loss's 8 x 512), 6 and 32, bitwise; the f32 K6f/K6b with
+     'recurrence' and 'direct' at k 16 over one 50-instance chunk of O's
+     step against float64, and at k 6 (run as 8 with zero-weight pairs); the
+     bf16 K6f/K6b with 'direct' over V's launch (400 x 14,336 pairs) and
+     'recurrence'; the no-reduction form forward and backward (f32 and bf16)
+     at O's one-ray chunks; K7f/K7b at d_in 307 over V's 400 x 1,792 points,
+     as phase 11 holds K7;
+ 24. main path, options O: configs/npcd_srncars.yaml with model.use_view_dir
+     and pointnerf_options {k: 16, posenc_method: recurrence, dir_freqs: 4,
+     feat_freqs: 1, disparity_space_sampling: true}: phase 9's stage 1 over
+     the first 16 objects (2 dense f32 steps, remat on), then phase 23's
+     renders, the 128^2 one with kp_weights (their sum over the points each
+     ray's mask within 1e-4), the CPU comparison within 1e-3. Path "options
+     O": K4 at k 16 (the aggregation and the TV loss), K5, the f32 K6f/K6b
+     with 'recurrence' at k 16 and the no-reduction K6f; the heads read 768
+     (shape) and 795 (channel) columns, past npcd_tpu's K7 gate, so they
+     run the plain f32 layers.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -246,6 +280,7 @@ from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # no
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
 from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
 from npcd_tpu_torch.data import srn as srn_module  # noqa: E402
+from npcd_tpu_torch.models.pointnerf import nn_core as pointnerf_nn  # noqa: E402
 from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp  # noqa: E402
 from npcd_tpu_torch.ops.kernels import build  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp import (  # noqa: E402
@@ -253,8 +288,9 @@ from npcd_tpu_torch.ops.kernels.fused_mlp import (  # noqa: E402
     slope_flips_bf16)
 from npcd_tpu_torch.ops.kernels.fused_adamw import adamw_ema, adamw_ema_plain  # noqa: E402
 from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (  # noqa: E402
+    fused_mlp_posenc, fused_mlp_posenc_bwd, fused_mlp_posenc_bwd_plain, fused_mlp_posenc_plain,
     fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc_wsum_bwd_plain,
-    fused_mlp_posenc_wsum_plain, leaky_kinks)
+    fused_mlp_posenc_wsum_plain, leaky_kinks, unit_pairs)
 from npcd_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
 from npcd_tpu_torch.ops.fps import farthest_point_sampling  # noqa: E402
 from npcd_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
@@ -362,6 +398,32 @@ KERNELS = {
                                    "npcd_tpu_torch/csrc/flash_attention.cu",
                                    "npcd_tpu/ops/pallas/flash_attention.py:95"),
 }
+# the forms that phases 23 and 24 add: K4 at a k other than 8, K6f/K6b with
+# the 'direct' and 'recurrence' posenc (f32 and bf16) and the no-reduction
+# form, K7f/K7b at an input other than 256 wide (each with its counter)
+_K6 = ("npcd_tpu_torch/csrc/fused_mlp_posenc.cu", "npcd_tpu/ops/pallas/fused_mlp.py:382",
+       "npcd_tpu/ops/pallas/fused_mlp.py:430")
+KERNELS.update({
+    "knn (k other than 8)": (knn, "launches_other_k", "cuda", "npcd_tpu_torch/csrc/knn.cu",
+                             "npcd_tpu/ops/pallas/knn.py:78"),
+    **{f"fused_mlp_posenc_wsum{bwd} ({form})": (
+        fn, counter, "cuda", _K6[0], _K6[2 if bwd else 1])
+       for bwd, fn in (("", fused_mlp_posenc_wsum), ("_bwd", fused_mlp_posenc_wsum_bwd))
+       for form, counter in (("direct", "launches_direct"),
+                             ("direct, bf16", "launches_direct_bf16"),
+                             ("recurrence, k 16", "launches_recurrence"),
+                             ("recurrence, bf16", "launches_recurrence_bf16"))},
+    **{f"fused_mlp_posenc{bwd} (no reduction{tag})": (fn, counter, "cuda", _K6[0],
+                                                       _K6[2 if bwd else 1])
+       for bwd, fn in (("", fused_mlp_posenc), ("_bwd", fused_mlp_posenc_bwd))
+       for tag, counter in (("", "launches_recurrence"), (", bf16", "launches_direct_bf16"))},
+    "fused_mlp (d_in 307)": (fused_mlp, "launches_wide", "cuda",
+                             "npcd_tpu_torch/csrc/fused_mlp.cu",
+                             "npcd_tpu/ops/pallas/fused_mlp.py:120"),
+    "fused_mlp_bwd (d_in 307)": (fused_mlp_bwd, "launches_wide", "cuda",
+                                 "npcd_tpu_torch/csrc/fused_mlp.cu",
+                                 "npcd_tpu/ops/pallas/fused_mlp.py:130"),
+})
 GENERATION = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
               "fused_mlp_posenc_wsum")
 TRAINING = ("fused_qkv_attention", "fused_qkv_attention_bwd", "layer_norm",
@@ -381,6 +443,16 @@ FID_EVAL = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn", "
             "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum (bf16)", "fused_mlp")
 PSNR_EVAL = ("knn", "min_d2", "fused_mlp_posenc_wsum", "fused_mlp_posenc_wsum (bf16)",
              "fused_mlp")
+# phases 23 and 24: (config, pointnerf_options overrides beside
+# model.use_view_dir, objects with images in the stage-1 run: steps of batch 8)
+OPTION_PATHS = {"V": (FAST, {"posenc_method": "direct"}, 24),
+                "O": (SRNCARS, {"k": 16, "posenc_method": "recurrence", "dir_freqs": 4,
+                                "feat_freqs": 1, "disparity_space_sampling": True}, 16)}
+OPTIONS_V = ("knn", "min_d2", "fused_mlp_posenc_wsum (direct, bf16)",
+             "fused_mlp_posenc_wsum_bwd (direct, bf16)", "fused_mlp_posenc (no reduction, bf16)",
+             "fused_mlp", "fused_mlp_bwd", "fused_mlp (d_in 307)", "fused_mlp_bwd (d_in 307)")
+OPTIONS_O = ("knn (k other than 8)", "min_d2", "fused_mlp_posenc_wsum (recurrence, k 16)",
+             "fused_mlp_posenc_wsum_bwd (recurrence, k 16)", "fused_mlp_posenc (no reduction)")
 FID_POSES, FID_FEATURES = 32, 16
 PSNR_OBJECTS, PSNR_VIEWS = 5, 4
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
@@ -1183,28 +1255,28 @@ def phase_cpu_step(dtype: torch.dtype = torch.float32, tag: str = "gpu-vs-cpu") 
             raise AssertionError("the bf16 step's limits do not tell bf16 compute from f32")
 
 
-def _knn_check(check, name: str, xq, pts) -> None:
-    """K4 vs knn_plain (k 8) with point 1 made a copy of point 0, an exact
-    tie wherever both are among a query's 8 nearest (xq is pts: the TV
-    loss's points against themselves, the copy in both): indices and
-    distances bitwise equal (the same rounded ((dx*dx + dy*dy) + dz*dz), ties
-    to the lower index). Timed, also as a replayed CUDA graph (device time
-    without the host's launch cost), and printed before it raises."""
+def _knn_check(check, name: str, xq, pts, k: int = 8) -> None:
+    """K4 vs knn_plain (k 8 unless given) with point 1 made a copy of point
+    0, an exact tie wherever both are among a query's k nearest (xq is pts:
+    the TV loss's points against themselves, the copy in both): indices and
+    distances bitwise equal (the same rounded ((dx*dx + dy*dy) + dz*dz),
+    ties to the lower index). Timed, also as a replayed CUDA graph (device
+    time without the host's launch cost), and printed before it raises."""
     same = xq is pts
     pts = pts.clone()
     pts[:, 1] = pts[:, 0]
     xq = pts if same else xq
-    i_k, d_k = knn(xq, pts, 8)
-    i_p, d_p = knn_plain(xq, pts, 8)
+    i_k, d_k = knn(xq, pts, k)
+    i_p, d_p = knn_plain(xq, pts, k)
     inst, n = xq.shape[:2]
     mismatch = int((i_k != i_p).sum())
     tied = int(((i_p == 0).any(-1) & (i_p == 1).any(-1)).sum())
-    check(name, _err(d_k, d_p), 0.0, lambda: knn(xq, pts, 8), lambda: knn_plain(xq, pts, 8),
+    check(name, _err(d_k, d_p), 0.0, lambda: knn(xq, pts, k), lambda: knn_plain(xq, pts, k),
           extra=f" idx_mismatch {mismatch} of {i_p.numel()} (queries with the planted tie "
-                f"among their 8: {tied}), d2 bitwise {torch.equal(d_k, d_p)}",
-          flops=FILTER_INSTR * inst * n * pts.shape[1] + EXACT_INSTR * inst * n * 8,
+                f"among their {k}: {tied}), d2 bitwise {torch.equal(d_k, d_p)}",
+          flops=FILTER_INSTR * inst * n * pts.shape[1] + EXACT_INSTR * inst * n * k,
           peak=FP32_INSTR_S,
-          nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * 8), graph=True)
+          nbytes=4 * (xq.numel() + pts.numel() + 2 * inst * n * k), graph=True)
     if mismatch or not torch.equal(d_k, d_p):
         raise AssertionError(f"{name}: {mismatch} indices differ from the plain version's")
 
@@ -1899,20 +1971,23 @@ def _stage1_dataset(config, n_obj: int, num_views: int):
                              num_points=m["num_points"], seed=0)
 
 
-def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
+def phase_stage1(path: Path = SRNCARS, tag: str = "stage1", config=None,
+                 objects: int = STAGE1_OBJECTS) -> dict:
     """python -m npcd_tpu_torch.train_pointnerf's code path, full geometry, on
-    the config at ``path``; with a shading budget, also each instance's valid
-    sample count and the share the budget drops."""
+    the config at ``path`` (or ``config``, that file's with overrides), over
+    the first ``objects`` objects; with a shading budget, also each
+    instance's valid sample count and the share the budget drops -> the
+    launches, steps/s, peak memory and the trainer."""
     out = OUT / tag
     shutil.rmtree(out, ignore_errors=True)
-    config = load_config(str(path))
+    config = config or load_config(str(path))
     config["pointnerf_training"].update(max_epochs=1, print_interval=1, log_scalars_interval=1)
     m = config["model"]
     t0 = time.perf_counter()
     full = _stage1_dataset(config, m["n_obj"], 50)
-    dataset = _FirstObjects(full, STAGE1_OBJECTS)
+    dataset = _FirstObjects(full, objects)
     print(f"[{tag}] seeded synthetic dataset: {m['n_obj']} clouds x {m['num_points']} points, "
-          f"50 views at 128^2, batches from the first {STAGE1_OBJECTS} objects "
+          f"50 views at 128^2, batches from the first {objects} objects "
           f"({time.perf_counter() - t0:.1f} s)")
     args = train_pointnerf.parse_args(["--config", str(path), "--output", str(out),
                                        "--device", "cuda", "--no_tensorboard", "--seed", "0"])
@@ -1938,7 +2013,8 @@ def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
     launches = _read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    steps = STAGE1_OBJECTS // trainer.batch_size
+    steps = objects // trainer.batch_size
+    warmup = min(STAGE1_WARMUP, steps - 1)
     hist = trainer.history
     if [h["it"] for h in hist] != list(range(1, steps + 1)):
         raise AssertionError(f"expected {steps} logged steps, got {len(hist)}")
@@ -1947,7 +2023,7 @@ def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
     for h in hist:
         if not all(np.isfinite(h[k]) for k in keys):
             raise AssertionError(f"non-finite loss at step {h['it']}: {h}")
-    steps_s = (steps - STAGE1_WARMUP) / (hist[-1]["time"] - hist[STAGE1_WARMUP - 1]["time"])
+    steps_s = (steps - warmup) / (hist[-1]["time"] - hist[warmup - 1]["time"])
     model = trainer.model
     cfg = model.cfg
     rays = trainer.batch_size * 50 * cfg.train_rays
@@ -1957,7 +2033,7 @@ def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
           f"instance chunk {cfg.train_instance_chunk}, remat {cfg.resolved_train_remat()}: "
           f"{steps} steps in {wall:.1f} s (with the final checkpoint and export): "
           f"{steps_s:.4f} steps/s, {rays * steps_s:.0f} train rays/s over steps "
-          f"{STAGE1_WARMUP + 1}-{steps}; peak {peak_gib:.2f} GiB")
+          f"{warmup + 1}-{steps}; peak {peak_gib:.2f} GiB")
     for k in keys:
         print(f"[{tag}] {k} " + " ".join(f"{h[k]:.6g}" for h in hist))
     if cfg.shading_budget is not None:
@@ -1996,9 +2072,9 @@ def phase_stage1(path: Path = SRNCARS, tag: str = "stage1") -> dict:
         raise AssertionError("the weights-only export does not hold the trained feats table")
     print(f"[{tag}] export {Path(export).name} loaded by train_diffusion's "
           f"load_pointnerf_weights: {len(latents)} objects, {len(pointnerf)} pointnerf arrays")
-    del trainer, model, dataset, latents
+    del model, dataset, latents
     torch.cuda.empty_cache()
-    return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib}
+    return {"launches": launches, "steps_s": steps_s, "peak_gib": peak_gib, "trainer": trainer}
 
 
 def phase_stage1_cpu_step(path: Path = SRNCARS, tag: str = "gpu-vs-cpu-stage1") -> None:
@@ -2623,6 +2699,374 @@ def phase_reference_weights(tag: str = "reference-weights") -> dict:
     return {"launches": launches}
 
 
+def phase_options(name: str) -> dict:
+    """Phase 23 (V) or 24 (O): PointNeRF at its configurable options, the
+    config at OPTION_PATHS[name][0] with model.use_view_dir and the
+    pointnerf_options overrides there, built in memory: stage 1 through
+    train_pointnerf's code path (phase 9's, over the first objects of the
+    seeded synthetic dataset), then the trained model's render of 2 objects
+    x 4 SRN test poses at 128^2 (O with kp_weights, whose sum over the points
+    must be each ray's mask), one object x one pose at 16^2 again in chunks
+    of one ray (fewer than 8 shading points a block: the aggregation's
+    no-reduction form) against the same render in the config's chunks, and
+    one object x one pose at 64^2 against the CPU's plain render (f32 within
+    1e-3, bf16 at least 40 dB cross-PSNR, as phases 5 and 19) -> the
+    launches of the whole phase."""
+    path, options, objects = OPTION_PATHS[name]
+    tag = f"options-{name}"
+    config = load_config(str(path))
+    config["model"]["use_view_dir"] = True
+    config["pointnerf_options"] = {**config.get("pointnerf_options", {}), **options}
+    res = phase_stage1(path, tag, config, objects)
+    model = res.pop("trainer").model
+    o, cd = model.opts, model.cfg.compute_dtype
+    widths = {n: tuple(getattr(model, n)[0].shape) for n in ("local_field", "shape_net",
+                                                             "channel_net")}
+    if not (o.field.use_dir and all(getattr(o.aggregator if k in ("k", "posenc_method") else
+                                            o.renderer if k.startswith("disparity") else
+                                            o.field, k) == v for k, v in options.items())):
+        raise AssertionError(f"{tag}: the options did not reach the model: {o}")
+    print(f"[{tag}] options {options}, use_view_dir: first layers {widths}")
+
+    _reset_launches()
+    poses = np.load(ROOT / "data/srncars_test_poses.npy")[:4].astype(np.float32)
+    intr = np.load(ROOT / "data/srncars_test_intrinsics.npy")[:4].astype(np.float32)
+    cuda = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    ext = cuda(np.broadcast_to(poses, (2, 4, 4, 4)))
+    intr = cuda(np.broadcast_to(intr, (2, 4, 3, 3)))
+    coords, feats = model.get_all_coords()[:2], model.get_all_feats()[:2].detach()
+    kp = name == "O"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.render(coords, feats, ext, intr, resolution=128, kp_weights=kp)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    ch = out["channels"]
+    lo, hi = float(ch.min()), float(ch.max())
+    if not torch.isfinite(ch).all() or lo < -1e-5 or hi > 1 + 1e-5:
+        raise AssertionError(f"{tag}: render channels non-finite or outside [0, 1]: [{lo}, {hi}]")
+    text = ""
+    if kp:
+        # each shaded sample's pair weights sum to 1, so a ray's point weights
+        # sum to its compositing weight total: f32 sums in another order
+        kp_err = _err(out["kp_weights"].sum(-1), out["mask"][..., 0])
+        text = (f"; kp_weights {tuple(out['kp_weights'].shape)}, sum over points vs mask "
+                f"{kp_err:.2e} (tol 1e-4)")
+        if kp_err > 1e-4:
+            raise AssertionError(f"{tag}: kp_weights do not sum to the mask: {kp_err}")
+    print(f"[{tag}] render 2 x 4 poses at 128^2 ({str(cd).split('.')[-1]}): "
+          f"{ch.numel() // 3 / render_s:.0f} rays/s ({render_s:.2f} s), valid rays "
+          f"{float(out['ray_valid'].float().mean()):.3f}, channels in [{lo:.4f}, {hi:.4f}]{text}")
+    del out, ch
+    small = lambda m, dev=None, res=16: m.render(*(a if dev is None else a.to(dev) for a in (
+        coords[:1], feats[:1], ext[:1, :1], intr[:1, :1])), resolution=res)
+    ref = small(model)["channels"]
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, eval_ray_chunk=1)
+    launched = fused_mlp_posenc.launches_recurrence + fused_mlp_posenc.launches_direct_bf16
+    one = small(model)["channels"]
+    model.cfg = cfg
+    launched = fused_mlp_posenc.launches_recurrence + fused_mlp_posenc.launches_direct_bf16 \
+        - launched
+    tol = 1e-4 if cd == torch.float32 else 2 ** -7
+    err = _err(one, ref)
+    print(f"[{tag}] 1 x 1 pose at 16^2 in chunks of one ray: {launched} launches of the "
+          f"no-reduction form; channels vs the config's chunks max_abs_err {err:.3e} "
+          f"(tol {tol:.0e})")
+    if not launched or err > tol:
+        raise AssertionError(f"{tag}: the one-ray chunks' render differs or took no "
+                             f"no-reduction launch: {err}, {launched}")
+    launches = _read_launches()
+    cpu = copy.deepcopy(model).cpu()
+    want = small(cpu, "cpu", 64)["channels"][0, 0]
+    got = small(model, None, 64)["channels"][0, 0].cpu()
+    if cd == torch.float32:
+        err = _err(got, want)
+        print(f"[{tag}] GPU vs CPU plain render (1 object x 1 pose, 64^2) max_abs_err "
+              f"{err:.3e} (tol 1e-03)")
+        if err > 1e-3:
+            raise AssertionError(f"{tag}: the render disagrees with the CPU's: {err}")
+    else:
+        db = _psnr_db(got, want)
+        print(f"[{tag}] GPU vs CPU plain bf16 render (1 object x 1 pose, 64^2): cross-PSNR "
+              f"{db:.2f} dB (>= 40)")
+        if db < 40:
+            raise AssertionError(f"{tag}: the bf16 render is {db} dB from the CPU's")
+    del cpu, model
+    torch.cuda.empty_cache()
+    return {"launches": {k: v + launches[k] for k, v in res["launches"].items()}}
+
+
+def _k6_f64(feat_t, pos_t, weights, k: int, n_freqs: int, method: str, g=None,
+            step: int = 5):
+    """K6's function in float64 over the f32 layer-1 input [feat | x |
+    posenc(x)] (the encoding computed in f32, as the kernel and the plain
+    version compute it: 'direct' in float64 would move octave 9's sin by
+    ~1e-4), in slices of ``step`` instances: the w-sum over each point's k
+    pairs; with g, its VJP with pos_t constant -> (dfeat_t, [(dW, db)]),
+    the dW summed over the slices."""
+    grad = g is not None
+    w64 = [(w.double().requires_grad_(grad), b.double().requires_grad_(grad))
+           for w, b in weights]
+    flat = [t for wb in w64 for t in wb]
+    outs, dfs, dws = [], [], None
+    for i0 in range(0, feat_t.shape[0], step):
+        sl = slice(i0, i0 + step)
+        with torch.enable_grad():
+            f = feat_t[sl].double().requires_grad_(grad)
+            enc = pointnerf_nn.positional_encoding(pos_t[sl, :3].transpose(1, 2), n_freqs, 1.0,
+                                                   method)
+            h = torch.cat([f.transpose(1, 2), enc.double()], dim=-1)
+            out = pointnerf_nn.apply_mlp([{"w": w, "b": b} for w, b in w64], h)
+            inst, m = h.shape[:2]
+            ws = (out * pos_t[sl, 3, :, None].double()).reshape(inst, m // k, k, -1).sum(2)
+            if not grad:
+                outs.append(ws.detach())
+                continue
+            gr = torch.autograd.grad(ws, [f] + flat, g[sl].double())
+        dfs.append(gr[0])
+        pairs = list(zip(gr[1::2], gr[2::2]))
+        dws = pairs if dws is None else [(a + c, b + d) for (a, b), (c, d) in zip(dws, pairs)]
+    return torch.cat(outs) if not grad else (torch.cat(dfs), dws)
+
+
+def phase_form_kernels() -> dict:
+    """The kernel forms that phases 23 and 24 run, each against its plain
+    version at the shapes those paths give it: K4 at k 16 over the O
+    path's stage-1 aggregation (400 x 5,600 shading points) and its TV
+    loss (8 x 512), and at k 6 and 32 over the aggregation's shape, indices
+    and distances bitwise; K6f/K6b in f32 with the 'recurrence' and 'direct'
+    posenc at k 16 over one 50-instance chunk of O's step (4.48M pairs)
+    against float64 (_f64_gate: within 1e-5 of each output's scale), and k
+    6 (run as 8 with zero-weight pairs) 'recurrence' over 5 instances; in
+    bf16 with 'direct' at k 8 over the V path's one launch (400 x 14,336
+    pairs) and 'recurrence' over 20 instances of it, by _bf16_err and
+    _bf16_bwd_gate (pairs on a bf16 kink left out); the no-reduction form
+    (k 1, unit pair weights) forward and backward at the shape of O's
+    one-ray render chunks (8 instances x 5 points x k 16) in f32 and bf16;
+    K7f/K7b at d_in 307 over V's 400 x 1,792 packed points for the channel
+    net, by _bf16_err and _bf16_bwd_gate with the kink and slope-flip
+    filters, a second launch and the rows reversed bitwise as in phase 11."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    results = {}
+    check = lambda *a, **k: _record(results, *a, tag="kernels-forms", **k)
+    flat = lambda df, dws: [df] + [t for wb in dws for t in wb]
+
+    # K4 at k 16, 6 and 32 (O's stage-1 aggregation and TV loss)
+    pts = torch.rand(400, 512, 3, generator=g, device=dev) - 0.5
+    xq = pts[:, torch.randint(0, 512, (112 * 50,), generator=g, device=dev)] \
+        + 0.05 * torch.randn(400, 112 * 50, 3, generator=g, device=dev)
+    _knn_check(check, "knn (k other than 8)", xq, pts, 16)
+    for k in (6, 32):
+        _knn_check(check, f"knn (k {k}, stage-1 aggregation)", xq, pts, k)
+    tv = pts[:8].contiguous()
+    _knn_check(check, "knn (k 16, TV)", tv, tv, 16)
+    del pts, xq, tv
+    torch.cuda.empty_cache()
+
+    def k6_inputs(inst, n_pts, k, dtype):
+        feat_t = torch.randn(inst, 32, n_pts * k, generator=g, device=dev).to(dtype)
+        w = torch.rand(inst, n_pts, k, generator=g, device=dev)
+        pos_t = torch.cat([0.32 * torch.rand(inst, 3, n_pts * k, generator=g, device=dev) - 0.16,
+                           (w / w.sum(-1, keepdim=True)).reshape(inst, 1, n_pts * k),
+                           torch.zeros(inst, 4, n_pts * k, device=dev)], dim=1)
+        return feat_t, pos_t
+
+    layers = init_mlp((256, 256, 256, 256), 95, 256, torch.Generator().manual_seed(0), dev)
+    w32 = [(l["w"], l["b"]) for l in layers]
+    w16 = [(w.bfloat16(), b.bfloat16()) for w, b in w32]
+    n_w = sum(t.numel() for wb in w32 for t in wb)
+
+    # f32 K6f/K6b (3xTF32): 'recurrence' and 'direct' at k 16 over one
+    # 50-instance chunk of O's step; 'recurrence' at k 6, run as k 8
+    for method, inst, n_pts, k, name in (
+            ("recurrence", 50, 112 * 50, 16, "fused_mlp_posenc_wsum (recurrence, k 16)"),
+            ("direct", 50, 112 * 50, 16, "fused_mlp_posenc_wsum (direct)"),
+            ("recurrence", 5, 112 * 50, 6, "fused_mlp_posenc_wsum (recurrence, k 6)")):
+        feat_t, pos_t = k6_inputs(inst, n_pts, k, torch.float32)
+        kinks = leaky_kinks(feat_t, pos_t, w32, 10, method=method)
+        pos_t[:, 3][kinks] = 0.0
+        fargs = (feat_t, pos_t, w32, k, 10, 1.0, method)
+        gout = fused_mlp_posenc_wsum(*fargs)
+        want = fused_mlp_posenc_wsum_plain(*fargs)
+        exact = _k6_f64(feat_t, pos_t, w32, k, 10, method)
+        gate = _f64_gate(name, [gout], [exact])
+        m = n_pts * k
+        check(name, _err(gout, want), 1e-4 * max(1.0, float(want.abs().max())),
+              lambda: fused_mlp_posenc_wsum(*fargs), lambda: fused_mlp_posenc_wsum_plain(*fargs),
+              flops=(K6F_FLOP + _K6_LAST * (8 / k - 1)) * inst * m,
+              nbytes=4 * (feat_t.numel() + pos_t.numel() + n_w + want.numel()),
+              extra=f" vs float64 (tol 1e-5 of its scale): kernel {gate}, f32 plain "
+                    f"{_err64(want, exact):.2e}", tf32=True, iters=3)
+        del want, exact
+        bargs = (feat_t, pos_t, w32, gout, k, 10, 1.0, method)
+        got = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
+        exact = flat(*_k6_f64(feat_t, pos_t, w32, k, 10, method, gout))
+        gate = _f64_gate(name.replace("wsum", "wsum_bwd"), got, exact)
+        if not all(torch.equal(a, b) for a, b in zip(flat(*fused_mlp_posenc_wsum_bwd(*bargs)),
+                                                      got)):
+            raise AssertionError(f"{name} backward: two runs on the same inputs differ")
+        err, tol = _worst([(a, b, 1e-5) for a, b in zip(got, exact)])
+        check(name.replace("wsum", "wsum_bwd"), err, tol,
+              lambda: fused_mlp_posenc_wsum_bwd(*bargs),
+              lambda: fused_mlp_posenc_wsum_bwd_plain(*bargs),
+              extra=f" vs float64: {gate}; kinked pairs {int(kinks.sum())} of {kinks.numel()}; "
+                    f"repeatable bitwise",
+              flops=(K6B_FLOP + 2 * _K6_LAST * (8 / k - 1)) * inst * m,
+              fp32_flops=K6B_FP32_FLOP * inst * m,
+              nbytes=4 * (2 * feat_t.numel() + pos_t.numel() + gout.numel() + 2 * n_w),
+              tf32=True, iters=3)
+        del feat_t, pos_t, gout, got, exact, bargs, kinks
+        torch.cuda.empty_cache()
+
+    # bf16 K6f/K6b: 'direct' at k 8 over V's launch, 'recurrence' over 20
+    # instances of it
+    for method, inst, name in (("direct", 400, "fused_mlp_posenc_wsum (direct, bf16)"),
+                               ("recurrence", 20, "fused_mlp_posenc_wsum (recurrence, bf16)")):
+        feat_t, pos_t = k6_inputs(inst, 1792, 8, torch.bfloat16)
+        kinks = torch.cat([leaky_kinks(feat_t[i:i + 20], pos_t[i:i + 20], w16, 10,
+                                       method=method) for i in range(0, inst, 20)])
+        pos_t[:, 3][kinks] = 0.0
+        fargs = (feat_t, pos_t, w16, 8, 10, 1.0, method)
+        gout = fused_mlp_posenc_wsum(*fargs)
+        err, tol, share = _bf16_err(gout, fused_mlp_posenc_wsum_plain(*fargs))
+        if not torch.equal(fused_mlp_posenc_wsum(*fargs), gout):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+        m = 1792 * 8
+        check(name, err, tol, lambda: fused_mlp_posenc_wsum(*fargs),
+              lambda: fused_mlp_posenc_wsum_plain(*fargs), flops=K6F_BF16_FLOP * inst * m,
+              nbytes=feat_t.numel() * 2 + pos_t.numel() * 4 + n_w * 2 + gout.numel() * 2,
+              extra=f" bitwise share {share:.4f}; repeated bitwise", peak=BF16_FLOP_S, iters=3)
+        bargs = (feat_t, pos_t, w16, gout, 8, 10, 1.0, method)
+        got = flat(*fused_mlp_posenc_wsum_bwd(*bargs))
+        err, tol, text, faults = _bf16_bwd_gate(
+            got, flat(*fused_mlp_posenc_wsum_bwd_plain(*bargs)), "dfeat", K6B_BF16_REL,
+            K6B_BF16_DFEAT_SHARE)
+        if not all(torch.equal(a, b) for a, b in zip(flat(*fused_mlp_posenc_wsum_bwd(*bargs)),
+                                                      got)):
+            faults.append("two runs on the same inputs differ")
+        del got
+        bname = name.replace("wsum", "wsum_bwd")
+        check(bname, err, tol, lambda: fused_mlp_posenc_wsum_bwd(*bargs),
+              lambda: fused_mlp_posenc_wsum_bwd_plain(*bargs),
+              extra=f" kinked pairs {int(kinks.sum())} of {kinks.numel()}; {text}",
+              flops=K6B_BF16_FLOP * inst * m, peak=BF16_FLOP_S,
+              nbytes=2 * (2 * feat_t.numel() + gout.numel() + 2 * n_w) + 4 * pos_t.numel(),
+              iters=3)
+        if faults:
+            raise AssertionError(f"{bname}: " + "; ".join(faults))
+        del feat_t, pos_t, gout, bargs, kinks
+        torch.cuda.empty_cache()
+
+    # the no-reduction form at O's one-ray render chunks: 8 instances x 5
+    # points x k 16 pairs, f32 'recurrence' (O's) and bf16 'direct'
+    for dtype, method, weights, name in (
+            (torch.float32, "recurrence", w32, "fused_mlp_posenc (no reduction)"),
+            (torch.bfloat16, "direct", w16, "fused_mlp_posenc (no reduction, bf16)")):
+        feat_t, pos_t = k6_inputs(8, 5, 16, dtype)
+        kinks = leaky_kinks(feat_t, pos_t, weights, 10, method=method)
+        fargs = (feat_t, pos_t, weights, 10, 1.0, method)
+        got = fused_mlp_posenc(*fargs)
+        want = fused_mlp_posenc_plain(*fargs)
+        # and the pairs where the kernel's and the plain version's forwards
+        # take another slope (slope_flips_bf16's test on the stack cut after
+        # each hidden layer): a whole pair's product apart, which the 640
+        # pairs' dW sums show
+        flips = torch.zeros_like(kinks)
+        for cut in range(1, len(weights) if dtype == torch.bfloat16 else 1):
+            flips |= ((fused_mlp_posenc(feat_t, pos_t, weights[:cut], 10, 1.0, method) > 0)
+                      != (fused_mlp_posenc_plain(feat_t, pos_t, weights[:cut], 10, 1.0, method)
+                          > 0)).any(-1)
+        gy = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+        gy[kinks | flips] = 0
+        bargs = (feat_t, pos_t, weights, gy, 10, 1.0, method)
+        bgot = flat(*fused_mlp_posenc_bwd(*bargs))
+        bwant = flat(*fused_mlp_posenc_bwd_plain(*bargs))
+        m = feat_t.shape[2]
+        if dtype == torch.float32:
+            exact = _k6_f64(feat_t, unit_pairs(pos_t), weights, 1, 10, method)
+            extra = f" vs float64 {_f64_gate(name, [got], [exact])}"
+            berr, btol = _worst([(a, b, 1e-5) for a, b in zip(
+                bgot, flat(*_k6_f64(feat_t, unit_pairs(pos_t), weights, 1, 10, method,
+                                    gy)))])
+            err, tol = _err(got, want), 1e-4 * max(1.0, float(want.abs().max()))
+            bextra, kw = " vs float64", {"tf32": True}
+        else:
+            err, tol, share = _bf16_err(got, want)
+            extra = f" bitwise share {share:.4f}; slope flips {int((flips & ~kinks).sum())}"
+            berr, btol, bextra, faults = _bf16_bwd_gate(bgot, bwant, "dfeat", K6B_BF16_REL,
+                                                        K6B_BF16_DFEAT_SHARE)
+            if faults:
+                raise AssertionError(f"{name} backward: " + "; ".join(faults))
+            bextra, kw = " " + bextra, {"peak": BF16_FLOP_S}
+        size = 4 if dtype == torch.float32 else 2
+        check(name, err, tol, lambda: fused_mlp_posenc(*fargs),
+              lambda: fused_mlp_posenc_plain(*fargs), flops=K6F_BF16_FLOP * 8 * m,
+              nbytes=size * (feat_t.numel() + n_w + got.numel()) + 4 * pos_t.numel(),
+              extra=extra, **kw)
+        check(name.replace("posenc", "posenc_bwd"), berr, btol,
+              lambda: fused_mlp_posenc_bwd(*bargs), lambda: fused_mlp_posenc_bwd_plain(*bargs),
+              flops=K6B_BF16_FLOP * 8 * m, extra=bextra,
+              nbytes=size * (2 * feat_t.numel() + gy.numel() + 2 * n_w) + 4 * pos_t.numel(),
+              **kw)
+
+    # K7f/K7b at d_in 307: the V path's channel net, 256 features + the
+    # view directions' 51 encoded columns, over 400 x 1,792 packed points
+    rows = 400 * 1792
+    x = torch.cat([torch.randn(rows, 256, generator=g, device=dev),
+                   2 * torch.rand(rows, 51, generator=g, device=dev) - 1], 1).bfloat16()
+    dims = (256, 256, 256, 256, 3)
+    weights = [(l["w"].bfloat16(), l["b"].bfloat16())
+               for l in init_mlp(dims[:-1], 307, 3, torch.Generator().manual_seed(1), dev)]
+    n_w = sum(t.numel() for wb in weights for t in wb)
+    fwd_flop, bwd_flop = _k7_flop(dims, 307)
+    rev = torch.arange(rows - 1, -1, -1, device=dev)
+    xr = x[rev].contiguous()
+    got = fused_mlp(x, weights)
+    err, tol, share = _bf16_err(got, fused_mlp_plain(x, weights))
+    faults = []
+    if not torch.equal(fused_mlp(x, weights), got):
+        faults.append("two runs on the same inputs differ")
+    if not torch.equal(fused_mlp(xr, weights)[rev], got):
+        faults.append("the rows reversed differ")
+    check("fused_mlp (d_in 307)", err, tol, lambda: fused_mlp(x, weights),
+          lambda: fused_mlp_plain(x, weights), flops=fwd_flop * rows, peak=BF16_FLOP_S,
+          nbytes=2 * (x.numel() + n_w + got.numel()),
+          extra=f" channel_net with view directions; bitwise share {share:.4f}"
+                + ("" if faults else "; rows reversed and repeated bitwise"))
+    if faults:
+        raise AssertionError("fused_mlp (d_in 307): " + "; ".join(faults))
+    gy = torch.randn(rows, 3, generator=g, device=dev).bfloat16()
+    kinks = torch.cat([leaky_kinks_bf16(x[i:i + 65536], weights)
+                       for i in range(0, rows, 65536)])
+    flips = slope_flips_bf16(x, weights)
+    gy[kinks | flips] = 0
+    got = flat(*fused_mlp_bwd(x, weights, gy))
+    err, tol, text, faults = _bf16_bwd_gate(got, flat(*fused_mlp_bwd_plain(x, weights, gy)),
+                                            "dx", K7B_BF16_REL, K7B_BF16_DX_SHARE)
+    if got[0].shape != x.shape:
+        faults.append(f"dx is {tuple(got[0].shape)}, x {tuple(x.shape)}")
+    if not all(torch.equal(a, b) for a, b in zip(flat(*fused_mlp_bwd(x, weights, gy)), got)):
+        faults.append("two runs on the same inputs differ")
+    again = flat(*fused_mlp_bwd(xr, weights, gy[rev].contiguous()))
+    order = min(float((a == b).float().mean()) for a, b in zip(again[1:], got[1:]))
+    if not torch.equal(again[0][rev], got[0]) or order < K6B_BF16_ORDER_SHARE:
+        faults.append(f"the rows reversed give dx equal {torch.equal(again[0][rev], got[0])}, "
+                      f"dW/db {order} bitwise")
+    del again, got
+    check("fused_mlp_bwd (d_in 307)", err, tol, lambda: fused_mlp_bwd(x, weights, gy),
+          lambda: fused_mlp_bwd_plain(x, weights, gy), flops=bwd_flop * rows, peak=BF16_FLOP_S,
+          nbytes=2 * (2 * x.numel() + gy.numel() + 2 * n_w),
+          extra=f" kinked rows {int(kinks.sum())}, slope flips {int(flips.sum())} of {rows}; "
+                f"{text}; rows reversed: dW/db bitwise {order:.4f}")
+    if faults:
+        raise AssertionError("fused_mlp_bwd (d_in 307): " + "; ".join(faults))
+    del x, xr, gy, kinks, flips
+    torch.cuda.empty_cache()
+    return results
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2639,6 +3083,7 @@ def main() -> None:
     results.update(_timed("kernels-train", phase_train_kernels))
     results.update(_timed("kernels-stage1", phase_stage1_kernels))
     results.update(_timed("kernels-fast", phase_fast_kernels))
+    results.update(_timed("kernels-forms", phase_form_kernels))
     results.update(_timed("kernels-bf16", phase_bf16_train_kernels))
     attention_launches, attention_results = _timed("attention", phase_attention)
     results.update(attention_results)
@@ -2660,6 +3105,8 @@ def main() -> None:
                                  FAST_STAGE1)
     paths["reference weights"] = (_timed("reference-weights", phase_reference_weights)["launches"],
                                   REFERENCE_WEIGHTS)
+    paths["options V"] = (_timed("options-V", phase_options, "V")["launches"], OPTIONS_V)
+    paths["options O"] = (_timed("options-O", phase_options, "O")["launches"], OPTIONS_O)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

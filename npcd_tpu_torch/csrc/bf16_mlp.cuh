@@ -59,12 +59,14 @@ __device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
 
 // A layer product over one sub-tile, acc = a . W (recompute; WT false:
 // `steps` k-steps of 16 over W's rows, those from kin on zero) or acc = a .
-// W^T (dX; WT true: 16 k-steps over W's 256 columns); a [SUB][LDA] in
-// shared memory, W [kin][HID] row-major in global memory, streamed KS
-// k-steps a slab through the S stages of the ring ([S][STAGE]) by cp.async,
-// S - 1 slabs ahead. Warp w computes rows 32 (w / 4) .. + 32, columns 64 (w
-// % 4) .. + 64.
-template <bool WT, int S = 2>
+// W^T (dX; WT true: 16 k-steps over W's 256 columns, W's rows from kin on,
+// the output's columns, zero); a [SUB][LDA] in shared memory, W [..][HID]
+// row-major in global memory, streamed KS k-steps a slab through the S
+// stages of the ring ([S][STAGE]) by cp.async, S - 1 slabs ahead. Warp w
+// computes rows 32 (w / 4) .. + 32, columns 64 (w % 4) .. + 64. FRESH false
+// adds the product to acc (a product over a chunk of a wider input: an
+// output element's sum is then its k-steps over both chunks, in order).
+template <bool WT, int S = 2, bool FRESH = true>
 __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16* a,
                                               const bf16* __restrict__ W, int kin, int steps,
                                               bf16* ring) {
@@ -75,7 +77,8 @@ __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16*
     for (int idx = tid; t < slabs && idx < 16 * KS * HID / 8; idx += NT) {
       if (WT) {  // W's columns 16 KS t .. + 16 KS of its 256 rows, [HID][LDC]
         const int r = idx / (2 * KS), c = idx % (2 * KS) * 8;
-        cp16(st + r * LDC + c, W + (long)r * HID + 16 * KS * t + c, true);
+        const bool ok = r < kin;
+        cp16(st + r * LDC + c, W + (ok ? (long)r * HID + 16 * KS * t + c : 0), ok);
       } else {  // W's rows 16 KS t .. + 16 KS, [16 KS][LDA]
         const int r = idx / (HID / 8), c = idx % (HID / 8) * 8;
         const bool ok = 16 * KS * t + r < kin;
@@ -84,7 +87,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16*
     }
     cp_commit();
   };
-  zero(acc);
+  if (FRESH) zero(acc);
   __syncthreads();  // the last user of the ring is done with it
   for (int t = 0; t < S - 1; ++t) load(t);
   for (int t = 0; t < slabs; ++t) {
@@ -117,19 +120,14 @@ __device__ __forceinline__ void layer_product(float (&acc)[2][8][4], const bf16*
   }
 }
 
-// One hidden bf16 layer of the stack over a sub-tile, in place: act <-
-// leaky(bf16(bf16(act . W) + b)) with npcd_tpu's rounding points (z =
-// bf16(bf16(acc) + b), max(z, bf16(z bf16(0.01)))); W [kin][HID] and b in
-// global memory, `steps` k-steps of 16 (act is zero in columns kin .. 16
-// steps). mask receives the thread's bits z > 0, bit 4 j + e of word i for
-// acc[i][j][e]. The bf16 forward's hidden layers are the same product and
-// epilogue (on a ring of S stages: the same sums).
-template <int S = 2>
-__device__ __forceinline__ void layer_bf16(bf16* act, const bf16* __restrict__ W,
-                                           const bf16* __restrict__ bias, int kin, int steps,
-                                           bf16* ring, unsigned (&mask)[2]) {
-  float acc[2][8][4];
-  layer_product<false, S>(acc, act, W, kin, steps, ring);
+// The epilogue of a hidden bf16 layer over a sub-tile, in place, after a
+// barrier (every warp has read its last A fragment of act): act <-
+// leaky(bf16(bf16(acc) + b)) with npcd_tpu's rounding points (z =
+// bf16(bf16(acc) + b), max(z, bf16(z bf16(0.01)))); mask receives the
+// thread's bits z > 0, bit 4 j + e of word i for acc[i][j][e].
+__device__ __forceinline__ void hidden_bf16(const float (&acc)[2][8][4],
+                                            const bf16* __restrict__ bias, bf16* act,
+                                            unsigned (&mask)[2]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, u = lane & 3;
   const int r0 = (warp >> 2) * 32, n0 = (warp & 3) * 64;
   __syncthreads();  // every warp has read its last A fragment
@@ -152,6 +150,20 @@ __device__ __forceinline__ void layer_bf16(bf16* act, const bf16* __restrict__ W
         *reinterpret_cast<__nv_bfloat162*>(act + (r0 + 16 * i + g + 8 * h) * LDA + col) = v;
       }
   }
+}
+
+// One hidden bf16 layer of the stack over a sub-tile, in place: the product
+// act . W (W [kin][HID] and b in global memory, `steps` k-steps of 16; act
+// is zero in columns kin .. 16 steps), then hidden_bf16. The bf16 forward's
+// hidden layers are the same product and epilogue (on a ring of S stages:
+// the same sums).
+template <int S = 2>
+__device__ __forceinline__ void layer_bf16(bf16* act, const bf16* __restrict__ W,
+                                           const bf16* __restrict__ bias, int kin, int steps,
+                                           bf16* ring, unsigned (&mask)[2]) {
+  float acc[2][8][4];
+  layer_product<false, S>(acc, act, W, kin, steps, ring);
+  hidden_bf16(acc, bias, act, mask);
 }
 
 // The epilogue of a last (linear) 256-wide layer over a sub-tile, in place:

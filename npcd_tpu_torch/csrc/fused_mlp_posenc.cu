@@ -20,9 +20,15 @@
 // store it, with no row permutation), runs the MLP stack
 //   d1 -> 256 -> ... -> 256, leaky_relu(0.01) after every layer but the last,
 // and writes out[i, n, :] = sum_j w[n*k + j] * mlp(pair n*k + j) with the
-// pair weight w = pos_t[i, 3, m]. The encoding is the 'anchored' method:
-// octave j is evaluated directly where j is a multiple of 5 and by the
-// double-angle recurrence s' = 2sc, c' = 2c^2 - 1 in between.
+// pair weight w = pos_t[i, 3, m]. The encoding takes each of
+// nn_core.positional_encoding's methods through `anchor`: octave j is
+// evaluated directly, sin/cos(fl(2^j c0 x)), where j is a multiple of
+// anchor, and by the double-angle recurrence s' = 2sc, c' = 2c^2 - 1 in
+// between: 'anchored' is anchor 5, 'recurrence' anchor n_freqs (octave 0
+// alone direct) and 'direct' anchor 1 (every octave; c0 = fl(fm pi) with
+// fm and pi rounded to f32 first, the plain version's fl(fl(fm 2^j) pi) /
+// 2^j, so each argument rounds as its fl(x fl(fl(fm 2^j) pi)) does). sinf
+// and cosf, not the fast intrinsics, since the argument reaches ~2^9 pi.
 //
 // bf16 (npcd_tpu's _build_h0t, _layer and _wsum_reduce with bf16 feat_t and
 // weights): x and the octaves are computed in f32 and rounded to bf16 as
@@ -54,7 +60,6 @@
 namespace {
 
 constexpr int HID = 256;   // width of every layer; one thread per column
-constexpr int ANCHOR = 5;  // direct sin/cos every 5 octaves ('anchored')
 constexpr float LEAKY_BF16 = 0.010009765625f;  // bf16(0.01)
 
 typedef __nv_bfloat16 bf16;
@@ -75,8 +80,8 @@ template <typename T>
 __device__ __forceinline__ float as_input(float v) { return is_bf16<T>() ? rnd(v) : v; }
 
 // Builds the block's layer-1 input h0 [P][ld1] (feature rows, x, the
-// 'anchored' encoding, zero columns d1 .. pad - 1; x and the encoding rounded
-// to bf16 in the bf16 flavour) and the pair weights wpair [P] for pairs r0 ..
+// encoding, zero columns d1 .. pad - 1; x and the encoding rounded to bf16
+// in the bf16 flavour) and the pair weights wpair [P] for pairs r0 ..
 // r0 + P - 1 of one instance, by a block of NT >= P threads; h0 is f32, or
 // bf16 (O) for the tensor cores. Lanes past the last pair are zeroed before
 // sin/cos.
@@ -85,7 +90,7 @@ __device__ __forceinline__ void build_input(const T* __restrict__ feat,
                                             const float* __restrict__ pos,
                                             O* h0, float* wpair, int r0,
                                             int m, int f_dim, int n_freqs,
-                                            float freq_c0, int d1, int ld1,
+                                            int anchor, float freq_c0, int d1, int ld1,
                                             int pad, int t) {
   for (int idx = t; idx < f_dim * P; idx += NT) {
     const int f = idx / P, r = idx % P;
@@ -99,7 +104,7 @@ __device__ __forceinline__ void build_input(const T* __restrict__ feat,
     O* enc = row + f_dim + 3 + d * 2 * n_freqs;
     float s = 0.f, c = 1.f;
     for (int j = 0; j < n_freqs; ++j) {
-      if (j % ANCHOR == 0) {
+      if (j % anchor == 0) {
         const float arg = __fmul_rn(freq_c0 * (float)(1 << j), x);
         s = sinf(arg);
         c = cosf(arg);
@@ -346,7 +351,7 @@ __global__ void __launch_bounds__(HID, 2)
 mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_t,
                 const float* __restrict__ params, const uint4* __restrict__ wsplit,
                 float* __restrict__ out, int m, int f_dim, int pos_rows, int n_layers,
-                int n_freqs, float freq_c0, int k) {
+                int n_freqs, int anchor, float freq_c0, int k) {
   constexpr int P = BLOCK_PAIRS;
   extern __shared__ __align__(16) float sbuf[];
   uint4* ring = reinterpret_cast<uint4*>(sbuf);
@@ -362,7 +367,7 @@ mlp_posenc_wsum(const float* __restrict__ feat_t, const float* __restrict__ pos_
   int t = 0;  // the next slab to consume; the first ones land while the input is built
   for (int s = 0; s < STAGES - 1; ++s) load_slab(ring, wsplit, s, n_slabs);
   build_input<float, P>(feat_t + (long)inst * f_dim * m, pos_t + (long)inst * pos_rows * m, act,
-                        wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, LDA, tid);
+                        wpair, r0, m, f_dim, n_freqs, anchor, freq_c0, d1, LDA, LDA, tid);
 
   // ---- hidden layers 0 .. L-2, in place in act ----------------------------
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -641,7 +646,8 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
                     const float* __restrict__ params, const uint4* __restrict__ wsplit,
                     const float* __restrict__ g_out, float* __restrict__ dfeat_t,
                     float* __restrict__ partial, float* __restrict__ scratch, int inst, int m,
-                    int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0, int k,
+                    int f_dim, int pos_rows, int n_layers, int n_freqs, int anchor,
+                    float freq_c0, int k,
                     long n_partial) {
   constexpr int P = BLOCK_PAIRS;
   extern __shared__ __align__(16) float sbuf[];
@@ -693,7 +699,8 @@ mlp_posenc_wsum_bwd(const float* __restrict__ feat_t, const float* __restrict__ 
     // act <- act_l from the scratch (l >= 0), or layer 1's input h0 (l < 0)
     auto load_act = [&](int l) {
       if (l < 0) {
-        build_input<float, P>(feat, pos, act, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, LDA,
+        build_input<float, P>(feat, pos, act, wpair, r0, m, f_dim, n_freqs, anchor, freq_c0, d1,
+                              LDA, LDA,
                               tid);
         return;
       }
@@ -962,7 +969,7 @@ mlp_posenc_wsum_bwd(const bf16* __restrict__ feat_t, const float* __restrict__ p
                     const bf16* __restrict__ params, const bf16* __restrict__ g_out,
                     bf16* __restrict__ dfeat_t, float* __restrict__ partial,
                     bf16* __restrict__ scratch, int inst, int m, int f_dim, int pos_rows,
-                    int n_layers, int n_freqs, float freq_c0, int k, long n_partial) {
+                    int n_layers, int n_freqs, int anchor, float freq_c0, int k, long n_partial) {
   extern __shared__ __align__(16) float sbuf[];
   bf16* tile = reinterpret_cast<bf16*>(sbuf);
   bf16* ring = tile + TILE * LDA;
@@ -1008,7 +1015,8 @@ mlp_posenc_wsum_bwd(const bf16* __restrict__ feat_t, const float* __restrict__ p
     if (batched + pts > BATCH) flush();
     __syncthreads();  // the last tile is done with the tile buffer, wpair and red
     build_input<bf16, TILE, NT>(feat_t + (long)i * f_dim * m, pos_t + (long)i * pos_rows * m,
-                                tile, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, d1p, tid);
+                                tile, wpair, r0, m, f_dim, n_freqs, anchor, freq_c0, d1, LDA,
+                                d1p, tid);
     __syncthreads();
     for (int idx = tid; idx < TILE * d1p / 8; idx += NT) {
       const int r = idx / (d1p / 8), c = idx % (d1p / 8) * 8;
@@ -1163,7 +1171,7 @@ mlp_posenc_wsum_bwd(const bf16* __restrict__ feat_t, const float* __restrict__ p
 __global__ void __launch_bounds__(NT, 1)
 mlp_posenc_wsum(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t,
                 const bf16* __restrict__ params, bf16* __restrict__ out, int m, int f_dim,
-                int pos_rows, int n_layers, int n_freqs, float freq_c0, int k) {
+                int pos_rows, int n_layers, int n_freqs, int anchor, float freq_c0, int k) {
   extern __shared__ __align__(16) float sbuf[];
   bf16* act = reinterpret_cast<bf16*>(sbuf);
   bf16* ring = act + SUB * LDA;
@@ -1174,7 +1182,7 @@ mlp_posenc_wsum(const bf16* __restrict__ feat_t, const float* __restrict__ pos_t
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs), d1p = (d1 + 15) & ~15;
   // h0; the first layer product's barrier makes it visible
   build_input<bf16, SUB, NT>(feat_t + (long)inst * f_dim * m, pos_t + (long)inst * pos_rows * m,
-                             act, wpair, r0, m, f_dim, n_freqs, freq_c0, d1, LDA, d1p, tid);
+                             act, wpair, r0, m, f_dim, n_freqs, anchor, freq_c0, d1, LDA, d1p, tid);
 
   // ---- layers 0 .. L-2 in place, as the backward recomputes them ----------
   const bf16* p = params;  // W_l, then b_l
@@ -1240,7 +1248,7 @@ __global__ void reduce_partials_tf32(const float* __restrict__ partial, int n_bl
 // The f32 forward: split_weights, then tf::mlp_posenc_wsum.
 int launch_tf32(const float* feat_t, const float* pos_t, const float* params, uint4* wsplit,
                 float* out, int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs,
-                float freq_c0, int k, cudaStream_t stream) {
+                int anchor, float freq_c0, int k, cudaStream_t stream) {
   constexpr int P = tf::BLOCK_PAIRS;
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
   const int n_slabs = (d1 + 7) / 8 + (n_layers - 1) * (HID / 8);
@@ -1254,7 +1262,8 @@ int launch_tf32(const float* feat_t, const float* pos_t, const float* params, ui
   const int e = allow_smem(tf::mlp_posenc_wsum, smem);
   if (e) return e;
   tf::mlp_posenc_wsum<<<dim3((m + P - 1) / P, inst), HID, smem, stream>>>(
-      feat_t, pos_t, params, wsplit, out, m, f_dim, pos_rows, n_layers, n_freqs, freq_c0, k);
+      feat_t, pos_t, params, wsplit, out, m, f_dim, pos_rows, n_layers, n_freqs, anchor, freq_c0,
+      k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1264,7 +1273,7 @@ int launch_tf32(const float* feat_t, const float* pos_t, const float* params, ui
 int launch_bwd_tf32(const float* feat_t, const float* pos_t, const float* params,
                     uint4* wsplit, const float* g_out, float* dfeat_t, float* dparams,
                     float* partial, float* scratch, int inst, int m, int f_dim, int pos_rows,
-                    int n_layers, int n_freqs, float freq_c0, int k, int n_blocks,
+                    int n_layers, int n_freqs, int anchor, float freq_c0, int k, int n_blocks,
                     long n_partial, cudaStream_t stream) {
   constexpr int P = tf::BLOCK_PAIRS;
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
@@ -1282,7 +1291,7 @@ int launch_bwd_tf32(const float* feat_t, const float* pos_t, const float* params
   if (e) return e;
   tf::mlp_posenc_wsum_bwd<<<n_blocks, HID, smem, stream>>>(
       feat_t, pos_t, params, wsplit, g_out, dfeat_t, partial, scratch, inst, m, f_dim, pos_rows,
-      n_layers, n_freqs, freq_c0, k, n_partial);
+      n_layers, n_freqs, anchor, freq_c0, k, n_partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials_tf32<<<(int)((n_partial + threads - 1) / threads), threads, 0, stream>>>(
@@ -1294,7 +1303,7 @@ int launch_bwd_tf32(const float* feat_t, const float* pos_t, const float* params
 int launch_bwd_bf16(const bf16* feat_t, const float* pos_t, const bf16* params,
                     const bf16* g_out, bf16* dfeat_t, bf16* dparams, float* partial,
                     bf16* scratch, int inst, int m, int f_dim, int pos_rows, int n_layers,
-                    int n_freqs, float freq_c0, int k, int n_blocks, long n_partial,
+                    int n_freqs, int anchor, float freq_c0, int k, int n_blocks, long n_partial,
                     cudaStream_t stream) {
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
   if (n_layers < 2 || n_layers > 8 || d1 > HID || f_dim > 64 || tc::TILE % k ||
@@ -1306,7 +1315,7 @@ int launch_bwd_bf16(const bf16* feat_t, const float* pos_t, const bf16* params,
   if (e) return e;
   tc::mlp_posenc_wsum_bwd<<<n_blocks, tc::NT, smem, stream>>>(
       feat_t, pos_t, params, g_out, dfeat_t, partial, scratch, inst, m, f_dim, pos_rows,
-      n_layers, n_freqs, freq_c0, k, n_partial);
+      n_layers, n_freqs, anchor, freq_c0, k, n_partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
@@ -1321,9 +1330,9 @@ int launch_bwd_bf16(const bf16* feat_t, const float* pos_t, const bf16* params,
 // [inst, m / k, 256], all contiguous; feat_t, params and out are f32
 // (fused_mlp_posenc_wsum_fwd) or bf16 (..._fwd_bf16). params packs the
 // layers in order as W [k_in, 256] (row-major, k_in = f_dim + 3*(1 +
-// 2*n_freqs) for the first layer, 256 after) followed by b [256]. The
-// positional encoding is the 'anchored' method. Returns cudaGetLastError()
-// after launch.
+// 2*n_freqs) for the first layer, 256 after) followed by b [256]. Octave j
+// of the positional encoding is evaluated directly where anchor divides j
+// (anchor >= 1; build_input). Returns cudaGetLastError() after launch.
 //
 // f32 (3xTF32, 64 pairs a block): wsplit is scratch for the split
 // weights, 16 KB for each k-step of 8 rows ((k_in0 + 7) / 8 + (n_layers -
@@ -1331,11 +1340,12 @@ int launch_bwd_bf16(const bf16* feat_t, const float* pos_t, const bf16* params,
 extern "C" int fused_mlp_posenc_wsum_fwd(const void* feat_t, const void* pos_t,
                                          const void* params, void* wsplit, void* out, int inst,
                                          int m, int f_dim, int pos_rows, int n_layers,
-                                         int n_freqs, float freq_c0, int k, void* stream) {
+                                         int n_freqs, int anchor, float freq_c0, int k,
+                                         void* stream) {
   return launch_tf32(static_cast<const float*>(feat_t), static_cast<const float*>(pos_t),
                      static_cast<const float*>(params), static_cast<uint4*>(wsplit),
                      static_cast<float*>(out), inst, m, f_dim, pos_rows, n_layers, n_freqs,
-                     freq_c0, k, static_cast<cudaStream_t>(stream));
+                     anchor, freq_c0, k, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 (tc::mlp_posenc_wsum, 128 pairs a block): k must divide 128, and
@@ -1344,7 +1354,7 @@ extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* po
                                               const void* params, void* out, int inst,
                                               int m, int f_dim, int pos_rows,
                                               int n_layers, int n_freqs,
-                                              float freq_c0, int k,
+                                              int anchor, float freq_c0, int k,
                                               void* stream) {
   const int d1 = f_dim + 3 * (1 + 2 * n_freqs);
   if (n_layers < 1 || d1 > HID || k < 1 || tc::SUB % k)
@@ -1358,7 +1368,7 @@ extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* po
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
       static_cast<const bf16*>(params), static_cast<bf16*>(out), m, f_dim, pos_rows, n_layers,
-      n_freqs, freq_c0, k);
+      n_freqs, anchor, freq_c0, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1376,14 +1386,14 @@ extern "C" int fused_mlp_posenc_wsum_fwd_bf16(const void* feat_t, const void* po
 extern "C" int fused_mlp_posenc_wsum_bwd(
     const void* feat_t, const void* pos_t, const void* params, void* wsplit,
     const void* g_out, void* dfeat_t, void* dparams, void* partial, void* scratch,
-    int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs, float freq_c0,
-    int k, int n_blocks, long n_params, void* stream) {
+    int inst, int m, int f_dim, int pos_rows, int n_layers, int n_freqs, int anchor,
+    float freq_c0, int k, int n_blocks, long n_params, void* stream) {
   return launch_bwd_tf32(static_cast<const float*>(feat_t), static_cast<const float*>(pos_t),
                          static_cast<const float*>(params), static_cast<uint4*>(wsplit),
                          static_cast<const float*>(g_out), static_cast<float*>(dfeat_t),
                          static_cast<float*>(dparams), static_cast<float*>(partial),
                          static_cast<float*>(scratch), inst, m, f_dim, pos_rows, n_layers,
-                         n_freqs, freq_c0, k, n_blocks, n_params,
+                         n_freqs, anchor, freq_c0, k, n_blocks, n_params,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -1398,12 +1408,13 @@ extern "C" long fused_mlp_posenc_partial_len(int k_in0, int n_layers) {
 extern "C" int fused_mlp_posenc_wsum_bwd_bf16(
     const void* feat_t, const void* pos_t, const void* params, const void* g_out,
     void* dfeat_t, void* dparams, void* partial, void* scratch, int inst, int m, int f_dim,
-    int pos_rows, int n_layers, int n_freqs, float freq_c0, int k, int n_blocks,
+    int pos_rows, int n_layers, int n_freqs, int anchor, float freq_c0, int k, int n_blocks,
     long n_partial, void* stream) {
   return launch_bwd_bf16(static_cast<const bf16*>(feat_t), static_cast<const float*>(pos_t),
                          static_cast<const bf16*>(params), static_cast<const bf16*>(g_out),
                          static_cast<bf16*>(dfeat_t), static_cast<bf16*>(dparams),
                          static_cast<float*>(partial), static_cast<bf16*>(scratch), inst, m,
-                         f_dim, pos_rows, n_layers, n_freqs, freq_c0, k, n_blocks, n_partial,
+                         f_dim, pos_rows, n_layers, n_freqs, anchor, freq_c0, k, n_blocks,
+                         n_partial,
                          static_cast<cudaStream_t>(stream));
 }

@@ -36,16 +36,17 @@
 // 0.045, 0.0134 at the TV loss's (8 x 512) against 0.0316 (L = 2, timed
 // from the host only: 1.39 ms at the stage-1 shape, 0.46 at the fast
 // step's):
-//   1. each lane keeps the two smallest d2 of each of the four interleaved
-//      subsets of its points (a min/max chain, no branch); those are 8
-//      distinct points, so t, the largest of the eight, bounds the k-th
-//      smallest d2 of the query (k = 8), and so does the least t of its
-//      lanes;
+//   1. each lane keeps the KC / 4 smallest d2 of each of the four
+//      interleaved subsets of its points (a min/max chain, no branch); with
+//      q = ceil(k / 4), the q smallest of each subset are 4 q >= k distinct
+//      points, so t, the largest of the four subsets' q-th smallest, bounds
+//      the k-th smallest d2 of the query, and so does the least t of its
+//      lanes (k 8: the two smallest of each subset);
 //   2. each lane stores the indices of its points with d2 <= t in shared
-//      memory (a predicated store): ~14 a query at P = 512 and one lane (t
-//      sits near rank 14), in ascending index;
+//      memory (a predicated store): ~14 a query at P = 512, k 8 and one
+//      lane (t sits near rank 14), in ascending index;
 // then each lane inserts its candidates, with their exact d2, into a sorted
-// list of k (strict compares in ascending index: ties keep the lower
+// list of KC (strict compares in ascending index: ties keep the lower
 // index), and the L lists are merged with shuffles, k rounds of the
 // lexicographic (d2, index) minimum over the query's lanes (a stable sort's
 // order). Both sweeps take d2 with two FMAs (6 instructions, not 8): within
@@ -55,13 +56,17 @@
 // + 2**-18) (+ 2**-100 for subnormals), which holds every point whose exact
 // d2 ties or beats the k-th smallest. A lane with more than CAP candidates
 // (many exact ties at the bound) inserts every point of its share instead.
+// k is a run-time value below a compile-time ceiling KC of 8, 16 or 32 (the
+// list's length; the smallest ceiling at or above k is launched), so k 6
+// and 12 run the kernels of 8 and 16 and write their first k slots.
 // The exact d2 uses round-to-nearest intrinsics so nvcc does not contract
 // them into FMAs: it is the same float as the plain PyTorch version's
 // ((dx*dx + dy*dy) + dz*dz). Shared memory: the points, P rounded up to 4
 // (+inf past P, so their d2 is inf), 12 bytes each (6 KB at P = 512, 48 KB
-// at the limit of 4096), and 12 KB of candidate indices. The TPU kernel
-// packs the point index into the low mantissa bits of d2 to get one-pass
-// min reductions; here d2 keeps all its bits.
+// at the limit of 4096), and CAP candidate indices a lane (12, 20 or 36 KB
+// at KC 8, 16, 32). The TPU kernel packs the point index into the low
+// mantissa bits of d2 to get one-pass min reductions; here d2 keeps all
+// its bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,8 +74,9 @@
 namespace {
 
 constexpr int THREADS = 128;  // a block, of min_d2_kernel and of knn_kernel
-constexpr int K = 8;          // neighbours per query
-constexpr int CAP = 48;       // candidates a lane keeps
+constexpr int MAX_K = 32;     // the largest k: the largest list ceiling KC
+// candidates a lane keeps, for a list of KC
+__host__ __device__ constexpr int cap_of(int kc) { return kc == 8 ? 48 : kc == 16 ? 80 : 144; }
 // below this many queries a launch, one thread a query gives each of the
 // H100's 132 SMs fewer than 32 warps: four lanes a query there
 constexpr long FEW_QUERIES = 132L * 32 * 32;
@@ -106,9 +112,10 @@ __device__ __forceinline__ float4 dist2_fma4(const float4* px, const float4* py,
 }
 
 // (d, j) into the sorted list (bd, bi) after every entry <= d.
-__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int j) {
+template <int KC>
+__device__ __forceinline__ void insert(float (&bd)[KC], int (&bi)[KC], float d, int j) {
 #pragma unroll
-  for (int s = K - 1; s >= 0; --s) {  // from the end: each reads the old s - 1
+  for (int s = KC - 1; s >= 0; --s) {  // from the end: each reads the old s - 1
     if (s > 0 && bd[s - 1] > d) {
       bd[s] = bd[s - 1];
       bi[s] = bi[s - 1];
@@ -119,11 +126,12 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
   }
 }
 
-template <int L>
+template <int L, int KC>
 __global__ void __launch_bounds__(THREADS)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
-           int* __restrict__ idx_out, float* __restrict__ d2_out, int n, int p) {
+           int* __restrict__ idx_out, float* __restrict__ d2_out, int n, int p, int k) {
   constexpr int QB = THREADS / L;  // queries a block
+  constexpr int CAP = cap_of(KC), M = KC / 4;
   extern __shared__ float4 sp4[];  // x, y, z of the points: 3 arrays of p4 / 4 float4
   __shared__ unsigned short cj[CAP][THREADS];  // each lane's candidates (p <= 4096)
   const int groups = (p + 3) / 4, p4 = 4 * groups;
@@ -150,20 +158,34 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
     x2 = xq[2];
   }
 
-  // sweep 1: the two smallest approximate d2 of each subset u of the lane's
-  // points (4 g + u for its groups g = r, r + L, ...)
-  float m1[4] = {INFINITY, INFINITY, INFINITY, INFINITY}, m2[4] = {INFINITY, INFINITY,
-                                                                   INFINITY, INFINITY};
+  // sweep 1: the M smallest approximate d2 of each subset u of the lane's
+  // points (4 g + u for its groups g = r, r + L, ...), ascending
+  float ms[4][M];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < M; ++e) ms[u][e] = INFINITY;
   for (int g = r; g < groups; g += L) {
     const float4 d = dist2_fma4(px, py, pz, g, x0, x1, x2);
     const float dv[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      m2[u] = fminf(m2[u], fmaxf(m1[u], dv[u]));
-      m1[u] = fminf(m1[u], dv[u]);
+      float v = dv[u];
+#pragma unroll
+      for (int e = 0; e < M; ++e) {
+        const float lo = fminf(ms[u][e], v);
+        v = fmaxf(ms[u][e], v);
+        ms[u][e] = lo;
+      }
     }
   }
-  float t = fmaxf(fmaxf(m2[0], m2[1]), fmaxf(m2[2], m2[3]));  // inf without 8 points
+  // the largest of the subsets' q-th smallest, q = ceil(k / 4); inf without
+  // 4 q points
+  const int q_th = (k + 3) / 4 - 1;
+  float t = 0.f;
+#pragma unroll
+  for (int e = 0; e < M; ++e)
+    if (e == q_th) t = fmaxf(fmaxf(ms[0][e], ms[1][e]), fmaxf(ms[2][e], ms[3][e]));
 #pragma unroll
   for (int o = 1; o < L; o <<= 1) t = fminf(t, __shfl_xor_sync(FULL, t, o));
   const float bound = ok ? __fmaf_rn(t, 1.f + 0x1p-18f, 0x1p-100f) : -1.f;
@@ -183,10 +205,10 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
 
   // the lane's k best by exact d2: its candidates, or (past CAP) its points;
   // empty slots (inf, an index past every point's, distinct per lane)
-  float bd[K];
-  int bi[K];
+  float bd[KC];
+  int bi[KC];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
+  for (int s = 0; s < KC; ++s) {
     bd[s] = INFINITY;
     bi[s] = 0x7fffffff - r;
   }
@@ -195,22 +217,23 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
       const int j = cj[i][threadIdx.x];
       if (j >= p) continue;  // a pad point (p < 8: every point is a candidate)
       const float d = dist2(sp[j], sp[p4 + j], sp[2 * p4 + j], x0, x1, x2);
-      if (d < bd[K - 1]) insert(bd, bi, d, j);
+      if (d < bd[KC - 1]) insert(bd, bi, d, j);
     }
   } else {
     for (int g = r; g < groups; g += L)
       for (int j = 4 * g; j < min(4 * g + 4, p); ++j) {
         const float d = dist2(sp[j], sp[p4 + j], sp[2 * p4 + j], x0, x1, x2);
-        if (d < bd[K - 1]) insert(bd, bi, d, j);
+        if (d < bd[KC - 1]) insert(bd, bi, d, j);
       }
   }
 
   // merge the query's L lists: k rounds of the (d2, index) minimum of their
   // heads; the winner (indices are distinct) pops its head; lane s % L
   // writes slot s, slots past p (0, inf)
-  const long o = ((long)inst * n + q) * K;
+  const long o = ((long)inst * n + q) * k;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
+  for (int s = 0; s < KC; ++s) {
+    if (s >= k) break;  // the same for every lane
     float md = bd[L > 1 ? 0 : s];
     int mi = bi[L > 1 ? 0 : s];
 #pragma unroll
@@ -228,12 +251,12 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ pts,
     }
     if (L > 1 && bi[0] == mi) {
 #pragma unroll
-      for (int e = 0; e < K - 1; ++e) {
+      for (int e = 0; e < KC - 1; ++e) {
         bd[e] = bd[e + 1];
         bi[e] = bi[e + 1];
       }
-      bd[K - 1] = INFINITY;
-      bi[K - 1] = 0x7fffffff - r;
+      bd[KC - 1] = INFINITY;
+      bi[KC - 1] = 0x7fffffff - r;
     }
   }
 }
@@ -391,19 +414,26 @@ int launch_min_d2(const float* x, const float* pts, float* out, int inst, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int L>
+template <int L, int KC>
 int launch_knn(const float* x, const float* pts, int* idx, float* d2, int inst, int n, int p,
-               cudaStream_t stream) {
+               int k, cudaStream_t stream) {
   const int smem = 3 * ((p + 3) / 4) * static_cast<int>(sizeof(float4));
-  // above 48 KB in all (p > 3072) only with the attribute raised
-  if (smem + CAP * THREADS * static_cast<int>(sizeof(unsigned short)) > 48 * 1024)
+  // above 48 KB in all only with the attribute raised
+  if (smem + cap_of(KC) * THREADS * static_cast<int>(sizeof(unsigned short)) > 48 * 1024)
     if (int err = static_cast<int>(cudaFuncSetAttribute(
-            knn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+            knn_kernel<L, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
       return err;
   constexpr int per_block = THREADS / L;  // queries a block
   dim3 grid((n + per_block - 1) / per_block, inst);
-  knn_kernel<L><<<grid, THREADS, smem, stream>>>(x, pts, idx, d2, n, p);
+  knn_kernel<L, KC><<<grid, THREADS, smem, stream>>>(x, pts, idx, d2, n, p, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int launch_knn_k(const float* x, const float* pts, int* idx, float* d2, int inst, int n, int p,
+                 int k, cudaStream_t stream) {
+  return (long)inst * n < FEW_QUERIES ? launch_knn<4, KC>(x, pts, idx, d2, inst, n, p, k, stream)
+                                      : launch_knn<1, KC>(x, pts, idx, d2, inst, n, p, k, stream);
 }
 
 }  // namespace
@@ -417,14 +447,14 @@ extern "C" int min_d2_fwd(const void* x, const void* pts, void* out, int inst,
                        static_cast<float*>(out), inst, n, p, static_cast<cudaStream_t>(stream));
 }
 
-// x [inst, n, 3], pts [inst, p, 3] f32 contiguous; idx/d2 [inst, n, 8].
-// k must be 8; p <= 4096 (p * 12 bytes of shared memory). Returns
+// x [inst, n, 3], pts [inst, p, 3] f32 contiguous; idx/d2 [inst, n, k],
+// 1 <= k <= 32; p <= 4096 (p * 12 bytes of shared memory). Returns
 // cudaGetLastError() after launch, or cudaErrorInvalidValue for another k.
 extern "C" int knn_fwd(const void* x, const void* pts, void* idx, void* d2,
                        int inst, int n, int p, int k, void* stream) {
-  if (k != K) return static_cast<int>(cudaErrorInvalidValue);
-  auto launch = (long)inst * n < FEW_QUERIES ? &launch_knn<4> : &launch_knn<1>;
+  if (k < 1 || k > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = k <= 8 ? &launch_knn_k<8> : k <= 16 ? &launch_knn_k<16> : &launch_knn_k<32>;
   return launch(static_cast<const float*>(x), static_cast<const float*>(pts),
-                static_cast<int*>(idx), static_cast<float*>(d2), inst, n, p,
+                static_cast<int*>(idx), static_cast<float*>(d2), inst, n, p, k,
                 static_cast<cudaStream_t>(stream));
 }

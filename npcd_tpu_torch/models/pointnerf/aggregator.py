@@ -1,12 +1,17 @@
 """Dense masked kNN aggregation. Port of
 npcd_tpu/models/pointnerf/aggregator.py (compact_valid_samples,
-knn_neighbors, aggregate_features through _aggregate_posenc_fused, and the
-training shading budget's pack_rows and gather_rows). The one-hot matmul
-gathers the TPU needed become index gathers; the per-pair MLP, its
-positional encoding and the k-neighbour weighted sum run in kernel K6
+knn_neighbors, aggregate_features through _aggregate_posenc_fused and its
+XLA branch, and the training shading budget's pack_rows and gather_rows).
+The one-hot matmul gathers the TPU needed become index gathers; for the
+kernel's activation, leaky_relu, the per-pair MLP, its positional encoding
+and the k-neighbour weighted sum run in kernel K6
 (ops/kernels/fused_mlp_posenc.py), forward and backward, in f32 or, under
 compute_dtype bfloat16, in bf16 (kp_feat and the weights cast at use; x_rel,
-distances and the weights w stay f32).
+distances and the weights w stay f32): the w-sum inside the kernel where
+npcd_tpu's ``wsum_supported`` holds, else the kernel's no-reduction form
+and the w-sum outside (fewer than 8 points). Any other activation runs
+npcd_tpu's XLA branch as plain tensor code: the encoded pairs through
+apply_mlp, then the w-sum.
 
 Gradient contract (npcd_tpu aggregator.py:197-211): the gradient reaches
 kp_feat (through the neighbour gather) and the MLP weights only; kp_pos,
@@ -19,10 +24,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...ops.kernels.fused_mlp_posenc import fused_mlp_posenc_wsum
+from ...ops.kernels.fused_mlp_posenc import fused_mlp_posenc, fused_mlp_posenc_wsum
 from ...ops.knn import dense_knn_batched
 from ...utils.config import AggregatorOptions
-from .nn_core import Layers
+from .nn_core import Layers, apply_mlp, positional_encoding
+
+WSUM_BLOCK = 1024  # npcd_tpu's _BLK: the pair block its w-sum kernel must fill with 8 k
+
+
+def wsum_supported(m: int, k: int) -> bool:
+    """npcd_tpu's gate of the w-summing kernel (fused_mlp.py:619) at m pairs
+    of k neighbours: else the aggregator takes the no-reduction form."""
+    return k > 0 and m % k == 0 and min(WSUM_BLOCK, m) >= 8 * k
 
 
 def compact_valid_samples(valid: torch.Tensor, depths: torch.Tensor,
@@ -88,13 +101,25 @@ def knn_neighbors(shading_pts: torch.Tensor, pts_mask: torch.Tensor, kp_pos: tor
     return idx, nb_mask & pts_mask[..., None]
 
 
+def _wsum(w: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """sum_j w[b, n, j] local[b, n, j] in local's dtype (npcd_tpu's einsum
+    'bnk,bnkc->bnc' with w cast to it; bf16 summed in f32, rounded once)."""
+    if local.dtype == torch.bfloat16:
+        prod = w.to(torch.bfloat16).float()[..., None] * local.float()
+        return prod.sum(2).to(torch.bfloat16)
+    return torch.einsum("bnk,bnkc->bnc", w.to(local.dtype), local)
+
+
 def aggregate_features(layers: Layers, opts: AggregatorOptions,
                        shading_pts: torch.Tensor, pts_mask: torch.Tensor,
                        kp_pos: torch.Tensor, kp_feat: torch.Tensor,
                        neighbors: Tuple[torch.Tensor, torch.Tensor],
-                       compute_dtype: Optional[torch.dtype] = None):
+                       compute_dtype: Optional[torch.dtype] = None,
+                       return_weights: bool = False):
     """shading_pts [B, N, 3], pts_mask [B, N], kp_pos [B, P, 3],
-    kp_feat [B, P, F] -> (feat [B, N, out_dim], valid_pt [B, N]).
+    kp_feat [B, P, F] -> (feat [B, N, out_dim], valid_pt [B, N]), and with
+    ``return_weights`` also the pair weights w [B, N, k] (0 at masked
+    pairs) and the neighbour indices [B, N, k].
 
     Per (point, neighbour) pair: x_rel = point - neighbour, the normalized
     inverse-distance weight w over the in-radius neighbours, and
@@ -103,8 +128,6 @@ def aggregate_features(layers: Layers, opts: AggregatorOptions,
     from ``knn_neighbors`` (training runs it once per step, outside its
     recomputed chunks). compute_dtype bfloat16: feat is bf16, and the
     gradient reaching kp_feat and the weights is a bf16 value upcast."""
-    if opts.activation != "leaky_relu":
-        raise ValueError(f"the aggregation kernel applies leaky_relu; got {opts.activation!r}")
     shading_pts, kp_pos = shading_pts.detach(), kp_pos.detach()
     idx, nb_mask = neighbors
     b, n, k = idx.shape
@@ -123,8 +146,22 @@ def aggregate_features(layers: Layers, opts: AggregatorOptions,
     w = (1.0 / (dist + 1e-5)) * nb_mask.to(dist.dtype)
     w_sum = w.sum(-1, keepdim=True)
     w = torch.where(w_sum > 0, w / w_sum, torch.zeros_like(w))
-    pos_t = torch.cat([x_rel_t, w.reshape(b, 1, n * k),
-                       x_rel_t.new_zeros((b, 4, n * k))], dim=1)  # [B, 8, M]
-    feat = fused_mlp_posenc_wsum(feat_t.contiguous(), pos_t, weights, k, opts.n_freqs,
-                                 opts.freq_mult, opts.posenc_method)
-    return feat, pts_mask & nb_mask.any(-1)
+    enc = (opts.n_freqs, opts.freq_mult, opts.posenc_method)
+    if opts.activation != "leaky_relu":
+        # npcd_tpu's XLA branch: [feat | x_rel | posenc(x_rel)] per pair
+        field_in = torch.cat([feat_t.transpose(1, 2).float(),
+                              positional_encoding(x_rel_t.transpose(1, 2), *enc)], dim=-1)
+        local = apply_mlp(layers, field_in, act=opts.activation, compute_dtype=compute_dtype)
+        feat = _wsum(w, local.reshape(b, n, k, -1))
+    elif wsum_supported(n * k, k):
+        pos_t = torch.cat([x_rel_t, w.reshape(b, 1, n * k),
+                           x_rel_t.new_zeros((b, 4, n * k))], dim=1)  # [B, 8, M]
+        feat = fused_mlp_posenc_wsum(feat_t.contiguous(), pos_t, weights, k, *enc)
+    else:
+        pos_t = torch.cat([x_rel_t, x_rel_t.new_zeros((b, 5, n * k))], dim=1)
+        local = fused_mlp_posenc(feat_t.contiguous(), pos_t, weights, *enc)  # [B, M, out]
+        feat = _wsum(w, local.reshape(b, n, k, -1))
+    valid_pt = pts_mask & nb_mask.any(-1)
+    if return_weights:
+        return feat, valid_pt, w, idx
+    return feat, valid_pt

@@ -12,7 +12,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ...ops.kernels.fused_mlp import fused_mlp
+from ...ops.kernels.fused_mlp import MAX_IN, fused_mlp, leaky_bf16, linear_bf16
 
 Layers = List[Dict[str, torch.Tensor]]
 
@@ -37,26 +37,35 @@ def apply_mlp(layers: Layers, x: torch.Tensor, act: str = "leaky_relu",
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Activation after every layer except the last when final_linear.
 
-    compute_dtype bfloat16 (npcd_tpu's bf16 compute, for the configs'
-    leaky-ReLU stacks with a linear last layer): x and the weights are cast
-    to bf16 and each layer is bf16(bf16(f32-accumulated h @ w) + b), through
-    kernel K7 (ops/kernels/fused_mlp.py; its plain version on the CPU). None
+    compute_dtype bfloat16 (npcd_tpu's bf16 compute): x and the weights are
+    cast to bf16 and each layer is bf16(bf16(f32-accumulated h @ w) + b).
+    Leaky-ReLU stacks with a linear last layer and no layer wider than
+    MAX_IN (512) run in kernel K7 (ops/kernels/fused_mlp.py; its plain
+    version on the CPU), npcd_tpu's gate (nn_core.py:77-92); wider stacks
+    (the heads' inputs with a feature encoding) and other activations run
+    the same bf16 layers as plain tensor code, npcd_tpu's XLA branch. None
     or float32: the f32 layers h @ w + b."""
-    if compute_dtype == torch.bfloat16:
-        if not (act == "leaky_relu" and final_linear):
-            raise ValueError("bf16 compute takes leaky_relu stacks with a linear last layer")
-        h = x.to(torch.bfloat16)
-        weights = [(l["w"].to(torch.bfloat16), l["b"].to(torch.bfloat16)) for l in layers]
-        out = fused_mlp(h.reshape(-1, h.shape[-1]), weights)
-        return out.reshape(*h.shape[:-1], out.shape[-1])
-    if compute_dtype not in (None, torch.float32):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if act == "leaky_relu":
         act_fn = lambda h: torch.maximum(h, 0.01 * h)
     elif act == "relu":
         act_fn = torch.relu
     else:
         raise ValueError(act)
+    if compute_dtype == torch.bfloat16:
+        h = x.to(torch.bfloat16)
+        weights = [(l["w"].to(torch.bfloat16), l["b"].to(torch.bfloat16)) for l in layers]
+        if (act == "leaky_relu" and final_linear
+                and max(max(w.shape) for w, _ in weights) <= MAX_IN):
+            out = fused_mlp(h.reshape(-1, h.shape[-1]), weights)
+            return out.reshape(*h.shape[:-1], out.shape[-1])
+        act_fn = leaky_bf16 if act == "leaky_relu" else torch.relu
+        for i, (w, b) in enumerate(weights):
+            h = linear_bf16(h, w, b)
+            if not (final_linear and i == len(weights) - 1):
+                h = act_fn(h)
+        return h
+    if compute_dtype not in (None, torch.float32):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     h = x
     n = len(layers)
     for i, layer in enumerate(layers):

@@ -22,6 +22,11 @@ The sample-validity test is ``validity="knn"`` (a point within the kNN
 radius, kernel K5) or ``"voxel"`` (dilated voxel occupancy).
 ``compute_dtype`` bfloat16 runs the aggregation MLP (K6) and the field heads
 (K7) in bf16, in training and in ``render``; the parameters stay f32.
+Every option of npcd_tpu's PointNeRFOptions runs: view-dependent colour
+(``field.use_dir``, the ray directions packed with the points where the
+budget packs them), ``field.feat_freqs``, disparity-space sampling, any k
+and posenc method of the aggregator, its activation, and ``render``'s
+``kp_weights`` attribution.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from .field import field_heads
 from .math_utils import fill_invalid_ray_limits, get_ray_limits_box
 from .nn_core import Layers, init_mlp, posenc_dim
 from .ray_sampler import generate_rays
-from .renderer import fix_shading_depths, ray_march, sample_depths
+from .renderer import composite_kp_weights, fix_shading_depths, ray_march, sample_depths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +118,6 @@ class PointNeRF(nn.Module):
         super().__init__()
         self.opts = o = opts or pointnerf_default_options()
         self.cfg = render_config or PointNeRFRenderConfig()
-        unported = [name for name, on in (
-            ("field.use_dir", o.field.use_dir), ("field.feat_freqs", o.field.feat_freqs > 0),
-            ("renderer.disparity_space_sampling", o.renderer.disparity_space_sampling)) if on]
-        if unported:
-            raise NotImplementedError(f"options not ported yet: {unported}")
         if self.cfg.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                              f"{self.cfg.compute_dtype}")
@@ -125,11 +125,15 @@ class PointNeRF(nn.Module):
             raise ValueError(f"validity must be 'knn' or 'voxel', got {self.cfg.validity!r}")
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         agg_in = o.feat_dim + posenc_dim(3, o.aggregator.n_freqs)
-        channel_in = o.aggregator.out_dim
+        # the heads read the feature's encoding with feat_freqs, as npcd_tpu's
+        # field_heads does (its init_params sizes them by out_dim alone)
+        head_in = posenc_dim(o.aggregator.out_dim, o.field.feat_freqs)
+        channel_in = head_in
+        if o.field.use_dir:
+            channel_in += posenc_dim(3, o.field.dir_freqs) if o.field.dir_freqs > 0 else 3
         self.local_field = _mlp_module(
             init_mlp(o.aggregator.layers, agg_in, o.aggregator.out_dim, g))
-        self.shape_net = _mlp_module(
-            init_mlp(o.field.shape_layers, o.aggregator.out_dim, 1, g))
+        self.shape_net = _mlp_module(init_mlp(o.field.shape_layers, head_in, 1, g))
         self.channel_net = _mlp_module(init_mlp(o.field.channel_layers, channel_in, 3, g))
         self.tables = LatentTables(n_obj, o.num_points, o.feat_dim) if n_obj else None
 
@@ -162,27 +166,39 @@ class PointNeRF(nn.Module):
         return knn_neighbors(pts.reshape(n_i, -1, 3), msk.reshape(n_i, -1), kpp,
                              self.opts.aggregator.k, self.opts.knn_radius)
 
-    def _shade(self, pts, msk, kpp, kpf, neighbors):
+    def _shade(self, pts, msk, kpp, kpf, neighbors, ray_dir, return_weights=False):
         """kNN aggregation + field heads on the compacted slots pts
-        [I, r, s, 3] (mask msk [I, r, s]) and their ``_neighbors`` ->
-        (sigma [I, r, s], rgb [I, r, s, 3], valid [I, r, s])."""
+        [I, r, s, 3] (mask msk [I, r, s]), their ``_neighbors`` and the ray
+        directions ray_dir [I, r, 3] -> (sigma [I, r, s], rgb [I, r, s, 3],
+        valid [I, r, s]), and with ``return_weights`` the pair weights and
+        neighbour indices [I, r, s, k]."""
         o = self.opts
         n_i, n_r, n_s = msk.shape
         cd = self.cfg.compute_dtype
-        feat, valid_pt = aggregate_features(
+        agg = aggregate_features(
             _layers(self.local_field), o.aggregator, pts.reshape(n_i, -1, 3),
-            msk.reshape(n_i, -1), kpp, kpf, neighbors, cd)
-        feat = feat.reshape(n_i, n_r, n_s, -1)
-        valid_pt = valid_pt.reshape(n_i, n_r, n_s)
+            msk.reshape(n_i, -1), kpp, kpf, neighbors, cd, return_weights)
+        feat = agg[0].reshape(n_i, n_r, n_s, -1)
+        valid_pt = agg[1].reshape(n_i, n_r, n_s)
         sigma, rgb = field_heads(
             {"shape_net": _layers(self.shape_net), "channel_net": _layers(self.channel_net)},
-            o.field, feat, valid_pt, cd)
+            o.field, feat, valid_pt, ray_dir, cd)
+        if return_weights:
+            return sigma, rgb, valid_pt, *(a.reshape(n_i, n_r, n_s, -1) for a in agg[2:])
         return sigma, rgb, valid_pt
 
-    def _field_chunk(self, d_c, msk, r_o, r_d, r_e, kpp, kpf):
+    def _field_chunk(self, d_c, msk, r_o, r_d, r_e, kpp, kpf, kp_weights=False):
         n_i, n_r, m = d_c.shape
         pts = r_o[:, :, None, :] + d_c[..., None] * r_d[:, :, None, :]
         sb = self.cfg.eval_slot_block or 0
+        if kp_weights:
+            sigma, rgb, valid_pt, agg_w, nb_idx = self._shade(
+                pts, msk, kpp, kpf, self._neighbors(pts, msk, kpp), r_d, True)
+            out = ray_march(sigma, fix_shading_depths(d_c, valid_pt, r_e), rgb,
+                            self.opts.renderer.white_back, return_weights=True)
+            out["kp_weights"] = composite_kp_weights(out.pop("sample_weights"), agg_w, nb_idx,
+                                                     kpp.shape[1])
+            return out
         if 0 < sb < m and m % sb == 0:
             # Rays arrive count-sorted, so the slot grid is a staircase:
             # slot blocks with no valid sample in the chunk are not shaded.
@@ -194,27 +210,29 @@ class PointNeRF(nn.Module):
                 if msk[..., blk].any():
                     p_b, m_b = pts[:, :, blk], msk[..., blk]
                     sigma[..., blk], rgb[..., blk, :], valid_pt[..., blk] = self._shade(
-                        p_b, m_b, kpp, kpf, self._neighbors(p_b, m_b, kpp))
+                        p_b, m_b, kpp, kpf, self._neighbors(p_b, m_b, kpp), r_d)
         else:
             sigma, rgb, valid_pt = self._shade(pts, msk, kpp, kpf,
-                                               self._neighbors(pts, msk, kpp))
+                                               self._neighbors(pts, msk, kpp), r_d)
         d_fixed = fix_shading_depths(d_c, valid_pt, r_e)
         return ray_march(sigma, d_fixed, rgb, self.opts.renderer.white_back)
 
-    def _train_chunk(self, d_c, msk, pts, r_e, kpp, kpf, nb_idx, nb_mask):
+    def _train_chunk(self, d_c, msk, pts, r_d, r_e, kpp, kpf, nb_idx, nb_mask):
         """One chunk of instances, every slot shaded -> (mask, depth, channels)."""
-        sigma, rgb, valid_pt = self._shade(pts, msk, kpp, kpf, (nb_idx, nb_mask))
+        sigma, rgb, valid_pt = self._shade(pts, msk, kpp, kpf, (nb_idx, nb_mask), r_d)
         out = ray_march(sigma, fix_shading_depths(d_c, valid_pt, r_e), rgb,
                         self.opts.renderer.white_back)
         return out["mask"], out["depth"], out["channels"]
 
-    def _budget_chunk(self, d_c, r_e, rank, c_pts, c_mask, kpp, kpf, nb_idx, nb_mask):
+    def _budget_chunk(self, d_c, r_e, rank, c_pts, c_rayd, c_mask, kpp, kpf, nb_idx, nb_mask):
         """One chunk of instances shaded on its packed slots c_pts [I, cap, 3]
-        (mask c_mask), then gathered back to the [I, R, m] slot grid through
-        ``rank`` [I, R*m] -> (mask, depth, channels)."""
+        (ray directions c_rayd [I, cap, 3] or None, mask c_mask), then
+        gathered back to the [I, R, m] slot grid through ``rank`` [I, R*m] ->
+        (mask, depth, channels)."""
         n_i, n_r, m = d_c.shape
-        sigma, rgb, valid_c = self._shade(c_pts[:, None], c_mask[:, None], kpp, kpf,
-                                          (nb_idx, nb_mask))
+        sigma, rgb, valid_c = self._shade(
+            c_pts[:, None], c_mask[:, None], kpp, kpf, (nb_idx, nb_mask),
+            None if c_rayd is None else c_rayd[:, None])
         packed = torch.cat([sigma[:, 0, :, None], rgb[:, 0],
                             valid_c[:, 0, :, None].to(rgb.dtype)], dim=-1)  # [I, cap, 5]
         full = gather_rows(packed, rank).reshape(n_i, n_r, m, 5)
@@ -225,16 +243,20 @@ class PointNeRF(nn.Module):
 
     def _render_core(self, kp_pos, kp_feat, occ, rays_o, rays_d, max_shading_pts,
                      ray_chunk, jitter=None, scores=None,
-                     select_rays: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     select_rays: Optional[int] = None,
+                     kp_weights: bool = False) -> Dict[str, torch.Tensor]:
         """Train branch when ``scores`` [I, R] are given (uniform draws that
-        choose ``select_rays`` rays per instance), else the eval branch."""
+        choose ``select_rays`` rays per instance), else the eval branch
+        (with ``kp_weights``, each ray's composited aggregation weight per
+        point, [I, R, P])."""
         o = self.opts
         i_dim, r_dim = rays_o.shape[:2]
         m = max_shading_pts
         ray_start, ray_end = get_ray_limits_box(rays_o, rays_d, o.renderer.cube_scale)
         ray_start, ray_end = fill_invalid_ray_limits(ray_start, ray_end)
         ray_start, ray_end = ray_start[..., 0], ray_end[..., 0]  # [I, R]
-        depths = sample_depths(ray_start, ray_end, o.renderer.depth_resolution, jitter)
+        depths = sample_depths(ray_start, ray_end, o.renderer.depth_resolution, jitter,
+                               o.renderer.disparity_space_sampling)
         x = (rays_o[:, :, None, :] + depths[..., None] * rays_d[:, :, None, :]
              ).reshape(i_dim, -1, 3)
         if self.cfg.validity == "voxel":
@@ -262,7 +284,8 @@ class PointNeRF(nn.Module):
             d_c, msk, r_o, r_d, r_e = (a[:, ck] for a in (depths_c, pts_mask, rays_o,
                                                           rays_d, ray_end))
             if msk.any():
-                outs.append(self._field_chunk(d_c, msk, r_o, r_d, r_e, kp_pos, kp_feat))
+                outs.append(self._field_chunk(d_c, msk, r_o, r_d, r_e, kp_pos, kp_feat,
+                                              kp_weights))
             else:
                 # what ray_march gives an all-invalid chunk of ray_chunk rays
                 n = d_c.shape[1]
@@ -272,6 +295,8 @@ class PointNeRF(nn.Module):
                     "depth": r_e.max().expand(i_dim, n),
                     "channels": d_c.new_full((i_dim, n, 3), bg),
                 })
+                if kp_weights:
+                    outs[-1]["kp_weights"] = d_c.new_zeros((i_dim, n, kp_pos.shape[1]))
         inv_order = torch.argsort(order, dim=1)
         out = {}
         for key in outs[0]:
@@ -305,21 +330,29 @@ class PointNeRF(nn.Module):
             # deepest samples drop first, evenly across rays, on overflow)
             rank, n_valid = budget_ranks(pts_mask)
             c_mask = torch.arange(cap, device=rank.device) < n_valid.clamp(max=cap)[:, None]
-            c_pts = pack_rows(pts.reshape(i_dim, -1, 3), rank, cap)
+            table = pts.reshape(i_dim, -1, 3)
+            if self.opts.field.use_dir:  # the ray directions packed with the points
+                table = torch.cat([table, rays_d[:, :, None, :].expand(-1, -1, m, -1).reshape(
+                    i_dim, -1, 3)], dim=-1)  # [I, R*m, 6]
+            packed = pack_rows(table, rank, cap)
+            c_pts = packed[..., :3]
+            c_rayd = packed[..., 3:] if self.opts.field.use_dir else None
             nb_idx, nb_mask = knn_neighbors(c_pts, c_mask, kp_pos, self.opts.aggregator.k,
                                             self.opts.knn_radius)
             chunk_fn = self._budget_chunk
-            arrays = (depths_c, ray_end, rank, c_pts, c_mask, kp_pos, kp_feat, nb_idx, nb_mask)
+            arrays = (depths_c, ray_end, rank, c_pts, c_rayd, c_mask, kp_pos, kp_feat, nb_idx,
+                      nb_mask)
         else:
             nb_idx, nb_mask = self._neighbors(pts, pts_mask, kp_pos)
             chunk_fn = self._train_chunk
-            arrays = (depths_c, pts_mask, pts, ray_end, kp_pos, kp_feat, nb_idx, nb_mask)
+            arrays = (depths_c, pts_mask, pts, rays_d, ray_end, kp_pos, kp_feat, nb_idx,
+                      nb_mask)
 
         ic = min(self.cfg.train_instance_chunk, i_dim)
         remat = self.cfg.resolved_train_remat()
         outs = []
         for c0 in range(0, i_dim, ic):
-            args = tuple(a[c0:c0 + ic] for a in arrays)
+            args = tuple(None if a is None else a[c0:c0 + ic] for a in arrays)
             if remat:
                 outs.append(checkpoint(chunk_fn, *args, use_reentrant=False))
             else:
@@ -393,24 +426,29 @@ class PointNeRF(nn.Module):
 
     @torch.no_grad()
     def eval_forward(self, obj_idx: torch.Tensor, intrinsics: torch.Tensor,
-                     extrinsics: torch.Tensor,
-                     resolution: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     extrinsics: torch.Tensor, resolution: Optional[int] = None,
+                     kp_weights: bool = False) -> Dict[str, torch.Tensor]:
         """npcd_tpu's ``forward(train=False)``: objects obj_idx [B] of the
         tables, their coords and the feats **mean**, rendered from
         intrinsics [B, V, 3, 3] and world2cam extrinsics [B, V, 4, 4] at
         ``resolution`` (default_resolution when None) -> ``render``'s dict."""
         return self.render(self.get_all_coords()[obj_idx], self.get_all_feats()[obj_idx],
                            extrinsics, intrinsics,
-                           resolution=resolution or self.opts.default_resolution)
+                           resolution=resolution or self.opts.default_resolution,
+                           kp_weights=kp_weights)
 
     @torch.no_grad()
     def render(self, coords: torch.Tensor, feats: torch.Tensor, extrinsics: torch.Tensor,
                intrinsics: torch.Tensor, resolution: int = 128,
-               max_shading_points: Optional[int] = None) -> Dict[str, torch.Tensor]:
+               max_shading_points: Optional[int] = None,
+               kp_weights: bool = False) -> Dict[str, torch.Tensor]:
         """Render point clouds coords [B, P, 3], feats [B, P, F] from
         extrinsics [B, V, 4, 4] (world2cam) and intrinsics [B, V, 3, 3] ->
         {mask [B, V, R, 1], depth [B, V, R, 1], channels [B, V, R, 3],
-        ray_valid [B, V, R]}, R = resolution**2."""
+        ray_valid [B, V, R]}, R = resolution**2. ``kp_weights``: also the
+        point-attribution diagnostic kp_weights [B, V, R, P], each point's
+        aggregation weight composited along the ray (npcd_tpu's render
+        kp_weights=True; the chunks then shade every slot block)."""
         o = self.opts
         b, v = extrinsics.shape[:2]
         i_dim = b * v
@@ -423,11 +461,15 @@ class PointNeRF(nn.Module):
             occ = occ_b._replace(grid=rep(occ_b.grid))
         out = self._render_core(
             rep(coords), rep(feats), occ, rays_o, rays_d,
-            max_shading_points or o.aggregator.max_shading_pts, self.cfg.eval_ray_chunk)
+            max_shading_points or o.aggregator.max_shading_pts, self.cfg.eval_ray_chunk,
+            kp_weights=kp_weights)
         reshape = lambda a: a.reshape(b, v, *a.shape[1:])
-        return {
+        res = {
             "mask": reshape(out["mask"])[..., None],
             "depth": reshape(out["depth"])[..., None],
             "channels": reshape(out["channels"]),
             "ray_valid": reshape(out["ray_valid"]),
         }
+        if kp_weights:
+            res["kp_weights"] = reshape(out["kp_weights"])
+        return res

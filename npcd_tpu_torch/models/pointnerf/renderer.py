@@ -1,7 +1,8 @@
 """Volume rendering. Port of npcd_tpu/models/pointnerf/renderer.py:
-uniform depth samples with the training jitter (no disparity-space
-sampling), the cummax fix of compacted shading depths, and front-to-back
-alpha compositing with an optional white background."""
+depth samples uniform in depth or in disparity, with the training jitter,
+the cummax fix of compacted shading depths, front-to-back alpha compositing
+with an optional white background, and the per-point compositing of the
+aggregation weights (the ``kp_weights`` diagnostic)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,11 +11,17 @@ import torch
 
 
 def sample_depths(ray_start: torch.Tensor, ray_end: torch.Tensor, depth_resolution: int,
-                  jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  jitter: Optional[torch.Tensor] = None, disparity: bool = False) -> torch.Tensor:
     """[...] -> [..., S] inclusive linspace in depth; in training each
-    sample moves by jitter [..., S] (uniform in [0, 1)) times the spacing."""
+    sample moves by jitter [..., S] (uniform in [0, 1)) times the spacing.
+    ``disparity``: uniform in inverse depth, t = step + jitter / (S - 1)
+    between 1 / ray_start and 1 / ray_end (npcd_tpu renderer.py:41-48,
+    whose uniform draw the jitter is)."""
     steps = torch.arange(depth_resolution, dtype=torch.float32,
                          device=ray_start.device) / (depth_resolution - 1)
+    if disparity:
+        t = steps if jitter is None else steps + jitter / (depth_resolution - 1)
+        return 1.0 / ((1.0 / ray_start)[..., None] * (1.0 - t) + (1.0 / ray_end)[..., None] * t)
     depths = ray_start[..., None] + steps * (ray_end - ray_start)[..., None]
     if jitter is not None:
         depths = depths + jitter * ((ray_end - ray_start) / (depth_resolution - 1))[..., None]
@@ -31,10 +38,11 @@ def fix_shading_depths(depths_c: torch.Tensor, mask: torch.Tensor,
 
 
 def ray_march(sigma: torch.Tensor, depths: torch.Tensor, rgb: torch.Tensor,
-              white_back: bool) -> Dict[str, torch.Tensor]:
+              white_back: bool, return_weights: bool = False) -> Dict[str, torch.Tensor]:
     """sigma/depths [..., M], rgb [..., M, 3] -> {mask [...], depth [...],
-    channels [..., 3]}. The depth clip bounds are the min/max over the whole
-    ``depths`` tensor, as in the JAX chunk."""
+    channels [..., 3]}, and with ``return_weights`` the compositing weights
+    sample_weights [..., M]. The depth clip bounds are the min/max over the
+    whole ``depths`` tensor, as in the JAX chunk."""
     deltas = torch.cat([depths[..., 1:] - depths[..., :-1],
                         torch.zeros_like(depths[..., :1])], dim=-1)
     alpha = 1.0 - torch.exp(-sigma * deltas)
@@ -48,4 +56,22 @@ def ray_march(sigma: torch.Tensor, depths: torch.Tensor, rgb: torch.Tensor,
     channels = torch.einsum("...m,...mc->...c", weights, rgb)
     if white_back:
         channels = channels + (1.0 - weight_total)[..., None]
-    return {"mask": weight_total, "depth": depth, "channels": channels}
+    out = {"mask": weight_total, "depth": depth, "channels": channels}
+    if return_weights:
+        out["sample_weights"] = weights
+    return out
+
+
+def composite_kp_weights(sample_weights: torch.Tensor, agg_w: torch.Tensor,
+                         nb_idx: torch.Tensor, num_kp: int) -> torch.Tensor:
+    """sample_weights [..., M], the aggregation weights agg_w and neighbour
+    indices nb_idx [..., M, K] -> [..., num_kp]: point p of each ray gets
+    the sum over samples m and slots j with nb_idx[m, j] == p of
+    sample_weights[m] * agg_w[m, j] (npcd_tpu renderer.py:111-133, the
+    reference's index_add_)."""
+    coeff = sample_weights[..., None] * agg_w
+    lead = coeff.shape[:-2]
+    coeff = coeff.reshape(-1, coeff.shape[-2] * coeff.shape[-1])
+    out = coeff.new_zeros((coeff.shape[0], num_kp))
+    out.scatter_add_(1, nb_idx.reshape(coeff.shape).long(), coeff)
+    return out.reshape(*lead, num_kp)

@@ -20,6 +20,13 @@ Numerics (npcd_tpu's bf16 path, reproduced by both routes):
     once, at the end, and dx is the bf16 of the last f32 product.
 A product of two bf16 values is exact in f32, so the plain versions compute
 each product as ``a.float() @ b.float()``.
+
+The kernels take an input of any width up to MAX_IN (npcd_tpu sends every
+bf16 leaky stack up to 512 wide to its kernel; the channel net with view
+directions is 256 + 51 = 307 wide): the wrappers pad x with zero columns
+and W_0 with zero rows to a multiple of 64 (``_padded_in``), which add
+exactly 0 to every sum, and drop dx's and dW_0's pad. Launches at a width
+other than 256 count apart, on ``launches_wide``.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from torch.autograd.function import once_differentiable
 from . import build
 
 _NAME = "fused_mlp"
-HIDDEN = 256  # the kernels' input and hidden width
+HIDDEN = 256  # the kernels' hidden width
+MAX_IN = 512  # the widest input the kernels take
 OUT_WIDTHS = (1, 3, HIDDEN)  # the last layer's widths the kernel takes
 MAX_LAYERS = 8
 TILE = 256  # the backward's rows a tile (its dW products contract over them)
@@ -131,35 +139,54 @@ def _check(what: str, x: torch.Tensor, weights: Weights) -> str:
 
 
 def _check_kernel(what: str, x: torch.Tensor, weights: Weights) -> None:
-    """What the CUDA kernels take: x [rows, 256], 256-wide hidden layers, a
-    last layer 1, 3 or 256 wide, at most MAX_LAYERS layers."""
+    """What the CUDA kernels take: x [rows, d_in <= MAX_IN], 256-wide hidden
+    layers, a last layer 1, 3 or 256 wide, at most MAX_LAYERS layers, and a
+    hidden or 256-wide first layer where d_in is not 256."""
     n = len(weights)
-    build.require(x.dim() == 2 and x.shape[1] == HIDDEN and x.is_contiguous(), what,
-                  f"x must be a contiguous [rows, {HIDDEN}], got {tuple(x.shape)}")
+    d_in = x.shape[-1]
+    build.require(x.dim() == 2 and d_in <= MAX_IN and x.is_contiguous(), what,
+                  f"x must be a contiguous [rows, <= {MAX_IN}], got {tuple(x.shape)}")
     build.require(n <= MAX_LAYERS, what, f"at most {MAX_LAYERS} layers, got {n}")
+    build.require(d_in == HIDDEN or n >= 2 or weights[-1][0].shape[1] == HIDDEN, what,
+                  f"an input {d_in} wide needs a hidden or a 256-wide first layer, got "
+                  f"{n} layer(s)")
     for i, (w, b) in enumerate(weights):
         d_out = w.shape[1]
         ok = d_out in OUT_WIDTHS if i == n - 1 else d_out == HIDDEN
-        build.require(w.shape[0] == HIDDEN and ok and tuple(b.shape) == (d_out,), what,
-                      f"layer {i} must be [{HIDDEN}, {HIDDEN}] (the last [{HIDDEN}, 1, 3 or "
+        k_in = d_in if i == 0 else HIDDEN
+        build.require(w.shape[0] == k_in and ok and tuple(b.shape) == (d_out,), what,
+                      f"layer {i} must be [{k_in}, {HIDDEN}] (the last [{k_in}, 1, 3 or "
                       f"{HIDDEN}]) with its bias, got {tuple(w.shape)} + {tuple(b.shape)}")
 
 
+def _padded_in(x: torch.Tensor, weights: Weights):
+    """x [rows, d_in] and W_0 padded with zeros to the kernels' input width,
+    d_in rounded up to a multiple of 64 -> (x, weights, padded width)."""
+    d_in = x.shape[1]
+    d_pad = -(-d_in // 64) * 64
+    if d_pad == d_in:
+        return x, weights, d_in
+    w0, b0 = weights[0]
+    w0 = torch.cat([w0, w0.new_zeros((d_pad - d_in, w0.shape[1]))])
+    return (torch.nn.functional.pad(x, (0, d_pad - d_in)), [(w0, b0)] + list(weights[1:]),
+            d_pad)
+
+
 def _pack(weights: Weights) -> torch.Tensor:
-    """params: W_l [256, d_out] row-major then b_l per layer, bf16."""
+    """params: W_l [k_in, d_out] row-major then b_l per layer, bf16."""
     return torch.cat([t.reshape(-1) for wb in weights for t in wb])
 
 
 def _fwd_lib():
     fn = build.load(_NAME).fused_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _bwd_lib():
     fn = build.load(_NAME).fused_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_long] * 2 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -173,38 +200,47 @@ def _scratch_len(n_layers: int, d_out: int) -> int:
     return int(fn(n_layers, d_out))
 
 
+def _count(fn, d_in: int) -> None:
+    if d_in == HIDDEN:
+        fn.launches += 1
+    else:
+        fn.launches_wide += 1
+
+
 def _forward(x: torch.Tensor, weights: Weights) -> torch.Tensor:
     what = "fused_mlp"
     if _check(what, x, weights) == "cpu":
         return fused_mlp_plain(x, weights)
     _check_kernel(what, x, weights)
-    rows, d_out = x.shape[0], weights[-1][0].shape[1]
-    params = _pack(weights)
+    rows, d_out, d_in = x.shape[0], weights[-1][0].shape[1], x.shape[1]
+    xp, wp, d_pad = _padded_in(x, weights)
+    params = _pack(wp)
     out = torch.empty((rows, d_out), device=x.device, dtype=torch.bfloat16)
     if rows:
-        err = _fwd_lib()(x.data_ptr(), params.data_ptr(), out.data_ptr(), rows, len(weights),
-                         d_out, build.stream_ptr())
+        err = _fwd_lib()(xp.data_ptr(), params.data_ptr(), out.data_ptr(), rows, len(weights),
+                         d_out, d_pad, build.stream_ptr())
         build.check(err, what)
-        fused_mlp.launches += 1
+        _count(fused_mlp, d_in)
     return out
 
 
 @torch.no_grad()
 def fused_mlp_bwd(x: torch.Tensor, weights: Weights, g: torch.Tensor):
     """Backward of ``fused_mlp`` for the cotangent g [rows, d_out] ->
-    (dx [rows, 256] bf16, [(dW, db), ...] bf16 per layer)."""
+    (dx [rows, d_in] bf16, [(dW, db), ...] bf16 per layer)."""
     what = "fused_mlp_bwd"
     if _check(what, x, weights) == "cpu":
         build.route(what, x, g)
         return fused_mlp_bwd_plain(x, weights, g)
     _check_kernel(what, x, weights)
-    rows, n = x.shape[0], len(weights)
+    rows, n, d_in = x.shape[0], len(weights), x.shape[1]
     d_out = weights[-1][0].shape[1]
     build.require(tuple(g.shape) == (rows, d_out) and g.dtype == torch.bfloat16
                   and g.is_contiguous() and g.device == x.device, what,
                   f"g must be a contiguous bf16 [{rows}, {d_out}] on x's device")
-    params = _pack(weights)
-    dx = torch.empty_like(x)
+    xp, wp, d_pad = _padded_in(x, weights)
+    params = _pack(wp)
+    dx = torch.empty_like(xp)
     dparams = torch.zeros_like(params)
     tiles = -(-rows // TILE)
     if tiles:
@@ -215,22 +251,25 @@ def fused_mlp_bwd(x: torch.Tensor, weights: Weights, g: torch.Tensor):
         partial = torch.zeros((n_blocks, stride), device=x.device, dtype=torch.float32)
         scratch = torch.empty((n_blocks * _scratch_len(n, d_out),), device=x.device,
                               dtype=torch.bfloat16)
-        err = _bwd_lib()(x.data_ptr(), params.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        err = _bwd_lib()(xp.data_ptr(), params.data_ptr(), g.data_ptr(), dx.data_ptr(),
                          dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), rows, n,
-                         d_out, n_blocks, params.numel(), stride, build.stream_ptr())
+                         d_out, d_pad, n_blocks, params.numel(), stride, build.stream_ptr())
         build.check(err, what)
-        fused_mlp_bwd.launches += 1
+        _count(fused_mlp_bwd, d_in)
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
     off = 0
-    for w, b in weights:
+    for w, b in wp:
         dw = dparams[off:off + w.numel()].view(w.shape)
         off += w.numel()
         dws.append((dw, dparams[off:off + b.numel()].view(b.shape)))
         off += b.numel()
+    if d_pad != d_in:
+        dx = dx[:, :d_in].contiguous()
+        dws[0] = (dws[0][0][:d_in], dws[0][1])
     return dx, dws
 
 
-fused_mlp_bwd.launches = 0
+fused_mlp_bwd.launches = fused_mlp_bwd.launches_wide = 0
 
 
 class _FusedMlp(torch.autograd.Function):
@@ -257,4 +296,4 @@ def fused_mlp(x: torch.Tensor, weights: Weights) -> torch.Tensor:
     return _FusedMlp.apply(x, *[t for wb in weights for t in wb])
 
 
-fused_mlp.launches = 0
+fused_mlp.launches = fused_mlp.launches_wide = 0

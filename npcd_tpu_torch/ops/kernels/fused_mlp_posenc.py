@@ -32,10 +32,24 @@ on the CUDA cores. The bf16 forward and backward run them in bf16
 exact bf16 products summed in f32), 128 and 256 pairs a block; the forward's
 hidden layers are the backward's recompute, bitwise, and its last layer runs
 per pair (npcd_tpu rounds each pair's output to bf16 before the w-sum); the
-backward contracts dW over its tile. Each forward takes any k that divides
-its tile, each backward any k that divides 64; each backward recomputes its
-own forward. Launches count per flavour: ``launches`` (f32) and
-``launches_bf16``.
+backward contracts dW over its tile. Each backward recomputes its own
+forward.
+
+Every kernel takes each of nn_core.positional_encoding's methods ('direct',
+'recurrence', 'anchored'; the octaves evaluated directly every ``anchor``
+octaves, ``_anchor``) and any k up to 64: a k that does not divide the
+kernels' tiles (64, 128 and 256 pairs, powers of 2) runs as the next power
+of 2, each point's extra pairs zero in feat_t and pos_t, so with weight 0
+(``_kernel_k``): they add exactly 0 to the w-sum, and get and give no
+gradient. The no-reduction form of npcd_tpu's aggregator
+(fused_mlp.py:fused_mlp_posenc, taken where ``wsum_supported`` fails: fewer
+than 8 points) is ``fused_mlp_posenc``: the same kernels at k 1 with every
+pair weight 1, so the w-sum over a point's one pair is that pair's output
+and the backward's cotangent is the pair's. Launches count per form:
+``launches`` (f32) and ``launches_bf16`` for 'anchored',
+``launches_direct``, ``launches_recurrence`` and their ``_bf16`` for the
+other methods, on ``fused_mlp_posenc_wsum``, ``fused_mlp_posenc_wsum_bwd``,
+``fused_mlp_posenc`` and ``fused_mlp_posenc_bwd``.
 """
 from __future__ import annotations
 
@@ -53,11 +67,11 @@ from .fused_mlp import fused_mlp_plain, leaky_bf16, leaky_kinks_bf16, linear_bf1
 
 _NAME = "fused_mlp_posenc"
 HIDDEN = 256  # the kernels' layer width
-PAIRS_PER_BLOCK = 64  # the f32 kernels' tile of (point, neighbour) pairs; the backwards' k limit
-BF16_FWD_PAIRS = 128  # the bf16 forward's tile
+PAIRS_PER_BLOCK = 64  # the f32 kernels' tile of (point, neighbour) pairs; the largest k
 BF16_BWD_PAIRS = 256  # the bf16 backward's tile
 BF16_BWD_MAX_F = 64  # the bf16 backward's widest feature (its dfeat product)
 MAX_LAYERS = 8  # the backward kernels' layer limit
+METHODS = ("anchored", "direct", "recurrence")
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -179,7 +193,7 @@ def _check(what: str, feat_t, pos_t, weights: Weights, k: int, n_freqs: int,
                         f"{tuple(feat_t.shape)} and {tuple(pos_t.shape)}")
     m = feat_t.shape[2]
     build.require(k > 0 and m % k == 0, what, f"M = {m} is not a multiple of k = {k}")
-    build.require(method in ("anchored", "direct", "recurrence"), what,
+    build.require(method in METHODS, what,
                   f"unknown posenc method {method!r}")
     d1 = feat_t.shape[1] + posenc_dim(3, n_freqs)
     build.require(weights[0][0].shape[0] == d1, what,
@@ -187,14 +201,11 @@ def _check(what: str, feat_t, pos_t, weights: Weights, k: int, n_freqs: int,
     return build.route(what, feat_t, pos_t, *[t for wb in weights for t in wb])
 
 
-def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int, method: str,
-                  pairs: int) -> None:
-    """What the CUDA kernels take beyond ``_check`` (``pairs``: the
-    kernel's block)."""
+def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int) -> None:
+    """What the CUDA kernels take beyond ``_check``."""
     d1 = weights[0][0].shape[0]
-    build.require(pairs % k == 0, what, f"k must divide {pairs}, got {k}")
-    build.require(method == "anchored", what,
-                  f"the kernel computes the 'anchored' posenc, got {method!r}")
+    build.require(_kernel_k(k) <= PAIRS_PER_BLOCK, what,
+                  f"the kernels take k up to {PAIRS_PER_BLOCK}, got {k}")
     dtype = feat_t.dtype
     build.require(dtype in (torch.float32, torch.bfloat16), what,
                   f"feat_t must be float32 or bfloat16, got {dtype}")
@@ -209,8 +220,55 @@ def _check_kernel(what: str, feat_t, pos_t, weights: Weights, k: int, method: st
     build.require_f32_contiguous(what, aligned=False, pos_t=pos_t)
 
 
-def _freq_c0(freq_mult: float) -> float:
+def _freq_c0(freq_mult: float, method: str) -> float:
+    """Octave 0's frequency as the plain version rounds it: fl(fm pi) for
+    the anchored methods, fl(fl32(fm) fl32(pi)) for 'direct' (whose octave
+    j is fl(fl(fm 2^j) pi), 2^j times it)."""
+    if method == "direct":
+        return float(np.float32(freq_mult) * np.float32(math.pi))
     return float(np.float32(freq_mult * math.pi))
+
+
+def _anchor(method: str, n_freqs: int) -> int:
+    """The kernels' period of direct octaves: every octave for 'direct',
+    octave 0 only for 'recurrence', every 5th for 'anchored'."""
+    return {"direct": 1, "recurrence": max(n_freqs, 1), "anchored": 5}[method]
+
+
+def _kernel_k(k: int) -> int:
+    """The k the kernels run for k: the least power of 2 at or above it."""
+    return 1 << (k - 1).bit_length()
+
+
+def _pad_pairs(t: torch.Tensor, k: int, kk: int) -> torch.Tensor:
+    """[I, R, N*k] -> [I, R, N*kk]: each point's kk - k extra pairs zero."""
+    if kk == k:
+        return t
+    inst, rows, m = t.shape
+    return torch.nn.functional.pad(t.reshape(inst, rows, m // k, k), (0, kk - k)).reshape(
+        inst, rows, m // k * kk)
+
+
+def unit_pairs(pos_t: torch.Tensor) -> torch.Tensor:
+    """pos_t [I, >=3, M] -> [I, 8, M]: x_rel, every pair weight 1, zeros."""
+    inst, _, m = pos_t.shape
+    return torch.cat([pos_t[:, :3].float(), pos_t.new_ones((inst, 1, m), dtype=torch.float32),
+                      pos_t.new_zeros((inst, 4, m), dtype=torch.float32)], dim=1)
+
+
+def _count(fn, dtype: torch.dtype, method: str) -> None:
+    """One more launch on ``fn``'s counter of the form (method, dtype)."""
+    name = "launches" + ("" if method == "anchored" else f"_{method}") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def _zero_counters(*fns) -> None:
+    for fn in fns:
+        for method in METHODS:
+            for suffix in ("", "_bf16"):
+                setattr(fn, "launches" + ("" if method == "anchored" else f"_{method}")
+                        + suffix, 0)
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -220,10 +278,10 @@ def _suffix(dtype: torch.dtype) -> str:
 def _lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_fwd" + _suffix(dtype))
     if dtype == torch.bfloat16:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     else:  # and the split weights' scratch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -233,7 +291,7 @@ def _bwd_lib(dtype: torch.dtype):
     fn = getattr(build.load(_NAME), "fused_mlp_posenc_wsum_bwd" + _suffix(dtype))
     # f32 also takes the split W^T's scratch
     n_ptr = 8 if dtype == torch.bfloat16 else 9
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -259,23 +317,22 @@ def _wsplit(n_slabs: int, device) -> torch.Tensor:
     return torch.empty((n_slabs, 8 * HIDDEN * 2), device=device, dtype=torch.int32)
 
 
-def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> torch.Tensor:
-    what = "fused_mlp_posenc_wsum"
-    if _check(what, feat_t, pos_t, weights, k, n_freqs, method) == "cpu":
-        return fused_mlp_posenc_wsum_plain(feat_t, pos_t, weights, k, n_freqs,
-                                           freq_mult, method)
+def _launch_fwd(what: str, feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult,
+                method) -> torch.Tensor:
+    """K6f on CUDA tensors that passed ``_check`` -> [I, M // k, 256]."""
     f32 = feat_t.dtype == torch.float32
-    _check_kernel(what, feat_t, pos_t, weights, k, method,
-                  PAIRS_PER_BLOCK if f32 else BF16_FWD_PAIRS)
+    _check_kernel(what, feat_t, pos_t, weights, k)
     _check_d1(what, weights)
-    d1 = weights[0][0].shape[0]
     inst, f_dim, m = feat_t.shape
+    kk = _kernel_k(k)
+    feat_t, pos_t = _pad_pairs(feat_t, k, kk), _pad_pairs(pos_t, k, kk)
+    d1 = weights[0][0].shape[0]
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
     out = torch.empty((inst, m // k, HIDDEN), device=feat_t.device, dtype=feat_t.dtype)
     if not m:
         return out
-    tail = (inst, m, f_dim, pos_t.shape[1], len(weights), n_freqs, _freq_c0(freq_mult), k,
-            build.stream_ptr())
+    tail = (inst, m // k * kk, f_dim, pos_t.shape[1], len(weights), n_freqs,
+            _anchor(method, n_freqs), _freq_c0(freq_mult, method), kk, build.stream_ptr())
     if f32:  # the weights split into tf32 hi + lo, 16 KB a k-step of 8 rows
         wsplit = _wsplit(-(-d1 // 8) + (len(weights) - 1) * HIDDEN // 8, feat_t.device)
         err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
@@ -284,24 +341,25 @@ def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> 
         err = _lib(feat_t.dtype)(feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(),
                                  out.data_ptr(), *tail)
     build.check(err, what)
-    build.count_launch(fused_mlp_posenc_wsum, feat_t.dtype)
     return out
 
 
-@torch.no_grad()
-def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
-                              g: torch.Tensor, k: int, n_freqs: int, freq_mult: float = 1.0,
-                              method: str = "anchored"):
-    """Backward of ``fused_mlp_posenc_wsum`` for the output cotangent
-    g [I, M // k, 256]: -> (dfeat_t [I, F, M], [(dW, db), ...] per layer).
-    pos_t (x_rel and w) gets no gradient."""
-    what = "fused_mlp_posenc_wsum_bwd"
-    inst, f_dim, m = feat_t.shape
+def _forward(feat_t, pos_t, weights: Weights, k, n_freqs, freq_mult, method) -> torch.Tensor:
+    what = "fused_mlp_posenc_wsum"
     if _check(what, feat_t, pos_t, weights, k, n_freqs, method) == "cpu":
-        build.route(what, feat_t, g)
-        return fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, g, k, n_freqs,
-                                               freq_mult, method)
-    _check_kernel(what, feat_t, pos_t, weights, k, method, PAIRS_PER_BLOCK)
+        return fused_mlp_posenc_wsum_plain(feat_t, pos_t, weights, k, n_freqs,
+                                           freq_mult, method)
+    out = _launch_fwd(what, feat_t, pos_t, weights, k, n_freqs, freq_mult, method)
+    if out.numel():
+        _count(fused_mlp_posenc_wsum, feat_t.dtype, method)
+    return out
+
+
+def _launch_bwd(what: str, feat_t, pos_t, weights: Weights, g, k, n_freqs, freq_mult,
+                method):
+    """K6b on CUDA tensors that passed ``_check`` -> (dfeat_t, [(dW, db)])."""
+    _check_kernel(what, feat_t, pos_t, weights, k)
+    inst, f_dim, m = feat_t.shape
     f32 = feat_t.dtype == torch.float32
     _check_d1(what, weights)
     build.require(f32 or f_dim <= BF16_BWD_MAX_F, what,
@@ -313,12 +371,15 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                   f"g must be [{inst}, {m // k}, {HIDDEN}], got {tuple(g.shape)}")
     build.require(g.device == feat_t.device and g.dtype == feat_t.dtype and g.is_contiguous(),
                   what, f"g must be a contiguous {feat_t.dtype} on feat_t's device")
+    kk = _kernel_k(k)
+    feat_k, pos_k = _pad_pairs(feat_t, k, kk), _pad_pairs(pos_t, k, kk)
+    mk = m // k * kk
     params = torch.cat([t.reshape(-1) for wb in weights for t in wb])
     d1 = weights[0][0].shape[0]
-    dfeat_t = torch.empty_like(feat_t)
+    dfeat_t = torch.empty_like(feat_k)
     dparams = torch.zeros_like(params)
     tile = PAIRS_PER_BLOCK if f32 else BF16_BWD_PAIRS
-    tiles = inst * (-(-m // tile))
+    tiles = inst * (-(-mk // tile))
     if tiles:
         # one block per SM: a fixed grid keeps the dW sums in a fixed order
         sms = torch.cuda.get_device_properties(feat_t.device).multi_processor_count
@@ -340,13 +401,15 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
                                   device=feat_t.device, dtype=torch.bfloat16)
             extra = []
         err = _bwd_lib(feat_t.dtype)(
-            feat_t.data_ptr(), pos_t.data_ptr(), params.data_ptr(), *extra,
+            feat_k.data_ptr(), pos_k.data_ptr(), params.data_ptr(), *extra,
             g.data_ptr(), dfeat_t.data_ptr(),
-            dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, m, f_dim,
-            pos_t.shape[1], n_layers, n_freqs, _freq_c0(freq_mult), k, n_blocks, n_partial,
-            build.stream_ptr())
+            dparams.data_ptr(), partial.data_ptr(), scratch.data_ptr(), inst, mk, f_dim,
+            pos_k.shape[1], n_layers, n_freqs, _anchor(method, n_freqs),
+            _freq_c0(freq_mult, method), kk, n_blocks, n_partial, build.stream_ptr())
         build.check(err, what)
-        build.count_launch(fused_mlp_posenc_wsum_bwd, feat_t.dtype)
+    if kk != k:
+        dfeat_t = dfeat_t.reshape(inst, f_dim, m // k, kk)[..., :k].reshape(
+            inst, f_dim, m).contiguous()
     dws: List[Tuple[torch.Tensor, torch.Tensor]] = []
     off = 0
     for w, b in weights:
@@ -357,7 +420,22 @@ def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights
     return dfeat_t, dws
 
 
-fused_mlp_posenc_wsum_bwd.launches = fused_mlp_posenc_wsum_bwd.launches_bf16 = 0
+@torch.no_grad()
+def fused_mlp_posenc_wsum_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
+                              g: torch.Tensor, k: int, n_freqs: int, freq_mult: float = 1.0,
+                              method: str = "anchored"):
+    """Backward of ``fused_mlp_posenc_wsum`` for the output cotangent
+    g [I, M // k, 256]: -> (dfeat_t [I, F, M], [(dW, db), ...] per layer).
+    pos_t (x_rel and w) gets no gradient."""
+    what = "fused_mlp_posenc_wsum_bwd"
+    if _check(what, feat_t, pos_t, weights, k, n_freqs, method) == "cpu":
+        build.route(what, feat_t, g)
+        return fused_mlp_posenc_wsum_bwd_plain(feat_t, pos_t, weights, g, k, n_freqs,
+                                               freq_mult, method)
+    out = _launch_bwd(what, feat_t, pos_t, weights, g, k, n_freqs, freq_mult, method)
+    if feat_t.shape[2]:
+        _count(fused_mlp_posenc_wsum_bwd, feat_t.dtype, method)
+    return out
 
 
 class _FusedMlpPosencWsum(torch.autograd.Function):
@@ -390,4 +468,84 @@ def fused_mlp_posenc_wsum(feat_t: torch.Tensor, pos_t: torch.Tensor,
                                      *[t for wb in weights for t in wb])
 
 
-fused_mlp_posenc_wsum.launches = fused_mlp_posenc_wsum.launches_bf16 = 0
+def fused_mlp_posenc_plain(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
+                           n_freqs: int, freq_mult: float = 1.0,
+                           method: str = "anchored") -> torch.Tensor:
+    """-> [I, M, d_out]: mlp([feat | x | posenc(x)]) of every pair, no
+    reduction (npcd_tpu's fused_mlp_posenc)."""
+    h = _layer1_input(feat_t, pos_t, n_freqs, freq_mult, method)
+    if feat_t.dtype == torch.bfloat16:
+        return fused_mlp_plain(h, weights)
+    return apply_mlp([{"w": w, "b": b} for w, b in weights], h)
+
+
+def fused_mlp_posenc_bwd_plain(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
+                               g: torch.Tensor, n_freqs: int, freq_mult: float = 1.0,
+                               method: str = "anchored"):
+    """The VJP of ``fused_mlp_posenc_plain`` for the cotangent g [I, M,
+    d_out]: ``fused_mlp_posenc_wsum_bwd_plain`` at k 1 with every pair
+    weight 1, the same function (in bf16, npcd_tpu's kernel's rounding
+    points)."""
+    return fused_mlp_posenc_wsum_bwd_plain(feat_t, unit_pairs(pos_t), weights, g, 1, n_freqs,
+                                           freq_mult, method)
+
+
+def _forward_pairs(feat_t, pos_t, weights: Weights, n_freqs, freq_mult, method):
+    what = "fused_mlp_posenc"
+    if _check(what, feat_t, pos_t, weights, 1, n_freqs, method) == "cpu":
+        return fused_mlp_posenc_plain(feat_t, pos_t, weights, n_freqs, freq_mult, method)
+    out = _launch_fwd(what, feat_t, unit_pairs(pos_t), weights, 1, n_freqs, freq_mult, method)
+    if out.numel():
+        _count(fused_mlp_posenc, feat_t.dtype, method)
+    return out
+
+
+@torch.no_grad()
+def fused_mlp_posenc_bwd(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
+                         g: torch.Tensor, n_freqs: int, freq_mult: float = 1.0,
+                         method: str = "anchored"):
+    """Backward of ``fused_mlp_posenc`` for the cotangent g [I, M, 256] ->
+    (dfeat_t [I, F, M], [(dW, db), ...] per layer); pos_t gets none."""
+    what = "fused_mlp_posenc_bwd"
+    if _check(what, feat_t, pos_t, weights, 1, n_freqs, method) == "cpu":
+        build.route(what, feat_t, g)
+        return fused_mlp_posenc_bwd_plain(feat_t, pos_t, weights, g, n_freqs, freq_mult,
+                                          method)
+    out = _launch_bwd(what, feat_t, unit_pairs(pos_t), weights, g, 1, n_freqs, freq_mult,
+                      method)
+    if feat_t.shape[2]:
+        _count(fused_mlp_posenc_bwd, feat_t.dtype, method)
+    return out
+
+
+class _FusedMlpPosenc(torch.autograd.Function):
+    """The no-reduction form: forward saves only its inputs; backward runs
+    K6b at k 1 (or its plain version on the CPU); pos_t gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, feat_t, pos_t, meta, *flat):
+        ctx.meta = meta
+        ctx.save_for_backward(feat_t, pos_t, *flat)
+        return _forward_pairs(feat_t, pos_t, list(zip(flat[::2], flat[1::2])), *meta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        feat_t, pos_t, *flat = ctx.saved_tensors
+        dfeat_t, dws = fused_mlp_posenc_bwd(
+            feat_t, pos_t, list(zip(flat[::2], flat[1::2])), g.contiguous(), *ctx.meta)
+        return (dfeat_t, None, None, *[t for dw in dws for t in dw])
+
+
+def fused_mlp_posenc(feat_t: torch.Tensor, pos_t: torch.Tensor, weights: Weights,
+                     n_freqs: int, freq_mult: float = 1.0,
+                     method: str = "anchored") -> torch.Tensor:
+    """The aggregation MLP with in-kernel positional encoding and no
+    reduction, for pos_t [I, >=3, M] (x_rel on rows 0-2): -> [I, M, d_out].
+    Differentiable in feat_t and the weights; pos_t gets no gradient."""
+    return _FusedMlpPosenc.apply(feat_t, pos_t, (n_freqs, freq_mult, method),
+                                 *[t for wb in weights for t in wb])
+
+
+_zero_counters(fused_mlp_posenc_wsum, fused_mlp_posenc_wsum_bwd, fused_mlp_posenc,
+               fused_mlp_posenc_bwd)

@@ -8,10 +8,12 @@ and ``min_d2_plain`` for CPU tensors. All compute the squared distance
 directly as ((dx*dx + dy*dy) + dz*dz), rounded after each operation; K4
 orders neighbours by ascending distance and breaks ties towards the lower
 point index (lax.top_k's order), so kernel and plain version return the
-same indices and distances, bitwise. K4 bounds each query's 8th-nearest
-distance in a first sweep over the points and collects the few points
-under the bound in a second, then sorts those (``csrc/knn.cu``; the CPU
-transcription in ``tests/test_torch_knn.py``). K5 sweeps every pair with
+same indices and distances, bitwise. K4 takes any k from 1 to MAX_K: it
+bounds each query's k-th nearest distance in a first sweep over the points
+and collects the few points under the bound in a second, then sorts those
+into a list of 8, 16 or 32, the smallest that holds k (``csrc/knn.cu``; the
+CPU transcription in ``tests/test_torch_knn.py``). Launches count apart by
+k: ``launches`` at the configs' k of 8, ``launches_other_k`` at any other. K5 sweeps every pair with
 |p|^2 - 2x.p as a filter, keeps its minimum per group of points, and takes
 the exact distance only of the points in the groups whose minimum lies
 within a proven error bound of the least (``csrc/knn.cu``; the CPU
@@ -27,7 +29,8 @@ import torch
 from . import build
 
 _NAME = "knn"
-KERNEL_K = 8  # the kernel's compile-time k, the configs' aggregator k
+CONFIG_K = 8  # the configs' aggregator k
+MAX_K = 32  # the kernel's largest k
 MAX_POINTS = 4096  # an instance's points in shared memory: 64 KB in K4 and in K5
 
 
@@ -94,7 +97,7 @@ def knn(x: torch.Tensor, points: torch.Tensor, k: int):
                         f"{tuple(x.shape)} and {tuple(points.shape)}")
     if build.route(what, x, points) == "cpu":
         return knn_plain(x, points, k)
-    build.require(k == KERNEL_K, what, f"the kernel is built for k = {KERNEL_K}, got {k}")
+    build.require(1 <= k <= MAX_K, what, f"the kernel takes k from 1 to {MAX_K}, got {k}")
     build.require(points.shape[1] <= MAX_POINTS, what,
                   f"at most {MAX_POINTS} points per instance, got {points.shape[1]}")
     build.require_f32_contiguous(what, aligned=False, x=x, points=points)
@@ -105,11 +108,14 @@ def knn(x: torch.Tensor, points: torch.Tensor, k: int):
         err = _lib()(x.data_ptr(), points.data_ptr(), idx.data_ptr(), d2.data_ptr(),
                      inst, n, points.shape[1], k, build.stream_ptr())
         build.check(err, what)
-        knn.launches += 1
+        if k == CONFIG_K:
+            knn.launches += 1
+        else:
+            knn.launches_other_k += 1
     return idx, d2
 
 
-knn.launches = 0
+knn.launches = knn.launches_other_k = 0
 
 
 def _min_d2_lib():

@@ -2,7 +2,9 @@
 on the card, at small shapes chosen for the ragged edges: partial query
 and key tiles, widths that are not powers of two, fewer points than k,
 exact distance ties, pair counts that do not fill a block, at the
-configs' k = 8 and 'anchored' posenc, the only ones the kernels build;
+configs' k = 8 and 'anchored' posenc, and at the forms PointNeRF's
+options reach: K4 at k 1 to 32, K6 with the 'direct' and 'recurrence'
+posenc, at k 16 and 6 and without the reduction, K7 at an input 307 wide;
 the training kernels: the attention backward (pad keys get exactly zero
 dk and dv), the LayerNorm backward in both forms, and the AdamW + EMA pass
 over a length that does not fill its last block; and stage 1's: the
@@ -59,10 +61,11 @@ import math
 import pytest
 import torch
 
-from npcd_tpu_torch.models.pointnerf.nn_core import init_mlp
+from npcd_tpu_torch.models.pointnerf.nn_core import apply_mlp, init_mlp, positional_encoding
 from npcd_tpu_torch.ops.kernels.fused_mlp import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, \
     fused_mlp_plain, leaky_kinks_bf16, slope_flips_bf16
-from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc_wsum,
+from npcd_tpu_torch.ops.kernels.fused_mlp_posenc import (fused_mlp_posenc,
+                                                        fused_mlp_posenc_wsum,
                                                         fused_mlp_posenc_wsum_bwd,
                                                         fused_mlp_posenc_wsum_bwd_plain,
                                                         fused_mlp_posenc_wsum_plain, leaky_kinks)
@@ -302,15 +305,81 @@ def test_fused_mlp_posenc_f32_forward_is_repeatable_and_exact(dev, f, n_freqs, n
 
 
 def test_unsupported_shapes_raise_on_cuda(dev):
-    x = torch.zeros(1, 4, 3, device=dev)
+    x = torch.zeros(1, 40, 3, device=dev)
     with pytest.raises(ValueError):
-        knn(x, x, 4)  # the kernel is built for k = 8
+        knn(x, x, 33)  # the kernel takes k up to 32
     with pytest.raises(ValueError):
         fused_qkv_attention(torch.zeros(8, 3 * 64, device=dev), 2, 1, 8)  # head dim 32
     layers = init_mlp((256,) * 4, 8 + 3 * 9, 256, torch.Generator().manual_seed(0), dev)
-    with pytest.raises(ValueError):  # the kernel computes the 'anchored' posenc only
+    with pytest.raises(ValueError):  # no posenc method of that name
         fused_mlp_posenc_wsum(torch.zeros(1, 8, 16, device=dev), torch.zeros(1, 8, 16, device=dev),
-                              [(l["w"], l["b"]) for l in layers], 8, 4, 1.0, "direct")
+                              [(l["w"], l["b"]) for l in layers], 8, 4, 1.0, "nearest")
+    with pytest.raises(ValueError):  # the kernels take k up to 64
+        fused_mlp_posenc_wsum(torch.zeros(1, 8, 128, device=dev),
+                              torch.zeros(1, 8, 128, device=dev),
+                              [(l["w"], l["b"]) for l in layers], 128, 4)
+
+
+@pytest.mark.parametrize("k", [1, 6, 12, 16, 32])
+@pytest.mark.parametrize("n,p", [(1000, 130), (50000, 600), (1000, 5)])
+def test_knn_kernel_any_k(dev, k, n, p):
+    """K4 at k other than 8 (lists of 8, 16 or 32), four lanes a query
+    (1,000 queries) and one (50,000), an exact tie and a two-position
+    instance as test_knn_kernel's, P 5 < k: bitwise knn_plain's."""
+    g = _gen(dev, k)
+    pts = torch.rand(3, p, 3, generator=g, device=dev) * 2 - 1
+    pts[2] = pts[2, torch.randint(0, 2, (p,), generator=g, device=dev)]
+    pts[:, 1] = pts[:, 0]
+    x = torch.rand(3, n, 3, generator=g, device=dev) * 2 - 1
+    i_k, d_k = knn(x, pts, k)
+    i_p, d_p = knn_plain(x, pts, k)
+    assert i_k.shape == (3, n, k) and torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+
+
+@pytest.mark.parametrize("method,k,n_pts", [("direct", 16, 29), ("recurrence", 16, 29),
+                                            ("recurrence", 6, 53), ("direct", 1, 101)])
+def test_fused_mlp_posenc_option_forms(dev, method, k, n_pts):
+    """The f32 K6f/K6b (3xTF32) with each posenc method the options reach,
+    at k 16, at k 6 (run as 8 with zero-weight pairs) and at k 1, and the
+    no-reduction form (k 1, unit weights): within 1e-5 of max(1, scale) of a
+    float64 evaluation of the plain version over the f32 layer-1 input
+    (pairs on a kink get weight 0)."""
+    feat_t, pos_t, weights, _, n_freqs, _, _ = _posenc_args(dev, 32, 10, n_pts, 2, k)
+    pos_t[:, 3][leaky_kinks(feat_t, pos_t, weights, n_freqs, method=method)] = 0.0
+    h = torch.cat([feat_t.transpose(1, 2), positional_encoding(
+        pos_t[:, :3].transpose(1, 2), n_freqs, 1.0, method)], -1).double()
+    w64 = [(w.double(), b.double()) for w, b in weights]
+    mlp64 = lambda x: apply_mlp([{"w": w, "b": b} for w, b in w64], x)
+    exact = (mlp64(h) * pos_t[:, 3, :, None].double()).reshape(2, n_pts, k, -1).sum(2)
+    _close_rel(fused_mlp_posenc_wsum(feat_t, pos_t, weights, k, n_freqs, 1.0, method).double(),
+               exact)
+    if k == 1:
+        _close_rel(fused_mlp_posenc(feat_t, pos_t, weights, n_freqs, 1.0, method).double(),
+                   mlp64(h))
+    g = torch.randn(2, n_pts, 256, generator=_gen(dev, 9), device=dev)
+    got = fused_mlp_posenc_wsum_bwd(feat_t, pos_t, weights, g, k, n_freqs, 1.0, method)
+    want = fused_mlp_posenc_wsum_bwd_plain(feat_t.double(), pos_t.double(), w64, g.double(), k,
+                                           n_freqs, 1.0, method)
+    flat = lambda df, dws: [df] + [t for wb in dws for t in wb]
+    for a, b in zip(flat(*got), flat(*want)):
+        _close_rel(a.double(), b, 1e-4)  # 'direct' in float64 moves the encoding by ~1e-7
+
+
+def test_fused_mlp_wide_input(dev):
+    """K7f/K7b at d_in 307 (the channel net with view directions), held as
+    test_fused_mlp_kernels holds the 256-wide stacks; dx 307 wide."""
+    g = _gen(dev, 7)
+    weights = _bf16_weights((256, 256, 3), 307, 0, dev)
+    x = torch.randn(1000, 307, generator=g, device=dev).bfloat16()
+    y = fused_mlp(x, weights)
+    _k7f_close(y, fused_mlp_plain(x, weights))
+    gy = torch.randn(1000, 3, generator=g, device=dev).bfloat16()
+    gy[leaky_kinks_bf16(x, weights) | slope_flips_bf16(x, weights)] = 0
+    dx, dws = fused_mlp_bwd(x, weights, gy)
+    assert dx.shape == x.shape and dws[0][0].shape == (307, 256)
+    _k7b_close([dx] + [t for wb in dws for t in wb],
+               [t for r in fused_mlp_bwd_plain(x, weights, gy) for t in
+                ([r] if torch.is_tensor(r) else [u for wb in r for u in wb])])
 
 
 @pytest.mark.parametrize("n,p", [(1000, 5), (77, 130), (14336, 512), (1000, 0), (1000, 1),

@@ -96,25 +96,28 @@ def test_compact_valid_samples_matches_jax():
     np.testing.assert_array_equal(d_got[m_got], d_ref[m_ref])
 
 
-def _k4_sweeps(x, pts, lanes, cap=48, ties_high=False):
+def _k4_sweeps(x, pts, lanes, cap=48, ties_high=False, k=K):
     """K4's arithmetic (``knn_kernel`` of csrc/knn.cu) on x [I, N, 3] and
     pts [I, P, 3] (numpy f32): the points padded to a multiple of 4 with
     +inf; the exact d2 ((dx*dx + dy*dy) + dz*dz), rounded after each
     operation, and the approximate one with two FMAs (each an f64 product
     and sum rounded to f32); the four-point groups g to lane g mod
-    ``lanes``; sweep 1: per lane the two smallest approximate d2 of each
-    subset j mod 4 of its points, t the largest of those 8, and the least t
-    of the query's lanes; sweep 2: a lane's candidates, approximate d2 <= t
-    (1 + 2**-18) + 2**-100; each lane's list of 8: its candidates below P by
-    exact d2 in ascending index (the kernel's strict insertion: a stable
-    sort), or, past ``cap`` candidates, all its points; the query's 8: the
-    lists merged by (d2, index), slots past P (0, inf). ``ties_high``: the
-    higher index first on equal d2, in the lists and the merge (the planted
-    fault) -> (idx [I, N, 8] int32, d2 [I, N, 8] f32, lanes past the cap)."""
+    ``lanes``; sweep 1: per lane the q-th smallest approximate d2 of each
+    subset j mod 4 of its points, q = ceil(k / 4) (the two smallest at k
+    8), t the largest of those four, and the least t of the query's lanes;
+    sweep 2: a lane's candidates, approximate d2 <= t (1 + 2**-18) +
+    2**-100; each lane's list of KC (8, 16 or 32, the least at or above
+    k): its candidates below P by exact d2 in ascending index (the kernel's
+    strict insertion: a stable sort), or, past ``cap`` candidates, all its
+    points; the query's k: the lists merged by (d2, index), slots past P
+    (0, inf). ``ties_high``: the higher index first on equal d2, in the
+    lists and the merge (the planted fault) -> (idx [I, N, k] int32, d2
+    [I, N, k] f32, lanes past the cap)."""
     f32, f64 = np.float32, np.float64
     inst, n, _ = x.shape
     p = pts.shape[1]
     p4 = -(-p // 4) * 4
+    kc, q_th = next(c for c in (8, 16, 32) if k <= c), -(-k // 4)
     padded = np.concatenate([pts, np.full((inst, p4 - p, 3), np.inf, f32)], 1)
     dx, dy, dz = (padded[:, None, :, c] - x[:, :, None, c] for c in range(3))
     exact = dx * dx + dy * dy + dz * dz  # [I, N, P4] f32, left to right
@@ -122,14 +125,14 @@ def _k4_sweeps(x, pts, lanes, cap=48, ties_high=False):
     approx = fma(dz, dz, fma(dy, dy, dx * dx))
     j = np.arange(p4)
     lane_of = (j // 4) % lanes
-    second = lambda v: np.sort(v, -1)[..., 1] if v.shape[-1] > 1 else np.full(v.shape[:-1],
-                                                                               np.inf, f32)
-    t = np.min([np.max([second(approx[..., (lane_of == r) & (j % 4 == u)]) for u in range(4)],
+    qth = lambda v: (np.sort(v, -1)[..., q_th - 1] if v.shape[-1] >= q_th
+                     else np.full(v.shape[:-1], np.inf, f32))
+    t = np.min([np.max([qth(approx[..., (lane_of == r) & (j % 4 == u)]) for u in range(4)],
                        0) for r in range(lanes)], 0)
     bound = (t.astype(f64) * (1 + 2**-18) + 2**-100).astype(f32)
     cand = approx <= bound[..., None]
-    idx = np.zeros((inst, n, 8), np.int32)
-    d2 = np.full((inst, n, 8), np.inf, f32)
+    idx = np.zeros((inst, n, k), np.int32)
+    d2 = np.full((inst, n, k), np.inf, f32)
     sign = -1 if ties_high else 1
     n_over = 0
     for i in range(inst):
@@ -140,9 +143,9 @@ def _k4_sweeps(x, pts, lanes, cap=48, ties_high=False):
                 over = (cand[i, q] & mine).sum() > cap
                 n_over += int(over)
                 js = np.nonzero(mine & (j < p) & (True if over else cand[i, q]))[0]
-                merged += list(js[np.lexsort((sign * js, exact[i, q, js]))][:8])
+                merged += list(js[np.lexsort((sign * js, exact[i, q, js]))][:kc])
             merged = np.array(merged, np.int64)
-            top = merged[np.lexsort((sign * merged, exact[i, q, merged]))][:8]
+            top = merged[np.lexsort((sign * merged, exact[i, q, merged]))][:k]
             idx[i, q, :len(top)], d2[i, q, :len(top)] = top, exact[i, q, top]
     return idx, d2, n_over
 

@@ -128,7 +128,7 @@ def _assert_margins(o, coords, batch, draws):
     start, end = fill_invalid_ray_limits(*get_ray_limits_box(rays_o, rays_d,
                                                              o.renderer.cube_scale))
     depths = sample_depths(start[..., 0], end[..., 0], o.renderer.depth_resolution,
-                           t(draws["depth_jitter"]))
+                           t(draws["depth_jitter"]), o.renderer.disparity_space_sampling)
     kp = np.repeat(coords, v, axis=0).astype(np.float64)  # [I, P, 3]
 
     def d2(x):  # x [I, N, 3] -> [I, N, P] in float64
