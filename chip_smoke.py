@@ -136,11 +136,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 24: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23 or 24, each kernel
-     of a path during that path ("generation", "training", "bf16 training",
-     "stage 1", "fast stage 1", "attention", "fid eval", "psnr eval", "srn
-     fast stage 1", "reference weights", "options V", "options O"); the bf16
+ 18. launch counts, checked after phase 25: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23, 24 or 25, each
+     kernel of a path during that path ("generation", "training", "bf16
+     training", "stage 1", "fast stage 1", "attention", "fid eval", "psnr
+     eval", "srn fast stage 1", "reference weights", "options V", "options
+     O", "D"); the bf16
      launches of K1, K2, K6 and K8 are counted apart from the f32 ones, and
      so are the forms of phases 23-24: K4 at a k other than 8, K6 by posenc
      method and its no-reduction form, K7 at an input other than 256 wide
@@ -234,6 +235,26 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      with 'recurrence' at k 16 and the no-reduction K6f; the heads read 768
      (shape) and 795 (channel) columns, past npcd_tpu's K7 gate, so they
      run the plain f32 layers.
+ 25. main path, diffusion options (path "D"): configs/npcd_srncars.yaml in
+     f32 with phase 5's seeded weights and the config's validity (knn).
+     (a) python -m npcd_tpu_torch.generate_samples's main with
+     --trajectory-stride 100 --swap 2 --render 2 --render-poses 4: the
+     saved trajectory [11, 2, 3 | 32, 512] finite, its denormalized last
+     frame bitwise the samples, the samples bitwise phase 5's (or a run
+     without the trajectory when phase 5 did not run), swap_grid.png 256 x
+     256 and its diagonal bitwise --render's first-pose images; (b)
+     calc_bpd_loop on the two clouds, normalized (1000 denoiser forwards):
+     every output finite, total_bpd = sum(vb) + prior_bpd within 1e-6
+     relative, and with the oracle denoiser the KL terms (t > 0), mse and
+     xstart_mse within 1e-4 of 0; (c) the two clouds x 4 SRN test poses at
+     128^2 under matmul_precision "highest", then "tensorfloat32", twice:
+     rays/s of each, the two renders apart (> 0: TF32 reached cuBLAS) by at
+     most 1e-2 and by >= 40 dB, the TF32 flags restored; (d)
+     DiffusionEvaluation on the two clouds (one a group, 4 poses at 128^2,
+     the extractor on its worker thread) with the render at
+     "tensorfloat32": every render ran with TF32 on, and the extractor,
+     fed again and again for 0.3 s a group, saw the flags off at every
+     feed. Prints the phase's seconds.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -256,6 +277,7 @@ import os
 import pickle
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -274,9 +296,11 @@ from npcd_tpu_torch import (  # noqa: E402
     train_pointnerf)
 from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
 from npcd_tpu_torch.eval import DiffusionEvaluation  # noqa: E402
+from npcd_tpu_torch import generate_samples  # noqa: E402
 from npcd_tpu_torch.generate_samples import (  # noqa: E402
     exact_f32, parse_args, render, run, write_seeded_weights)
 from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel  # noqa: E402
+from npcd_tpu_torch.models.diffusion.normalizers import denormalize, normalize  # noqa: E402
 from npcd_tpu_torch.models.npcd import NPCD  # noqa: E402
 from npcd_tpu_torch.models.pointnerf import pointnerf as pointnerf_module  # noqa: E402
 from npcd_tpu_torch.data import srn as srn_module  # noqa: E402
@@ -309,7 +333,7 @@ from npcd_tpu_torch.utils.builders import (  # noqa: E402
     build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
 from npcd_tpu_torch.utils.convert_reference import convert_checkpoint, save_converted  # noqa: E402
-from npcd_tpu_torch.utils.fidkid import FIDKID  # noqa: E402
+from npcd_tpu_torch.utils.fidkid import FIDKID, ProjectionExtractor  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
 from npcd_tpu_torch.profile_generation import _report  # noqa: E402
 from npcd_tpu_torch.utils import builders  # noqa: E402
@@ -453,6 +477,13 @@ OPTIONS_V = ("knn", "min_d2", "fused_mlp_posenc_wsum (direct, bf16)",
              "fused_mlp", "fused_mlp_bwd", "fused_mlp (d_in 307)", "fused_mlp_bwd (d_in 307)")
 OPTIONS_O = ("knn (k other than 8)", "min_d2", "fused_mlp_posenc_wsum (recurrence, k 16)",
              "fused_mlp_posenc_wsum_bwd (recurrence, k 16)", "fused_mlp_posenc (no reduction)")
+# phase 25: the generation options (trajectory, swap), the bound in bits per
+# dim and the render's matmul precision, alone and beside the overlapped
+# FID extractor
+DIFFUSION_OPTIONS = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
+                     "min_d2", "fused_mlp_posenc_wsum")
+TRAJ_STRIDE, SWAP, PROBE_HOLD = 100, 2, 0.3
+MAIN_SAMPLES: dict = {}  # phase 5's samples, for phase 25's bitwise check
 FID_POSES, FID_FEATURES = 32, 16
 PSNR_OBJECTS, PSNR_VIEWS = 5, 4
 STAGE1_OBJECTS = 56  # objects with images in the stage-1 run: 7 steps of batch 8
@@ -1038,6 +1069,8 @@ def phase_main() -> dict:
     model = out["model"]
     n_params = sum(p.numel() for p in model.diffusion.denoiser.parameters())
     coords, feats, channels = out["coords"], out["feats"], out["channels"]
+    MAIN_SAMPLES.update(argv=(weights, args.seed, args.num, args.batch_size), coords=coords,
+                        feats=feats, sample_s=out["sample_s"])
     steps = model.diffusion.process.num_timesteps
     rays = channels.shape[0] * channels.shape[1] * channels.shape[2]
     print(f"[main] denoiser {n_params / 1e6:.1f}M params, {steps} steps: coords "
@@ -3067,6 +3100,203 @@ def phase_form_kernels() -> dict:
     return results
 
 
+class _FlagProbe:
+    """A device-resident extractor, fed again and again for PROBE_HOLD
+    seconds a group, with the TF32 flags it saw at each feed."""
+
+    device_resident = True
+
+    def __init__(self, inner):
+        self.inner, self.seen = inner, []
+
+    def __call__(self, images):
+        end = time.perf_counter() + PROBE_HOLD
+        while True:
+            self.seen.append((torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32))
+            feats = self.inner(images)
+            if time.perf_counter() > end:
+                return feats
+
+
+def phase_diffusion_options() -> dict:
+    """Phase 25: the diffusion diagnostics and the last generation and eval
+    options on configs/npcd_srncars.yaml with phase 5's seeded weights, f32,
+    validity from the config (knn): (a) python -m
+    npcd_tpu_torch.generate_samples's code path with --trajectory-stride
+    100 --swap 2 --render 2; (b) calc_bpd_loop on its two clouds (1000
+    denoiser forwards), then with the oracle denoiser; (c) the two clouds x
+    4 SRN test poses under matmul_precision "highest", then
+    "tensorfloat32"; (d) DiffusionEvaluation on the two clouds with the
+    render at "tensorfloat32" and the extractor overlapped. Path "D"."""
+    out_dir = OUT / "diffusion-options"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    weights = write_seeded_weights(str(SRNCARS), str(OUT / "seeded_npcd.npz"), seed=0)
+    base = ["--config", str(SRNCARS), "--out", str(out_dir), "--weights", weights,
+            "--num", "2", "--batch-size", "2", "--seed", "0", "--device", "cuda"]
+    cams = ["--poses", str(ROOT / "data/srncars_test_poses.npy"),
+            "--intrinsics", str(ROOT / "data/srncars_test_intrinsics.npy"), "--resolution", "128"]
+    _reset_launches()
+
+    # (a) trajectory and swap, through the CLI's main (it writes the files)
+    out = generate_samples.main(base + cams + [
+        "--trajectory-stride", str(TRAJ_STRIDE), "--swap", str(SWAP), "--render", "2",
+        "--render-poses", "4"])
+    model, state, coords, feats = out["model"], out["state"], out["coords"], out["feats"]
+    steps = model.diffusion.process.num_timesteps
+    with np.load(out_dir / "samples.npz") as z:
+        tc, tf = z["trajectory_coords"], z["trajectory_feats"]
+    d = model.diffusion
+    frames = steps // TRAJ_STRIDE + 1
+    if tc.shape != (frames, 2, d.coords_dim, d.num_points) or \
+            tf.shape != (frames, 2, d.feats_dim, d.num_points):
+        raise AssertionError(f"trajectory shapes {tc.shape}, {tf.shape}")
+    if not (np.isfinite(tc).all() and np.isfinite(tf).all()):
+        raise AssertionError("non-finite trajectory")
+    dev_state = [n.to("cuda") for n in (state.coords_norm, state.feats_norm)]
+    last = [denormalize(n, torch.from_numpy(x[-1]).cuda()).cpu().numpy()
+            for n, x in zip(dev_state, (tc, tf))]
+    if not (np.array_equal(last[0], coords) and np.array_equal(last[1], feats)):
+        raise AssertionError("the trajectory's denormalized last frame differs from the samples")
+    if MAIN_SAMPLES.get("argv") == (weights, 0, 2, 2):
+        ref, ref_from = (MAIN_SAMPLES["coords"], MAIN_SAMPLES["feats"]), "phase 5's run"
+    else:
+        plain = run(parse_args(base))
+        ref, ref_from = (plain["coords"], plain["feats"]), "a run without the trajectory"
+        del plain
+    if not (np.array_equal(ref[0], coords) and np.array_equal(ref[1], feats)):
+        raise AssertionError(f"the samples with the trajectory differ from {ref_from}")
+    traj_cost = out["sample_s"] / (MAIN_SAMPLES["sample_s"] if "sample_s" in MAIN_SAMPLES
+                                   else float("nan"))
+    with open(out_dir / "swap_grid.png", "rb") as f:
+        w, h = struct.unpack(">II", f.read(24)[16:24])
+    if (w, h) != (SWAP * 128, SWAP * 128):
+        raise AssertionError(f"swap_grid.png is {w} x {h}")
+    diag = torch.stack([out["swap"][i * SWAP + i, 0] for i in range(SWAP)])
+    first_pose = out["channels"][:SWAP, 0]
+    diag_err = _err(diag, first_pose)
+    print(f"[diffusion-options] trajectory stride {TRAJ_STRIDE}: coords {tc.shape} feats "
+          f"{tf.shape}, finite; sampler {steps / out['sample_s']:.2f} steps/s "
+          f"({out['sample_s']:.2f} s; x{traj_cost:.4f} of phase 5's sampler); the denormalized "
+          f"last frame bitwise the samples, the samples bitwise {ref_from}; swap_grid.png "
+          f"{w} x {h} ({out['swap_s']:.2f} s), its diagonal against --render's first pose "
+          f"max_abs_err {diag_err:.3e} ({'bitwise' if diag_err == 0 else 'not bitwise'})")
+    if not torch.equal(diag, first_pose):
+        raise AssertionError(f"swap grid diagonal differs from the renders: {diag_err}")
+
+    # (b) the bound in bits per dim on the two clouds, normalized
+    process = model.diffusion.process.to("cuda")
+    x0 = [normalize(n, torch.from_numpy(x).cuda()) for n, x in zip(dev_state, (coords, feats))]
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    noise = lambda shape: torch.randn(shape, generator=generator, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bpd = process.calc_bpd_loop(noise, model.diffusion.denoiser, *x0)
+    torch.cuda.synchronize()
+    bpd_s = time.perf_counter() - t0
+    for k, v in bpd.items():
+        want = (2, steps) if k.startswith(("vb", "mse", "xstart")) else (2,)
+        if tuple(v.shape) != want or not torch.isfinite(v).all():
+            raise AssertionError(f"bpd {k}: shape {tuple(v.shape)}, finite "
+                                 f"{bool(torch.isfinite(v).all())}")
+    sums = {}
+    for part in ("coords", "feats"):
+        total = bpd[f"total_bpd_{part}"].double()
+        parts = bpd[f"vb_{part}"].double().sum(1) + bpd[f"prior_bpd_{part}"].double()
+        sums[part] = float(((total - parts).abs() / total.abs()).max())
+        if sums[part] > 1e-6:
+            raise AssertionError(f"total_bpd_{part} != sum(vb) + prior: {sums[part]}")
+    s = process.schedule
+
+    def oracle(coords_t, feats_t, t):
+        def eps(x_t, x_0):
+            return ((x_t - s.sqrt_alphas_cumprod[t].reshape(-1, 1, 1) * x_0)
+                    / s.sqrt_one_minus_alphas_cumprod[t].reshape(-1, 1, 1))
+        return eps(coords_t, x0[0]), eps(feats_t, x0[1])
+
+    ora = process.calc_bpd_loop(noise, oracle, *x0)
+    ora_max = {k: float(ora[k][:, :-1].abs().max() if k.startswith("vb") else ora[k].abs().max())
+               for k in ora if k.startswith(("vb", "mse", "xstart"))}
+    print(f"[diffusion-options] calc_bpd_loop: {steps} denoiser forwards at batch 2 in "
+          f"{bpd_s:.2f} s ({bpd_s / out['sample_s']:.3f} x the sampler), finite; total_bpd "
+          f"coords {bpd['total_bpd_coords'].tolist()} feats {bpd['total_bpd_feats'].tolist()}, "
+          f"prior {bpd['prior_bpd_coords'].tolist()} / {bpd['prior_bpd_feats'].tolist()}; "
+          f"total vs sum(vb) + prior rel err {sums['coords']:.2e} / {sums['feats']:.2e} (tol "
+          f"1e-6); oracle denoiser max |KL (t > 0)|, |mse|, |xstart_mse| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ora_max.items()) + " (tol 1e-4)")
+    bad = {k: v for k, v in ora_max.items() if v > 1e-4}
+    if bad:
+        raise AssertionError(f"the oracle denoiser's bound is not ~0: {bad}")
+
+    # (c) the render's matmul precision: highest, then tensorfloat32, twice
+    poses = np.load(ROOT / "data/srncars_test_poses.npy")[:4].astype(np.float32)
+    intr = np.load(ROOT / "data/srncars_test_intrinsics.npy")[:4].astype(np.float32)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    cfg = model.pointnerf.cfg
+    renders, rates = {}, {}
+    for value in ("highest", "tensorfloat32") * 2:
+        model.pointnerf.cfg = dataclasses.replace(cfg, matmul_precision=value)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renders[value] = render(model, coords, feats, poses, intr, 128, "cuda")["channels"]
+        torch.cuda.synchronize()
+        rates.setdefault(value, []).append(renders[value].shape[:3].numel()
+                                           / (time.perf_counter() - t0))
+        if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+            raise AssertionError(f"TF32 flags not restored after the {value} render")
+    model.pointnerf.cfg = cfg
+    tf32_err = _err(renders["tensorfloat32"], renders["highest"])
+    tf32_db = _psnr_db(renders["tensorfloat32"], renders["highest"])
+    print(f"[diffusion-options] render 2 x 4 poses at 128^2, rays/s: highest "
+          + " / ".join(f"{r:.0f}" for r in rates["highest"]) + ", tensorfloat32 "
+          + " / ".join(f"{r:.0f}" for r in rates["tensorfloat32"])
+          + f"; tensorfloat32 vs highest max_abs_err {tf32_err:.3e} (> 0, tol 1e-2), "
+          f"{tf32_db:.2f} dB (>= 40); TF32 flags restored {flags}")
+    if not 0 < tf32_err <= 1e-2 or tf32_db < 40:
+        raise AssertionError(f"tensorfloat32 render: max_abs_err {tf32_err}, {tf32_db} dB")
+    # (d) the overlapped FID extractor beside a tensorfloat32 render
+    res = 128
+    proj = np.random.default_rng(0).normal(size=(res * res * 3, FID_FEATURES)).astype(np.float32)
+    real = np.random.default_rng(1).uniform(0, 1, (64, res * res * 3)).astype(np.float32) @ proj
+    with open(out_dir / "real_stats.pkl", "wb") as f:
+        pickle.dump({"mean": real.mean(0), "cov": np.cov(real, rowvar=False), "feats_np": real}, f)
+    probe = _FlagProbe(ProjectionExtractor(proj, "cuda"))
+    ev = DiffusionEvaluation(num_samples=2, poses=poses, intrinsics=intr,
+                             inception_pkl_path=str(out_dir / "real_stats.pkl"),
+                             feature_extractor=probe, generate_batch_size=2,
+                             render_pose_batch=4, render_object_batch=1, resolution=res,
+                             verbose=False, overlap_extraction=True, device="cuda")
+    clouds = (torch.from_numpy(coords).cuda(), torch.from_numpy(feats).cuda())
+    ev.generate = lambda *_: clouds
+    inside, orig_render = [], pointnerf_module.PointNeRF._render
+
+    def render_flags(self, *a):
+        inside.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return orig_render(self, *a)
+
+    model.pointnerf.cfg = dataclasses.replace(cfg, matmul_precision="tensorfloat32")
+    pointnerf_module.PointNeRF._render = render_flags
+    try:
+        fid = ev(model, state, noise=lambda shape: None, kid_seed=0)
+    finally:
+        pointnerf_module.PointNeRF._render = orig_render
+        model.pointnerf.cfg = cfg
+    print(f"[diffusion-options] DiffusionEvaluation, render at tensorfloat32, extractor "
+          f"overlapped: flags inside the {len(inside)} renders {sorted(set(inside))}, at the "
+          f"extractor's {len(probe.seen)} feeds {sorted(set(probe.seen))} (want off: "
+          f"{flags}); fid {fid['fid']:.4f}")
+    if inside != [(True, True)] * 2 or set(probe.seen) != {flags} or flags != (False, False):
+        raise AssertionError(f"TF32 flags: renders {inside}, extractor {sorted(set(probe.seen))}")
+    if not np.isfinite(list(fid.values())).all():
+        raise AssertionError(f"non-finite FID/KID {fid}")
+    sample_s = out["sample_s"]
+    launches = _read_launches()
+    del out, model, renders, bpd, ora, x0, diag, first_pose, ev, clouds
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launches, "sample_s": sample_s, "bpd_s": bpd_s}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -3107,6 +3337,8 @@ def main() -> None:
                                   REFERENCE_WEIGHTS)
     paths["options V"] = (_timed("options-V", phase_options, "V")["launches"], OPTIONS_V)
     paths["options O"] = (_timed("options-O", phase_options, "O")["launches"], OPTIONS_O)
+    paths["D"] = (_timed("diffusion-options", phase_diffusion_options)["launches"],
+                  DIFFUSION_OPTIONS)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

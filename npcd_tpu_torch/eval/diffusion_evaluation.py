@@ -10,7 +10,10 @@ A device-resident extractor (TorchScript Inception or the random
 projection, utils/fidkid.py) takes the quantized renders as a tensor on the
 device; any other callable takes numpy. With ``overlap_extraction`` one
 worker thread feeds the extractor, at most two groups in flight, while the
-next group renders; its exceptions are raised in the caller. Results go to
+next group renders; its exceptions are raised in the caller. Where the
+render's ``matmul_precision`` flips PyTorch's process-wide TF32 flags, the
+extractor finishes each group before the next render starts, so that its
+GEMMs and convolutions keep the flags set outside the render. Results go to
 ``results.json`` and ``results.csv`` in ``out_dir``, and a run whose
 ``results.json`` exists is skipped. ``mesh`` (data parallelism) is not
 ported.
@@ -29,6 +32,7 @@ import torch
 
 from ..generate_samples import write_png
 from ..models.diffusion.diffusion_model import split_num
+from ..models.pointnerf.pointnerf import changes_tf32_flags
 from ..utils import logging, writer
 from ..utils.builders import torch_dtype
 from ..utils.fidkid import FIDKID, ProjectionExtractor, TorchScriptInceptionExtractor
@@ -191,12 +195,18 @@ class DiffusionEvaluation:
             from concurrent.futures import ThreadPoolExecutor
 
             executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="fid-extract")
+        # a render whose matmul_precision flips the process-wide TF32 flags
+        # would flip them under the extractor too: then the extractor
+        # finishes before each render starts
+        serial_render = changes_tf32_flags(pointnerf.cfg.matmul_precision)
         try:
             done = 0
             for n_gen in split_num(self.num_samples, self.generate_batch_size):
                 coords_b, feats_b = self.generate(model, diffusion_state, n_gen, noise)
                 for j0 in range(0, n_gen, self.render_object_batch):
                     sl = slice(j0, j0 + self.render_object_batch)
+                    while serial_render and futures:
+                        futures.pop(0).result()
                     channels = self.render_objects(
                         pointnerf, coords_b[sl].transpose(1, 2).contiguous(),
                         feats_b[sl].transpose(1, 2).contiguous())

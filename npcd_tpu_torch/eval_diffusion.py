@@ -15,10 +15,13 @@ skipped. ``--weights`` is the bridged ``.npz`` that generate_samples reads
 
 The config's ``diffusion_evaluation`` section is passed to
 DiffusionEvaluation; ``--render_dtype`` overrides its ``render_dtype``.
-Sampling and the f32 render run in exact f32 (``--matmul_precision highest``
-or ``float32``); ``default`` and ``tensorfloat32`` are not ported yet and
-raise NotImplementedError, ``--mesh`` too; ``--platform`` chooses a JAX
-backend and is refused.
+``--matmul_precision`` (default ``highest``) is set into the config's
+``render_config.matmul_precision`` unless the config sets one or the flag
+is ``default``: the render's cuBLAS GEMMs run in exact f32 under
+``highest`` / ``float32`` and in TF32 under ``tensorfloat32``. The sampler
+runs in exact f32 under every setting, as npcd_tpu's keeps its own
+precision. ``--mesh`` raises NotImplementedError; ``--platform`` chooses a
+JAX backend and is refused.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import sys
 
 
 def parse_args(argv=None):
+    from .models.pointnerf.pointnerf import CLI_MATMUL_PRECISIONS
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--output", help="Path to folder for output data.")
     p.add_argument("--config", help="Path to config file.", required=True)
@@ -51,27 +56,24 @@ def parse_args(argv=None):
     p.add_argument("--platform", type=str, default=None,
                    help="A JAX backend flag; the port refuses it (use --device).")
     p.add_argument("--matmul_precision", default="highest",
-                   choices=["default", "float32", "highest", "tensorfloat32"],
-                   help="highest / float32: exact f32 (the port's only setting so far).")
+                   choices=CLI_MATMUL_PRECISIONS,
+                   help="The render's f32 matmul precision (render_config."
+                        "matmul_precision): highest / float32 exact, tensorfloat32 TF32, "
+                        "default the config's or PyTorch's.")
     p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
-    """Raise on the flags the port refuses (--platform) or lacks (--mesh, a
-    matmul precision other than exact f32), before anything is built or
-    written."""
+    """Raise on the flags the port refuses (--platform) or lacks (--mesh),
+    before anything is built or written."""
     if args.platform:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
     if args.mesh:
         raise NotImplementedError("--mesh: the data-parallel evals are ROADMAP Queue 1 item 7 "
                                   "('Data parallelism')")
-    if args.matmul_precision not in ("highest", "float32"):
-        raise NotImplementedError(f"--matmul_precision {args.matmul_precision}: only exact f32 "
-                                  "(highest, float32) is ported; the others are ROADMAP Queue 1 "
-                                  "item 6 ('Options that raise or are missing')")
 
 
 def open_output(args, out_dir) -> None:
@@ -104,6 +106,7 @@ def evaluate(args, config=None) -> dict:
     from .eval import DiffusionEvaluation
     from .generate_samples import _device, exact_f32
     from .models.npcd import NPCD
+    from .models.pointnerf.pointnerf import set_render_precision
     from .utils import logging
     from .utils.config import load_config, print_config
     from .utils.from_jax import load_npz
@@ -113,7 +116,8 @@ def evaluate(args, config=None) -> dict:
     device = _device(args.device)
     open_output(args, args.output)
     try:
-        config = config if config is not None else load_config(args.config)
+        config = set_render_precision(config if config is not None else load_config(args.config),
+                                      args.matmul_precision)
         print_config(config)
         model = NPCD.from_config(config, seed=args.seed)
         state = load_npz(model, args.weights)

@@ -15,9 +15,12 @@ Rows of (obj_idx, view, psnr) go to ``<output>/results.json`` and
 and the peak device memory (``--eval_batch_size 1``, after 3 burn-in
 objects); a run whose results exist is skipped. The dataset is the
 config's, built through the dataset registry as ``train_pointnerf`` builds
-it (the SRN views shuffled by ``random.Random(--seed)``). Exact f32 only
-(``--matmul_precision highest`` or ``float32``); ``--mesh`` raises
-NotImplementedError, ``--platform`` is refused.
+it (the SRN views shuffled by ``random.Random(--seed)``).
+``--matmul_precision`` (default ``highest``) is set into the config's
+``render_config.matmul_precision`` unless the config sets one or the flag
+is ``default``; the PSNR forwards (``eval_forward``, a ``render``) run
+under it (highest / float32: exact f32 GEMMs; tensorfloat32: TF32).
+``--mesh`` raises NotImplementedError, ``--platform`` is refused.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import numpy as np
 
 
 def parse_args(argv=None):
+    from .models.pointnerf.pointnerf import CLI_MATMUL_PRECISIONS
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--output", help="Path to folder for output data.")
     p.add_argument("--config", help="Path to config file.", required=True)
@@ -50,8 +55,10 @@ def parse_args(argv=None):
     p.add_argument("--exp_id", type=str)
     p.add_argument("--comment", type=str)
     p.add_argument("--matmul_precision", default="highest",
-                   choices=["default", "float32", "highest", "tensorfloat32"],
-                   help="highest / float32: exact f32 (the port's only setting so far).")
+                   choices=CLI_MATMUL_PRECISIONS,
+                   help="The render's f32 matmul precision (render_config."
+                        "matmul_precision): highest / float32 exact, tensorfloat32 TF32, "
+                        "default the config's or PyTorch's.")
     p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
     p.add_argument("--platform", type=str, default=None,
                    help="A JAX backend flag; the port refuses it (use --device).")
@@ -93,6 +100,7 @@ def evaluate(args, config=None, dataset=None) -> dict:
     from .eval import PointNeRFEvaluation
     from .eval_diffusion import close_output, open_output, refuse_unported
     from .generate_samples import _device, exact_f32
+    from .models.pointnerf.pointnerf import set_render_precision
     from .utils import logging
     from .utils.builders import build_dataset, build_pointnerf
     from .utils.config import load_config, print_config
@@ -102,7 +110,8 @@ def evaluate(args, config=None, dataset=None) -> dict:
     device = _device(args.device)
     open_output(args, args.output)
     try:
-        config = config if config is not None else load_config(args.config)
+        config = set_render_precision(config if config is not None else load_config(args.config),
+                                      args.matmul_precision)
         print_config(config)
         if dataset is None:
             dataset = build_dataset(config, view_rng=random.Random(args.seed))

@@ -4,7 +4,13 @@ Port of tools/generate_samples.py: sample ``--num`` point clouds with the
 1000-step DDPM sampler, save them as ``samples.npz`` (coords [N, 3, P],
 feats [N, F, P]) and optionally render the first ``--render`` of them from
 ``--render-poses`` fixed test poses (one PNG per object, poses side by
-side). Runs in exact f32 (TF32 off for matmuls and convolutions).
+side). ``--trajectory-stride N`` also saves the reverse process's states
+after every N-th step (``trajectory_coords`` [T/N + 1, num, 3, P] and
+``trajectory_feats``, x_T first, in normalized latent space) in
+``samples.npz``. ``--swap N`` renders ``swap_grid.png``: an N x N grid from
+the first pose whose cell (i, j) has the coords (shape) of sample i and the
+feats (appearance) of sample j. Runs in exact f32 (TF32 off for matmuls and
+convolutions).
 
     python -m npcd_tpu_torch.generate_samples --config configs/npcd_srncars.yaml \\
         --out runs/samples --num 2 --batch-size 2 --render 2 \\
@@ -30,6 +36,8 @@ import zlib
 import numpy as np
 import torch
 
+from .utils.vis import tile_images
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -39,11 +47,16 @@ def parse_args(argv=None):
     p.add_argument("--num", type=int, default=16)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--trajectory-stride", type=int, default=0,
+                   help="if > 0, also save the reverse-process trajectory, every N-th step")
     p.add_argument("--render", type=int, default=0,
                    help="render the first N generated objects")
     p.add_argument("--poses", help="[V, 4, 4] .npy of world2cam poses")
     p.add_argument("--intrinsics", help="[V, 3, 3] .npy")
     p.add_argument("--render-poses", type=int, default=4, help="poses per rendered object")
+    p.add_argument("--swap", type=int, default=0,
+                   help="render an N x N grid crossing the first N samples' shapes (coords, "
+                        "rows) with their appearances (feats, columns) from the first pose")
     p.add_argument("--resolution", type=int, default=128)
     p.add_argument("--device", default="cuda")
     p.add_argument("--validity", choices=["voxel", "knn"], default=None,
@@ -53,8 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None, choices=["cpu", "tpu"],
                    help="a JAX backend; refused (use --device)")
     args = p.parse_args(argv)
-    if args.render > 0 and not (args.poses and args.intrinsics):
-        p.error("--render requires --poses and --intrinsics")
+    for flag in ("render", "swap"):
+        if getattr(args, flag) > 0 and not (args.poses and args.intrinsics):
+            p.error(f"--{flag} requires --poses and --intrinsics")
     return args
 
 
@@ -98,8 +112,9 @@ def write_seeded_weights(config_path: str, path: str, seed: int = 0) -> str:
 
 def run(args) -> dict:
     """Build, sample and render as the CLI does, without writing files:
-    -> {model, state, coords, feats, channels [n, V, R, 3] or None,
-    poses, intrinsics, sample_s, render_s}."""
+    -> {model, state, coords, feats, trajectory (a Trajectory) or None,
+    channels [n, V, R, 3] or None, swap [n*n, 1, R, 3] or None, poses,
+    intrinsics, sample_s, render_s, swap_s}."""
     from .models.npcd import NPCD
     from .utils.config import load_config
     from .utils.from_jax import load_npz
@@ -119,12 +134,25 @@ def run(args) -> dict:
     generator = torch.Generator(device=device).manual_seed(args.seed)
     _sync(device)
     t0 = time.perf_counter()
-    coords, feats = model.diffusion.generate(state, args.num, args.batch_size,
-                                             generator=generator)
+    gen = model.diffusion.generate(state, args.num, args.batch_size, generator=generator,
+                                   return_trajectory=args.trajectory_stride > 0,
+                                   trajectory_stride=max(args.trajectory_stride, 1))
     sample_s = time.perf_counter() - t0
+    coords, feats = gen[0], gen[1]
 
     out = {"model": model, "state": state, "coords": coords, "feats": feats,
-           "channels": None, "sample_s": sample_s, "render_s": 0.0}
+           "trajectory": gen[2] if args.trajectory_stride > 0 else None,
+           "channels": None, "swap": None, "sample_s": sample_s, "render_s": 0.0,
+           "swap_s": 0.0}
+    if args.swap > 0:
+        pose = np.load(args.poses)[:1].astype(np.float32)
+        intr = np.load(args.intrinsics)[:1].astype(np.float32)
+        _sync(device)
+        t0 = time.perf_counter()
+        swap = render_swap(model, coords, feats, pose, intr, min(args.swap, args.num),
+                           args.resolution, device)
+        _sync(device)
+        out.update(swap=swap, swap_s=time.perf_counter() - t0)
     if args.render > 0:
         poses = np.load(args.poses)[: args.render_poses].astype(np.float32)
         intr = np.load(args.intrinsics)[: args.render_poses].astype(np.float32)
@@ -151,6 +179,17 @@ def render(model, coords: np.ndarray, feats: np.ndarray, poses: np.ndarray,
         as_t(np.broadcast_to(intrinsics[None], (n,) + intrinsics.shape)), resolution=resolution)
 
 
+def render_swap(model, coords: np.ndarray, feats: np.ndarray, pose: np.ndarray,
+                intrinsics: np.ndarray, n: int, resolution: int,
+                device: torch.device) -> torch.Tensor:
+    """The first n clouds' shapes crossed with their appearances, each of
+    the n*n instances rendered from pose [1, 4, 4], intrinsics [1, 3, 3]:
+    instance i*n + j has the coords of cloud i and the feats of cloud j
+    -> channels [n*n, 1, resolution**2, 3]."""
+    return render(model, np.repeat(coords[:n], n, axis=0), np.tile(feats[:n], (n, 1, 1)),
+                  pose, intrinsics, resolution, device)["channels"]
+
+
 def write_png(path: str, img: np.ndarray) -> None:
     """img [H, W, 3] in [0, 1] -> 8-bit RGB PNG."""
     h, w, _ = img.shape
@@ -168,9 +207,20 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     out = run(args)
     os.makedirs(args.out, exist_ok=True)
-    np.savez(osp.join(args.out, "samples.npz"), coords=out["coords"], feats=out["feats"])
+    arrays = {"coords": out["coords"], "feats": out["feats"]}
+    if out["trajectory"] is not None:
+        arrays.update(trajectory_coords=out["trajectory"].coords_ts,
+                      trajectory_feats=out["trajectory"].feats_ts)
+    np.savez(osp.join(args.out, "samples.npz"), **arrays)
     print(f"saved {args.num} point clouds to {osp.join(args.out, 'samples.npz')} "
           f"({out['sample_s']:.1f} s)")
+    if out["swap"] is not None:
+        res = args.resolution
+        n = min(args.swap, args.num)
+        grid = out["swap"].float().cpu().numpy().reshape(n * n, res, res, 3)
+        write_png(osp.join(args.out, "swap_grid.png"), tile_images(list(grid), cols=n))
+        print(f"saved the {n}x{n} shape (rows) x appearance (columns) grid to "
+              f"{osp.join(args.out, 'swap_grid.png')} ({out['swap_s']:.1f} s)")
     if out["channels"] is not None:
         res = args.resolution
         images = out["channels"].float().cpu().numpy()

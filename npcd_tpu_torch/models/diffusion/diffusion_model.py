@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .gaussian_diffusion import GaussianDiffusion, NoiseFn
+from .gaussian_diffusion import GaussianDiffusion, NoiseFn, Trajectory
 from .normalizers import (NormalizerStats, denormalize, fit_minus_one_to_one, fit_unit_gaussian,
                           normalize)
 from .transformer import NPCDTransformer
@@ -40,14 +40,15 @@ class DiffusionModel(nn.Module):
     def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
                  width: int = 1024, layers: int = 24, heads: int = 16,
                  qkv_groups: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
-        """``dtype`` (float32 or bfloat16) and ``remat`` are the denoiser's
+                 remat: bool = False, remat_policy: str = "full"):
+        """``dtype`` (float32 or bfloat16), ``remat`` and ``remat_policy``
+        (npcd_tpu's, "full" only) are the denoiser's
         (models/diffusion/transformer.py); the parameters are f32 in either
         dtype."""
         super().__init__()
         self.coords_dim, self.feats_dim, self.num_points = coords_dim, feats_dim, num_points
         self.denoiser = NPCDTransformer(coords_dim, feats_dim, num_points, width, layers,
-                                        heads, qkv_groups, dtype, remat)
+                                        heads, qkv_groups, dtype, remat, remat_policy)
         self.process = GaussianDiffusion()
 
     def fit_normalizers(self, all_coords, all_feats) -> DiffusionState:
@@ -80,35 +81,52 @@ class DiffusionModel(nn.Module):
         return process.p_losses(self.denoiser, coords, feats, t, coords_noise, feats_noise)
 
     @torch.no_grad()
-    def generate_batch(self, state: DiffusionState, batch_size: int, noise: NoiseFn):
+    def generate_batch(self, state: DiffusionState, batch_size: int, noise: NoiseFn,
+                       return_trajectory: bool = False, trajectory_stride: int = 1):
         """One batch through the full sampler: draws the start latents
         (coords, then feats) and then two normal draws per step from
         ``noise``, clips x0 predictions to the normalizer min/max and
-        denormalizes -> (coords [B, C, P], feats [B, F, P])."""
+        denormalizes -> (coords [B, C, P], feats [B, F, P]); with
+        ``return_trajectory`` also the sampler's ``Trajectory`` on the
+        device, in normalized latent space."""
         device = next(self.parameters()).device
         state = DiffusionState(state.coords_norm.to(device), state.feats_norm.to(device))
         coords_start = noise((batch_size, self.coords_dim, self.num_points))
         feats_start = noise((batch_size, self.feats_dim, self.num_points))
-        coords, feats = self.process.to(device).p_sample_loop(
+        out = self.process.to(device).p_sample_loop(
             noise, self.denoiser, coords_start, feats_start,
             coords_clip_range=(state.coords_norm.min[0], state.coords_norm.max[0]),
-            feats_clip_range=(state.feats_norm.min[0], state.feats_norm.max[0]))
-        return denormalize(state.coords_norm, coords), denormalize(state.feats_norm, feats)
+            feats_clip_range=(state.feats_norm.min[0], state.feats_norm.max[0]),
+            return_trajectory=return_trajectory, trajectory_stride=trajectory_stride)
+        coords = denormalize(state.coords_norm, out[0])
+        feats = denormalize(state.feats_norm, out[1])
+        return (coords, feats, out[2]) if return_trajectory else (coords, feats)
 
     def generate(self, state: DiffusionState, num: int, batch_size: int = 8,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[NoiseFn] = None):
+                 noise: Optional[NoiseFn] = None, return_trajectory: bool = False,
+                 trajectory_stride: int = 1):
         """``num`` neural point clouds -> numpy (coords [num, C, P],
         feats [num, F, P]). Draws come from ``noise`` when given, else from
-        ``generator`` (a torch.Generator on the model's device)."""
+        ``generator`` (a torch.Generator on the model's device). With
+        ``return_trajectory`` a third element, the sampler's ``Trajectory``
+        in numpy, each field stacked over the batch axis (axis 1) across
+        the generate batches, in normalized latent space (only the final
+        state is denormalized); ``trajectory_stride`` keeps the state after
+        every stride-th step."""
         if noise is None:
             if generator is None:
                 raise ValueError("generate needs a torch.Generator or a noise function")
             device = next(self.parameters()).device
             noise = lambda shape: torch.randn(shape, generator=generator, device=device)
-        coords, feats = [], []
+        coords, feats, trajectories = [], [], []
         for bs in split_num(num, batch_size):
-            c, f = self.generate_batch(state, bs, noise)
-            coords.append(c.cpu().numpy())
-            feats.append(f.cpu().numpy())
-        return np.concatenate(coords, 0), np.concatenate(feats, 0)
+            out = self.generate_batch(state, bs, noise, return_trajectory, trajectory_stride)
+            coords.append(out[0].cpu().numpy())
+            feats.append(out[1].cpu().numpy())
+            if return_trajectory:
+                trajectories.append(Trajectory(*(x.cpu().numpy() for x in out[2])))
+        coords, feats = np.concatenate(coords, 0), np.concatenate(feats, 0)
+        if not return_trajectory:
+            return coords, feats
+        return coords, feats, Trajectory(*(np.concatenate(xs, 1) for xs in zip(*trajectories)))

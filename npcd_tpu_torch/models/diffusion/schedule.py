@@ -27,8 +27,10 @@ class DiffusionSchedule:
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
+    sqrt_one_minus_betas: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
@@ -64,8 +66,10 @@ def make_schedule(schedule_type: str = "linear", num_diffusion_steps: int = 1000
     return DiffusionSchedule(
         betas=f32(betas),
         alphas_cumprod=f32(alphas_cumprod),
+        sqrt_one_minus_betas=f32(np.sqrt(1.0 - betas)),
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+        log_one_minus_alphas_cumprod=f32(np.log(1.0 - alphas_cumprod)),
         alphas_cumprod_prev=f32(alphas_cumprod_prev),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),

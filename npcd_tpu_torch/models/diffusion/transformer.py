@@ -21,7 +21,10 @@ their bf16 flavours), and ln_post's output goes to output_proj in f32.
 The blocks' GELU takes the tanh form in bf16 and the exact (erf) form in
 f32, npcd_tpu's gelu="auto"; time_embed keeps erf. ``remat`` recomputes
 each whole block in the backward (torch.utils.checkpoint), so K1's and K2's
-forwards run again there.
+forwards run again there: npcd_tpu's ``remat_policy`` "full". Its "dots"
+(save the blocks' GEMM outputs, recompute the rest) ran the bf16 stage-2
+step slower than "full" and with more memory on the H100 (PERF.md), and
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -140,10 +143,17 @@ class NPCDTransformer(nn.Module):
     def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
                  width: int = 1024, layers: int = 24, heads: int = 16,
                  qkv_groups: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if remat_policy == "dots":
+            raise NotImplementedError(
+                'remat_policy="dots": selective checkpointing of the blocks\' GEMM outputs ran '
+                'the bf16 stage-2 step 13-29% slower than "full", with 6.6 GiB more peak '
+                'memory (H100 80GB HBM3 at 700 W, PERF.md); use "full"')
+        if remat_policy != "full":
+            raise ValueError(f'remat_policy must be "full", got {remat_policy!r}')
         self.coords_dim, self.feats_dim, self.width = coords_dim, feats_dim, width
         self.dtype, self.remat = dtype, remat
         self.qkv_groups = (qkv_groups if qkv_groups is not None

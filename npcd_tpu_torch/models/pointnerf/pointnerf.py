@@ -26,12 +26,15 @@ Every option of npcd_tpu's PointNeRFOptions runs: view-dependent colour
 (``field.use_dir``, the ray directions packed with the points where the
 budget packs them), ``field.feat_freqs``, disparity-space sampling, any k
 and posenc method of the aggregator, its activation, and ``render``'s
-``kp_weights`` attribution.
+``kp_weights`` attribution. The render config's ``matmul_precision`` sets
+PyTorch's TF32 flags around ``render`` (so ``eval_forward`` too); the
+training forward runs under the flags as the caller set them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -49,6 +52,57 @@ from .ray_sampler import generate_rays
 from .renderer import composite_kp_weights, fix_shading_depths, ray_march, sample_depths
 
 
+# the eval CLIs' --matmul_precision choices, and what the render config takes
+CLI_MATMUL_PRECISIONS = ("default", "float32", "highest", "tensorfloat32")
+MATMUL_PRECISIONS = (None, *CLI_MATMUL_PRECISIONS, "high")
+
+
+def set_render_precision(config: dict, precision: str) -> dict:
+    """A CLI's ``--matmul_precision`` into
+    ``config["render_config"]["matmul_precision"]`` unless the config sets
+    one or ``precision`` is "default" (npcd_tpu's eval CLIs) -> config."""
+    if precision != "default":
+        config["render_config"] = {"matmul_precision": precision,
+                                   **config.get("render_config", {})}
+    return config
+
+
+def _tf32_flags() -> tuple:
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def _tf32_setting(precision: Optional[str]) -> Optional[bool]:
+    """What a render under ``precision`` sets both TF32 flags to (None:
+    leaves them)."""
+    return None if precision in (None, "default") else precision in ("tensorfloat32", "high")
+
+
+def changes_tf32_flags(precision: Optional[str]) -> bool:
+    """Whether a render under ``precision`` sets the process-wide TF32 flags
+    to other values than they hold now. The flags are global: another thread
+    that launches GEMMs or convolutions while such a render runs gets its
+    TF32 setting (DiffusionEvaluation waits for its extractor first)."""
+    tf32 = _tf32_setting(precision)
+    return tf32 is not None and _tf32_flags() != (tf32, tf32)
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: Optional[str]) -> Iterator[None]:
+    """Run the body with PyTorch's TF32 flags for cuBLAS matmuls and cuDNN
+    set as ``precision`` says (see PointNeRFRenderConfig.matmul_precision),
+    and restore both on exit, also on an exception."""
+    tf32 = _tf32_setting(precision)
+    if tf32 is None:
+        yield
+        return
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 @dataclasses.dataclass(frozen=True)
 class PointNeRFRenderConfig:
     """Render knobs of npcd_tpu's PointNeRFRenderConfig, with the same YAML
@@ -57,7 +111,8 @@ class PointNeRFRenderConfig:
     None = dense) and ``train_remat`` are read by ``forward`` (training);
     ``train_ray_chunk`` is kept for the YAML only (training chunks
     instances, as npcd_tpu's); ``compute_dtype`` (float32 or bfloat16) is
-    the dtype of the MLPs in training and render."""
+    the dtype of the MLPs in training and render; ``matmul_precision`` the
+    render's f32 matmul precision."""
 
     train_rays: int = 112
     train_instance_chunk: int = 50
@@ -68,6 +123,19 @@ class PointNeRFRenderConfig:
     eval_slot_block: Optional[int] = 5
     compute_dtype: torch.dtype = torch.float32
     validity: str = "knn"
+    # the render's f32 matmul precision (``render``, ``eval_forward``):
+    # None or "default" leaves PyTorch's TF32 flags as they are; "highest"
+    # or "float32" turns TF32 off for cuBLAS and cuDNN, "tensorfloat32" or
+    # "high" on (the field heads' GEMMs and the plain f32 layers). The f32
+    # K6f keeps its 3xTF32 products under every setting: three single-pass
+    # products on a hi/lo split, what npcd_tpu's Pallas MLP runs under
+    # "tensorfloat32".
+    matmul_precision: Optional[str] = None
+
+    def __post_init__(self):
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision must be one of {MATMUL_PRECISIONS}, got "
+                             f"{self.matmul_precision!r}")
 
     def resolved_train_remat(self) -> bool:
         """None = auto, as npcd_tpu's: off for bf16 compute, on for f32."""
@@ -448,7 +516,14 @@ class PointNeRF(nn.Module):
         ray_valid [B, V, R]}, R = resolution**2. ``kp_weights``: also the
         point-attribution diagnostic kp_weights [B, V, R, P], each point's
         aggregation weight composited along the ray (npcd_tpu's render
-        kp_weights=True; the chunks then shade every slot block)."""
+        kp_weights=True; the chunks then shade every slot block). Runs under
+        the render config's ``matmul_precision``."""
+        with matmul_precision(self.cfg.matmul_precision):
+            return self._render(coords, feats, extrinsics, intrinsics, resolution,
+                                max_shading_points, kp_weights)
+
+    def _render(self, coords, feats, extrinsics, intrinsics, resolution, max_shading_points,
+                kp_weights) -> Dict[str, torch.Tensor]:
         o = self.opts
         b, v = extrinsics.shape[:2]
         i_dim = b * v

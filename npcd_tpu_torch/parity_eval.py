@@ -19,9 +19,10 @@ both numbers beside the targets:
 ``--check-assets`` too. The stats pickle can be written from the raw test
 split with ``python -m npcd_tpu_torch.compute_inception_stats``.
 ``--check-assets`` checks the staged files (ASSETS.md) in seconds and runs
-nothing. Renders are exact f32 (``--matmul-precision highest`` or
-``float32``; ``default`` and ``tensorfloat32`` raise NotImplementedError,
-as the eval CLIs do). Every stage takes injectable pieces (dataset,
+nothing. ``--matmul-precision`` (default ``highest``: exact f32 renders)
+is set into the config's ``render_config`` as the eval CLIs set it
+(``tensorfloat32``: the render's GEMMs in TF32; ``default``: nothing set).
+Every stage takes injectable pieces (dataset,
 feature extractor, draws), so tests drive it on synthetic data.
 """
 from __future__ import annotations
@@ -247,6 +248,8 @@ def check_assets(weights=None, srn_root=None, inception=None, inception_pkl=None
 
 
 def parse_args(argv=None):
+    from .models.pointnerf.pointnerf import CLI_MATMUL_PRECISIONS
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--weights", required=True, help="reference npcd_srncars.pt")
     p.add_argument("--config", default="configs/npcd_srncars.yaml")
@@ -270,8 +273,9 @@ def parse_args(argv=None):
                         "under; 'knn' is the reference's pure-tensor fallback and the port's "
                         "default for models it trains.")
     p.add_argument("--matmul-precision", default="highest",
-                   choices=["default", "float32", "highest", "tensorfloat32"],
-                   help="highest / float32: exact f32 renders (the port's only setting so far)")
+                   choices=CLI_MATMUL_PRECISIONS,
+                   help="the renders' f32 matmul precision (render_config.matmul_precision): "
+                        "highest / float32 exact, tensorfloat32 TF32, default the config's")
     p.add_argument("--check-assets", action="store_true",
                    help="check the staged assets (paths, checkpoint keys, SRN layout, "
                         "TorchScript graph, stats pkl) and exit; nothing is evaluated")
@@ -282,8 +286,8 @@ def parse_args(argv=None):
 def main(argv=None) -> Optional[Dict[str, Any]]:
     args = parse_args(argv)
 
-    from .eval_diffusion import refuse_unported
     from .generate_samples import _device, exact_f32
+    from .models.pointnerf.pointnerf import set_render_precision
     from .utils import logging
     from .utils.config import load_config
 
@@ -301,8 +305,6 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
         print("ASSET CHECK OK" + (f" ({len(problems)} warning(s))" if problems else ""))
         return None
 
-    refuse_unported(argparse.Namespace(platform=None, mesh=False,
-                                       matmul_precision=args.matmul_precision))
     exact_f32()
     device = _device(args.device)
     if args.srn_root:
@@ -315,6 +317,7 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
             f.write(" ".join(sys.argv) + "\n")
         config = load_config(args.config)
         config["render_config"] = {**config.get("render_config", {}), "validity": args.validity}
+        set_render_precision(config, args.matmul_precision)
         logging.info(f"Converting reference checkpoint {args.weights} ...")
         flat, layout = convert_weights(args.weights, config)
 

@@ -1,12 +1,16 @@
-"""Small shared helpers of the evals. Port of ``chunks`` and ``psnr`` of
-npcd_tpu/utils/util.py (``split_num`` lives in
-models/diffusion/diffusion_model.py), and the evals' csv writer."""
+"""Small shared helpers. Port of ``chunks``, ``psnr`` and the diffusion
+diagnostics' ``mean_flat``, ``normal_kl``, ``approx_standard_normal_cdf``
+and ``discretized_gaussian_log_likelihood`` of npcd_tpu/utils/util.py
+(``split_num`` lives in models/diffusion/diffusion_model.py), and the
+evals' csv writer."""
 from __future__ import annotations
 
 import csv
+import math
 from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 
 def chunks(lst: Sequence[Any], n: int) -> Iterator[Sequence[Any]]:
@@ -34,3 +38,39 @@ def psnr(pred: np.ndarray, gt: np.ndarray, data_range: float = 1.0) -> float:
     if mse == 0:
         return float("inf")
     return float(10.0 * np.log10((data_range ** 2) / mse))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dimensions."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL divergence between two diagonal gaussians; any argument but one
+    may be a Python number (the prior's 0.0)."""
+    like = next(a for a in (mean1, logvar1, mean2, logvar2) if isinstance(a, torch.Tensor))
+    mean1, logvar1, mean2, logvar2 = (torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                                      for a in (mean1, logvar1, mean2, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, *, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood of a gaussian discretized to 255 bins in [-1, 1] (the
+    DDPM decoder NLL): the bin's CDF difference, the lower tail below
+    -0.999 and the upper tail above 0.999, each clipped at 1e-12."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))

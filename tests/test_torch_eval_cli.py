@@ -5,9 +5,11 @@ object, summary.csv) and ``eval_diffusion`` on stage 2's EMA export
 (finite fid, fid_mean, fid_cov, kid in results.json and results.csv); a
 second run of each skips. The real-stats pickle is written under the test's
 own tmp_path and a copy of the config points at it (npcd_tpu's tests use
-the config's /tmp path). Both refuse --platform (ValueError), --mesh and a
---matmul_precision other than exact f32 (NotImplementedError) before they
-write anything, as tests/test_torch_cli.py holds the other CLIs."""
+the config's /tmp path). Both refuse --platform (ValueError) and --mesh
+(NotImplementedError) before they write anything, as tests/test_torch_cli.py
+holds the other CLIs, and both take every --matmul_precision: its value
+reaches the render config (nothing for "default") and the renders run
+under it."""
 import json
 import pickle
 
@@ -74,9 +76,9 @@ def test_eval_pointnerf_cli(exports, tmp_path):
     assert eval_pointnerf.evaluate(eval_pointnerf.parse_args(argv)) == res  # skipped
 
 
-def test_eval_diffusion_cli(exports, tmp_path):
-    _, _, ema_npz = exports
-    res = 16
+def _fid_config(tmp_path, res=16):
+    """A copy of the tiny config whose inception_pkl_path names real
+    statistics of a random projection, written under tmp_path."""
     proj = np.random.default_rng(0).normal(size=(res * res * 3, 8)).astype(np.float32)
     real = np.random.default_rng(2).uniform(0, 1, (20, res * res * 3)).astype(np.float32) @ proj
     pkl = tmp_path / "stats.pkl"
@@ -86,9 +88,14 @@ def test_eval_diffusion_cli(exports, tmp_path):
     assert "/tmp/cli_run/fake_inception.pkl" in text
     config = tmp_path / "tiny.yaml"
     config.write_text(text.replace("/tmp/cli_run/fake_inception.pkl", str(pkl)))
+    return str(config)
 
+
+def test_eval_diffusion_cli(exports, tmp_path):
+    _, _, ema_npz = exports
+    config = _fid_config(tmp_path)
     out = tmp_path / "fid"
-    argv = ["--config", str(config), "--weights", ema_npz, "--output", str(out),
+    argv = ["--config", config, "--weights", ema_npz, "--output", str(out),
             "--device", "cpu", "--no_tensorboard", "--seed", "3"]
     results = eval_diffusion.evaluate(eval_diffusion.parse_args(argv))
     assert set(results) == {"fid", "fid_mean", "fid_cov", "kid"}
@@ -101,14 +108,44 @@ def test_eval_diffusion_cli(exports, tmp_path):
 
 @pytest.mark.parametrize("cli", [eval_diffusion, eval_pointnerf])
 @pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError),
-                                        (["--mesh"], NotImplementedError),
-                                        (["--matmul_precision", "tensorfloat32"],
-                                         NotImplementedError),
-                                        (["--matmul_precision", "default"],
-                                         NotImplementedError)])
+                                        (["--mesh"], NotImplementedError)])
 def test_eval_clis_refuse(tmp_path, cli, flag, error):
     out = tmp_path / "out"
     with pytest.raises(error, match=flag[0]):
         cli.evaluate(cli.parse_args(["--config", CONFIG, "--weights", "x.npz", "--output",
                                      str(out), "--device", "cpu", *flag]))
     assert not out.exists()  # refused before it wrote anything
+
+
+@pytest.mark.parametrize("cli", [eval_diffusion, eval_pointnerf])
+@pytest.mark.parametrize("precision", ["highest", "float32", "tensorfloat32", "default"])
+def test_eval_clis_take_matmul_precision(exports, tmp_path, monkeypatch, cli, precision):
+    from npcd_tpu_torch.models.pointnerf.pointnerf import PointNeRF
+
+    _, pn_npz, ema_npz = exports
+    seen = []
+    render = PointNeRF.render
+
+    def record(self, *args, **kwargs):
+        out = render(self, *args, **kwargs)
+        seen.append(self.cfg.matmul_precision)
+        return out
+
+    monkeypatch.setattr(PointNeRF, "render", record)
+    monkeypatch.setattr(PointNeRF, "_render", lambda self, *a, _r=PointNeRF._render: (
+        seen.append(torch.backends.cuda.matmul.allow_tf32) or _r(self, *a)))
+    before = torch.backends.cuda.matmul.allow_tf32
+    if cli is eval_pointnerf:
+        argv = ["--config", CONFIG, "--weights", pn_npz, "--num_samples", "2"]
+    else:
+        argv = ["--config", _fid_config(tmp_path), "--weights", ema_npz]
+    res = cli.evaluate(cli.parse_args(argv + [
+        "--output", str(tmp_path / "out"), "--device", "cpu", "--no_tensorboard",
+        "--num_qualitatives", "0", "--matmul_precision", precision]))
+    assert res
+    # each render: (TF32 flag inside, the config's value); exact_f32 sets
+    # the flag off for the process, which "default" leaves as it is
+    pairs = set(zip(seen[::2], seen[1::2]))
+    want = {"default": None}.get(precision, precision)
+    assert pairs == {(precision == "tensorfloat32", want)}
+    assert torch.backends.cuda.matmul.allow_tf32 == before

@@ -124,8 +124,22 @@ def test_main_runs_both_stages_on_the_cpu(setup, tmp_path, monkeypatch):
     for name in ("cmd.txt", "log.txt", "pointnerf/results.json", "diffusion/results.json"):
         assert (tmp_path / "out" / name).exists(), name
 
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        parity_eval.main(base + ["--matmul-precision", "tensorfloat32"])
+    # --matmul-precision tensorfloat32 reaches the render config; on the CPU
+    # TF32 changes no bit, so the PSNR is the same
+    tf32 = parity_eval.main(["--weights", setup["ckpt"], "--config", cfg, "--out",
+                             str(tmp_path / "out_tf32"), "--device", "cpu", "--stage", "psnr",
+                             "--psnr-samples", "2", "--matmul-precision", "tensorfloat32"])
+    assert tf32["psnr"] == summary["psnr"]
+    seen = []
+    run_psnr = parity_eval.run_psnr
+    monkeypatch.setattr(parity_eval, "run_psnr",
+                        lambda config, *a, **k: seen.append(config["render_config"]) or 0.0)
+    for precision, want in (("tensorfloat32", "tensorfloat32"), ("default", None)):
+        parity_eval.main(["--weights", setup["ckpt"], "--config", cfg, "--out",
+                          str(tmp_path / "out_rc"), "--device", "cpu", "--stage", "psnr",
+                          "--matmul-precision", precision])
+        assert seen.pop().get("matmul_precision") == want
+    monkeypatch.setattr(parity_eval, "run_psnr", run_psnr)
     no_diffusion = _checkpoint(tmp_path / "pointnerf_only.pt", diffusion=False)
     with pytest.raises(ValueError, match="no diffusion weights"):
         parity_eval.main(["--weights", no_diffusion, "--config", cfg, "--out",
