@@ -136,12 +136,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 25: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23, 24 or 25, each
+ 18. launch counts, checked after phase 26: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23, 24, 25 or 26, each
      kernel of a path during that path ("generation", "training", "bf16
      training", "stage 1", "fast stage 1", "attention", "fid eval", "psnr
      eval", "srn fast stage 1", "reference weights", "options V", "options
-     O", "D"); the bf16
+     O", "D", and phase 26's five DP paths); the bf16
      launches of K1, K2, K6 and K8 are counted apart from the f32 ones, and
      so are the forms of phases 23-24: K4 at a k other than 8, K6 by posenc
      method and its no-reduction form, K7 at an input other than 256 wide
@@ -255,6 +255,34 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      "tensorfloat32": every render ran with TF32 on, and the extractor,
      fed again and again for 0.3 s a group, saw the flags off at every
      feed. Prints the phase's seconds.
+ 26. data parallelism (npcd_tpu_torch/parallel), paths "dp stage 2", "dp
+     fast stage 1", "dp sampling", "dp fid eval" and "dp psnr eval": (a) two
+     ranks sharing the one card over gloo (parallel.launch, make_mesh
+     backend "gloo"), held against one process on the same global batches
+     and seeded draws: 3 stage-2 steps at full width (310.8M, the CLI's
+     --dtype float16: bf16 compute, f32 master weights, block remat) at
+     batch 32 (16 a rank) on seeded latent tables of 2347 x 512 x (3 + 32),
+     and 3 fast stage-1 steps (configs/npcd_srncars_fast.yaml) at B 8 x V 50
+     (4 a rank) over phase 12's 2347 seeded clouds; each step's losses
+     within 1e-3 relative and grad_norm within 1e-2 (bf16 GEMMs at another
+     row count may sum in another order), the parameters after the steps
+     (the feats table's included) each within 2 lr a step (a near-zero
+     gradient of the other sign flips Adam's first steps) and >= 99% of
+     them within 0.1 lr, the two ranks' parameters bitwise equal; prints
+     the world and backend, the bytes and milliseconds of each step's
+     gradient all-reduce, steps/s against one process, peak device memory
+     and host RSS after the steps per rank (world 2 on one card measures
+     the code path, not scaling); (b) the five CLIs with --mesh in one worker a card over NCCL
+     (world = the card count): train_pointnerf (fast, 2 steps of B 8 over
+     the first 16 objects), eval_pointnerf on its export (5 objects x 4
+     views), train_diffusion (5 bf16 steps at batch 32, full size; steps/s
+     over the last 3, then the same without --mesh in the same worker:
+     steps/s, and at world 1 the losses within 1e-5), generate_samples (the
+     full-width 1000-step sampler, 2 samples, one rendered from 2 poses at 128^2; the
+     samples within 1e-4 of phase 5's when it ran), eval_diffusion (2
+     samples x 8 SRN test poses at 128^2, the denoiser at full width and 2
+     blocks); finite outputs and the files; each worker returns its launch
+     counts to the parent.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -294,7 +322,7 @@ import yaml  # noqa: E402
 from npcd_tpu_torch import (  # noqa: E402
     compute_inception_stats, eval_diffusion, eval_pointnerf, parity_eval, train_diffusion,
     train_pointnerf)
-from npcd_tpu_torch.data import PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
+from npcd_tpu_torch.data import BatchLoader, PointNeRFDataset, SyntheticNPCTrain  # noqa: E402
 from npcd_tpu_torch.eval import DiffusionEvaluation  # noqa: E402
 from npcd_tpu_torch import generate_samples  # noqa: E402
 from npcd_tpu_torch.generate_samples import (  # noqa: E402
@@ -329,6 +357,9 @@ from npcd_tpu_torch.ops.kernels.layer_norm import (  # noqa: E402
     layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd, layer_norm_fwd_plain,
     layer_norm_plain, layer_norm_residual, layer_norm_residual_bwd)
 from npcd_tpu_torch.train import DiffusionTraining, PointNeRFTraining  # noqa: E402
+from npcd_tpu_torch.losses import PointNeRFLossWeights  # noqa: E402
+from npcd_tpu_torch.parallel import Mesh, launch, make_mesh  # noqa: E402
+from npcd_tpu_torch.parallel import mesh as mesh_module  # noqa: E402
 from npcd_tpu_torch.utils.builders import (  # noqa: E402
     build_diffusion_model, build_pointnerf, build_pointnerf_options, torch_dtype)
 from npcd_tpu_torch.utils.config import load_config  # noqa: E402
@@ -496,6 +527,20 @@ REF_OBJECTS, REF_VIEWS, REF_CLOUD, REF_PSNR_SAMPLES, REF_POSES = 6, 5, 4096, 2, 
 REF_STATS_OBJECTS, INCEPTION_FEATURES = 4, 2048
 REFERENCE_WEIGHTS = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn",
                      "fused_mlp_posenc_wsum")
+# phase 26: steps of the DP runs against one process and of the stage-2 CLI
+# (steps/s over its last 3), objects of the CLI's fast stage-1 run (2 steps
+# of batch 8), blocks of the FID eval's denoiser (full width, depth cut)
+# and its poses; the DP evals' paths
+DP_STEPS, DP_CLI_STEPS, DP_STAGE1_OBJECTS, DP_EVAL_LAYERS, DP_FID_POSES = 3, 5, 16, 2, 8
+# phase 26 (a): each metric's limit, relative, of two ranks against one
+# process: 100 times the largest reading of the H100 runs (PERF.md §6),
+# but 10 times stage 1's grad_norm reading of 1.96e-3 (100 times would pass
+# a gradient 20% off); the readings repeat to the last digit between runs
+DP_TOLERANCE = {("stage2", "grad_norm"): 2.5e-4, ("stage2", "loss"): 2e-5,
+                ("stage1", "grad_norm"): 2e-2, ("stage1", "loss"): 3e-4}
+DP_FID = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn", "min_d2",
+          "fused_mlp_posenc_wsum")
+DP_PSNR = ("knn", "min_d2", "fused_mlp_posenc_wsum (bf16)", "fused_mlp")
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
@@ -1108,8 +1153,9 @@ def _seeded_pointnerf_npz(config, path: Path) -> None:
     and the seeded PointNeRF weights the exports carry on."""
     m = config["model"]
     rng = np.random.default_rng(0)
-    npcd = NPCD.from_config(config)
-    flat = {f"pointnerf.{k}": v.numpy() for k, v in npcd.pointnerf.state_dict().items()}
+    # NPCD.from_config's PointNeRF (its first draws), without the denoiser
+    pointnerf = build_pointnerf(config, torch.Generator().manual_seed(0))
+    flat = {f"pointnerf.{k}": v.numpy() for k, v in pointnerf.state_dict().items()}
     flat["latents.coords_table"] = rng.uniform(-0.5, 0.5, (m["n_obj"], m["num_points"], 3))
     flat["latents.feats_table"] = rng.standard_normal(
         (m["n_obj"], m["num_points"], m["feats_dim"]), dtype=np.float32)
@@ -3297,6 +3343,380 @@ def phase_diffusion_options() -> dict:
     return {"launches": launches, "sample_s": sample_s, "bpd_s": bpd_s}
 
 
+# -- phase 26: data parallelism ---------------------------------------------------------------
+
+
+def _rss_mib() -> float:
+    """This process's resident host memory now, MiB (/proc/self/statm;
+    getrusage's ru_maxrss keeps the parent's peak across a spawned worker's
+    exec, and the card's host has no VmHWM)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def _timed_reduces(log: list):
+    """Mesh.all_reduce_ timed (host clock between synchronizes) into ``log``
+    as (bytes, ms); -> the original, to restore."""
+    orig = Mesh.all_reduce_
+
+    def timed(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, t)
+        torch.cuda.synchronize()
+        log.append((t.numel() * t.element_size(), 1e3 * (time.perf_counter() - t0)))
+        return out
+    Mesh.all_reduce_ = timed
+    return orig
+
+
+def _dp_stage2_trainer(out: Path, mesh=None):
+    """Stage 2 at full width as train_diffusion --dtype float16 builds it
+    (bf16 compute, f32 master weights, block remat), on phase 26's seeded
+    latent tables; ``mesh`` or one process."""
+    config = load_config(str(SRNCARS))
+    dataset, _ = train_diffusion.load_pointnerf_weights(
+        str(OUT / "dp" / "pointnerf.npz"), config["model"]["num_points"],
+        config["model"]["feats_dim"])
+    compute, remat = train_diffusion.DTYPES["float16"]
+    model = build_diffusion_model(config, torch_dtype(compute), remat)
+    return DiffusionTraining(str(out), model, dataset, seed=0,
+                             device=mesh.device if mesh else "cuda", verbose=False, mesh=mesh,
+                             **config["diffusion_training"]), dataset
+
+
+def _dp_stage1_trainer(out: Path, mesh=None):
+    """Fast stage 1 (configs/npcd_srncars_fast.yaml) as train_pointnerf
+    builds it, over phase 12's seeded dataset of 2347 clouds; ``mesh`` or
+    one process."""
+    config = load_config(str(FAST))
+    dataset = _stage1_dataset(config, config["model"]["n_obj"], 50)
+    model = build_pointnerf(config, torch.Generator().manual_seed(0), with_tables=True)
+    return PointNeRFTraining(str(out), model, dataset,
+                             loss_weights=PointNeRFLossWeights(1.0, 1e-7, 3.5e-7),
+                             seed=0, device=mesh.device if mesh else "cuda", verbose=False,
+                             mesh=mesh, **config["pointnerf_training"]), dataset
+
+
+def _dp_steps(trainer, dataset, batches, mesh=None, params_path=None) -> dict:
+    """train_step on this rank's rows of each global batch (indices) -> each
+    step's metrics and seconds, the gradient reduces, the launches, peak
+    memory and RSS; with ``params_path`` the parameters are saved there
+    (rank 0) and compared bitwise with rank 0's (the others)."""
+    reduces: list = []
+    orig = _timed_reduces(reduces)
+    loader = BatchLoader(dataset, len(batches[0]))
+    steps = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        for idx in batches:
+            rows = idx[mesh.rows(len(idx))] if mesh else idx
+            n = len(reduces)
+            t0 = time.perf_counter()
+            m = trainer.train_step(loader.batch(rows))
+            torch.cuda.synchronize()
+            big = max(reduces[n:], default=(0, 0.0))  # the gradients' reduce
+            steps.append({"s": time.perf_counter() - t0, "reduce_bytes": big[0],
+                          "reduce_ms": big[1], **{k: float(v) for k, v in m.items()}})
+        launches = _read_launches()
+    finally:
+        Mesh.all_reduce_ = orig
+    if isinstance(trainer, DiffusionTraining):
+        params = trainer.flat.params.detach()
+    else:
+        params = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
+    same = None
+    if mesh is not None:
+        ref = params.clone()
+        mesh.broadcast_(ref)
+        same = torch.equal(ref, params)
+        del ref
+    if params_path is not None and (mesh is None or mesh.is_main):
+        torch.save(params.cpu(), params_path)
+    return {"steps": steps, "launches": launches, "same_as_rank0": same,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "rss_mib": _rss_mib()}
+
+
+def _dp_worker(batches2: list, batches1: list) -> dict:
+    """Phase 26's two gloo ranks on one card: the stage-2 and fast stage-1
+    steps on each rank's rows of the global batches."""
+    mesh = make_mesh("cuda", backend="gloo")
+    exact_f32()
+    out = {"world": mesh.world, "backend": mesh.backend}
+    dp = OUT / "dp"
+    trainer, dataset = _dp_stage2_trainer(dp / "gloo-stage2", mesh)
+    out["stage2"] = _dp_steps(trainer, dataset, batches2, mesh, dp / "stage2-dp.pt")
+    del trainer, dataset
+    torch.cuda.empty_cache()
+    trainer, dataset = _dp_stage1_trainer(dp / "gloo-stage1", mesh)
+    out["stage1"] = _dp_steps(trainer, dataset, batches1, mesh, dp / "stage1-dp.pt")
+    return out
+
+
+def _write_config(config, path: Path) -> str:
+    """A loaded config (with overrides) as a yaml file that load_config
+    reads back (tuples as !!python/tuple) -> its path."""
+    plain = lambda o: ({k: plain(v) for k, v in o.items()} if isinstance(o, dict) else
+                       type(o)(plain(v) for v in o) if isinstance(o, (list, tuple)) else o)
+    path.write_text(yaml.dump(plain(config), Dumper=yaml.Dumper))
+    return str(path)
+
+
+def _dp_cli_worker(cut_config: str, weights: str, pkl: str) -> dict:
+    """Phase 26's five CLIs with --mesh, in a worker a card (NCCL), each
+    with the launch counts of its run: through main(argv), with the
+    config's overrides in a file, except the two stage-1 CLIs, which take
+    the seeded clouds in memory."""
+    dp = OUT / "dp"
+    res, runs = {}, {}
+
+    def cli(name, fn):
+        reduces: list = []
+        orig = _timed_reduces(reduces)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            value = fn()
+            torch.cuda.synchronize()
+        finally:
+            Mesh.all_reduce_ = orig
+        runs[name] = {"launches": _read_launches(), "s": time.perf_counter() - t0,
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                      "rss_mib": _rss_mib(), "reduces": reduces}
+        return value
+
+    # fast stage 1 over the first DP_STAGE1_OBJECTS objects, then its PSNR eval
+    config = load_config(str(FAST))
+    config["pointnerf_training"].update(max_epochs=1, print_interval=1, log_scalars_interval=1)
+    full = _stage1_dataset(config, config["model"]["n_obj"], 50)
+    args = train_pointnerf.parse_args(["--config", str(FAST), "--output", str(dp / "cli-pn"),
+                                       "--device", "cuda", "--no_tensorboard", "--seed", "0",
+                                       "--mesh"])
+    trainer = cli("train_pointnerf", lambda: train_pointnerf.train(
+        args, config, _FirstObjects(full, DP_STAGE1_OBJECTS)))
+    res["train_pointnerf"] = [h["loss"] for h in trainer.history]
+    export = trainer.weights_only_path(trainer.step)
+    del trainer
+    psnr_ds = _stage1_dataset(config, config["model"]["n_obj"], PSNR_VIEWS)
+    args = eval_pointnerf.parse_args([
+        "--config", str(FAST), "--weights", export, "--output", str(dp / "cli-psnr"),
+        "--device", "cuda", "--no_tensorboard", "--num_samples", str(PSNR_OBJECTS),
+        "--num_qualitatives", "1", "--mesh"])
+    res["eval_pointnerf"] = cli("eval_pointnerf",
+                                lambda: eval_pointnerf.evaluate(args, config, psnr_ds))["summary"]
+
+    # stage 2 at full width, bf16 (the CLI's default --dtype)
+    config = load_config(str(SRNCARS))
+    config["diffusion_training"].update(max_iterations=DP_CLI_STEPS, print_interval=1,
+                                        log_scalars_interval=1)
+    argv = ["--config", _write_config(config, dp / "cli-diffusion.yaml"), "--pointnerf_weights",
+            str(dp / "pointnerf.npz"), "--device", "cuda", "--no_tensorboard", "--seed", "0"]
+    hist = cli("train_diffusion", lambda: train_diffusion.main(
+        argv + ["--output", str(dp / "cli-diffusion"), "--mesh"]).history)
+    res["train_diffusion"] = hist
+    shutil.rmtree(dp / "cli-diffusion", ignore_errors=True)  # the 4.8 GB checkpoint
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:  # the same steps without --mesh in this process, for the steps/s
+        res["train_diffusion_one"] = train_diffusion.main(
+            argv + ["--output", str(dp / "cli-diffusion-one")]).history
+        shutil.rmtree(dp / "cli-diffusion-one", ignore_errors=True)
+
+    # the full-width 1000-step sampler, 2 samples, one rendered from 2 poses
+    argv = ["--config", str(SRNCARS), "--out", str(dp / "cli-gen"), "--weights", weights,
+            "--num", "2", "--batch-size", "2", "--seed", "0", "--render", "1",
+            "--render-poses", "2", "--poses", str(ROOT / "data/srncars_test_poses.npy"),
+            "--intrinsics", str(ROOT / "data/srncars_test_intrinsics.npy"), "--resolution",
+            "128", "--device", "cuda", "--mesh"]
+    gen = cli("generate_samples", lambda: generate_samples.main(argv))
+    res["generate_samples"] = {"coords": gen["coords"], "feats": gen["feats"],
+                               "sample_s": gen["sample_s"]}
+    del gen
+
+    # FID eval at full width and DP_EVAL_LAYERS blocks
+    config = load_config(cut_config)
+    config["diffusion_evaluation"].update(
+        num_samples=2, generate_batch_size=2, max_poses=DP_FID_POSES, resolution=128,
+        feature_extractor=f"random_projection:{FID_FEATURES}", inception_pkl_path=pkl,
+        poses_path=str(ROOT / "data/srncars_test_poses.npy"),
+        intrinsics_path=str(ROOT / "data/srncars_test_intrinsics.npy"))
+    argv = ["--config", _write_config(config, dp / "cli-fid.yaml"), "--weights",
+            str(dp / "cut.npz"), "--output", str(dp / "cli-fid"), "--device", "cuda",
+            "--no_tensorboard", "--seed", "0", "--num_qualitatives", "1", "--mesh"]
+    res["eval_diffusion"] = cli("eval_diffusion", lambda: eval_diffusion.main(argv))
+    return {"results": res, "runs": runs, "world": dist.get_world_size(),
+            "backend": dist.get_backend()}
+
+
+def phase_dp() -> dict:
+    """Phase 26, data parallelism (npcd_tpu_torch/parallel): two ranks on
+    the one card over gloo against one process, then the five CLIs with
+    --mesh over NCCL at one rank a card -> the launches of each DP path."""
+    dp = OUT / "dp"
+    shutil.rmtree(dp, ignore_errors=True)
+    dp.mkdir(parents=True)
+    config = load_config(str(SRNCARS))
+    _seeded_pointnerf_npz(config, dp / "pointnerf.npz")
+    rng = np.random.default_rng(0)
+    n_obj = config["model"]["n_obj"]
+    b2 = config["diffusion_training"]["batch_size"]
+    b1 = load_config(str(FAST))["pointnerf_training"]["batch_size"]
+    batches2 = [rng.permutation(n_obj)[:b2] for _ in range(DP_STEPS)]
+    batches1 = [np.arange(i * b1, (i + 1) * b1) for i in range(DP_STEPS)]
+    lr2 = config["diffusion_training"]["base_learning_rate"]
+    lr1 = load_config(str(FAST))["pointnerf_training"]["base_learning_rate"]
+    exact_f32()
+
+    # (a) one process, then two gloo ranks sharing the card, same global batches
+    one = {}
+    for tag, make, batches in (("stage2", _dp_stage2_trainer, batches2),
+                               ("stage1", _dp_stage1_trainer, batches1)):
+        trainer, dataset = make(dp / f"one-{tag}")
+        one[tag] = _dp_steps(trainer, dataset, batches, None, dp / f"{tag}-one.pt")
+        del trainer, dataset
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_module.LAUNCH_TIMEOUT_S = 900.0  # a hung phase fails inside the run's limit
+    ranks = launch(_dp_worker, (batches2, batches1), world=2)
+    gloo_s = time.perf_counter() - t0
+    failures = []
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[dp] (a) world {ranks[0]['world']}, backend {ranks[0]['backend']}, both ranks on "
+          f"one card ({smi}): these numbers measure the code path, not scaling; "
+          f"{gloo_s:.1f} s with the workers' start")
+    limits = {"stage2": (lr2, f"bf16 stage 2 at full width, batch {b2} = 2 x {b2 // 2}"),
+              "stage1": (lr1, f"fast stage 1, B {b1} x V 50 = 2 x {b1 // 2}")}
+    for tag, (lr, what) in limits.items():
+        ref = one[tag]
+        for r, rank in enumerate(ranks):
+            got = rank[tag]
+            per = got["steps"]
+            print(f"[dp] {tag} rank {r} ({what}): gradient all-reduce a step "
+                  + ", ".join(f"{s['reduce_bytes'] / 2**20:.2f} MiB in {s['reduce_ms']:.1f} ms"
+                              for s in per)
+                  + f"; steps/s over steps 2-{DP_STEPS} {(DP_STEPS - 1) / sum(s['s'] for s in per[1:]):.3f}"
+                  f" (one process {(DP_STEPS - 1) / sum(s['s'] for s in ref['steps'][1:]):.3f});"
+                  f" peak {got['peak_mib']:.0f} MiB (one process {ref['peak_mib']:.0f}), host RSS"
+                  f" after the steps {got['rss_mib']:.0f} MiB; parameters bitwise rank 0's: "
+                  f"{got['same_as_rank0']}")
+            if r and not got["same_as_rank0"]:
+                failures.append(f"{tag}: rank {r}'s parameters differ from rank 0's")
+        per = ranks[0][tag]["steps"]
+        keys = [k for k in per[0] if k not in ("s", "reduce_bytes", "reduce_ms")]
+        for k in keys:
+            got_v = [s[k] for s in per]
+            want_v = [s[k] for s in ref["steps"]]
+            rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got_v, want_v))
+            tol = DP_TOLERANCE[tag, "grad_norm" if k == "grad_norm" else "loss"]
+            print(f"[dp] {tag} {k}: 2 ranks " + " ".join(f"{v:.6g}" for v in got_v)
+                  + ", one process " + " ".join(f"{v:.6g}" for v in want_v)
+                  + f"; max rel err {rel:.2e} (tol {tol:g})")
+            if not (np.isfinite(got_v).all() and rel <= tol):
+                failures.append(f"{tag} {k}: rel err {rel}")
+        a = torch.load(dp / f"{tag}-dp.pt").cuda()
+        b = torch.load(dp / f"{tag}-one.pt").cuda()
+        d = (a - b).abs()
+        near = float((d <= 0.1 * lr).float().mean())
+        print(f"[dp] {tag} parameters after {DP_STEPS} steps, 2 ranks vs one process: "
+              f"{d.numel()} values, max |diff| {float(d.max()):.3e} (tol {2 * DP_STEPS * lr:.1e}:"
+              f" 2 lr a step, a near-zero gradient of the other sign), share within 0.1 lr "
+              f"{near:.6f} (tol >= 0.99), bitwise equal {float((d == 0).float().mean()):.6f}")
+        if float(d.max()) > 2 * DP_STEPS * lr or near < 0.99:
+            failures.append(f"{tag} parameters: max {float(d.max())}, within 0.1 lr {near}")
+        del a, b, d
+        torch.cuda.empty_cache()
+
+    # (b) the five CLIs with --mesh, a worker a card over NCCL
+    weights = OUT / "seeded_npcd.npz"
+    if not weights.exists():  # phase 5 writes it
+        write_seeded_weights(str(SRNCARS), str(weights), seed=0)
+    text = SRNCARS.read_text()
+    if text.count("    layers: 24\n") != 1:
+        raise AssertionError(f"{SRNCARS}: expected one 'layers: 24'")
+    (dp / "cut.yaml").write_text(text.replace("    layers: 24\n",
+                                              f"    layers: {DP_EVAL_LAYERS}\n"))
+    write_seeded_weights(str(dp / "cut.yaml"), str(dp / "cut.npz"), seed=0)
+    res = 128
+    proj = np.random.default_rng(0).normal(size=(res * res * 3, FID_FEATURES)).astype(np.float32)
+    real = np.random.default_rng(1).uniform(0, 1, (64, res * res * 3)).astype(np.float32) @ proj
+    with open(dp / "real_stats.pkl", "wb") as f:
+        pickle.dump({"mean": real.mean(0), "cov": np.cov(real, rowvar=False), "feats_np": real}, f)
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    clis = launch(_dp_cli_worker, (str(dp / "cut.yaml"), str(weights),
+                                   str(dp / "real_stats.pkl")), world=world)
+    cli_s = time.perf_counter() - t0
+    c0 = clis[0]
+    print(f"[dp] (b) the five CLIs with --mesh: world {c0['world']}, backend {c0['backend']}, "
+          f"{cli_s:.1f} s with the workers' start ({smi})")
+    for name, run in c0["runs"].items():
+        big = [r for r in run["reduces"] if r[0] >= 2**20]
+        print(f"[dp] {name} --mesh: {run['s']:.1f} s, peak {run['peak_mib']:.0f} MiB, host RSS "
+              f"after it {run['rss_mib']:.0f} MiB"
+              + (f"; gradient all-reduces " + ", ".join(f"{b / 2**20:.2f} MiB in {ms:.2f} ms"
+                                                         for b, ms in big)
+                 + (" (world 1: no collective runs)" if c0["world"] == 1 else "")
+                 if big else ""))
+    out = c0["results"]
+    hist, hist1 = out["train_diffusion"], out["train_diffusion_one"]
+    rate = lambda h: 3 / (h[-1]["time"] - h[-4]["time"])
+    print(f"[dp] train_diffusion --mesh (bf16, batch {b2}, world {c0['world']} over "
+          f"{c0['backend']}): {rate(hist):.3f} steps/s over steps {DP_CLI_STEPS - 2}-"
+          f"{DP_CLI_STEPS}, then without --mesh in the same process {rate(hist1):.3f}; loss "
+          + " ".join(f"{h['loss']:.5f}" for h in hist)
+          + ", grad_norm " + " ".join(f"{h['grad_norm']:.5f}" for h in hist))
+    gen = out["generate_samples"]
+    print(f"[dp] train_pointnerf --mesh loss " + " ".join(f"{v:.6g}" for v in
+                                                         out["train_pointnerf"])
+          + f"; eval_pointnerf --mesh PSNR {out['eval_pointnerf']['psnr']:.4f}; "
+          f"generate_samples --mesh sampler {gen['sample_s']:.1f} s; eval_diffusion --mesh "
+          + " ".join(f"{k} {v:.6g}" for k, v in out["eval_diffusion"].items()))
+    if c0["world"] == 1:  # more ranks take other batches (each its loader shard)
+        rel = max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(hist, hist1))
+        print(f"[dp] train_diffusion with and without --mesh at world 1: losses "
+              f"{'bitwise equal' if rel == 0 else f'max rel err {rel:.2e}'} (tol 1e-5)")
+        if rel > 1e-5:
+            failures.append(f"train_diffusion --mesh against no mesh: loss rel err {rel}")
+    finite = [np.isfinite([h["loss"] for h in hist] + [h["grad_norm"] for h in hist]).all(),
+              np.isfinite(out["train_pointnerf"]).all(),
+              np.isfinite(out["eval_pointnerf"]["psnr"]),
+              np.isfinite(gen["coords"]).all() and np.isfinite(gen["feats"]).all(),
+              np.isfinite(list(out["eval_diffusion"].values())).all()]
+    if not all(finite):
+        failures.append(f"non-finite CLI outputs: {finite}")
+    for path in ("cli-gen/samples.npz", "cli-gen/sample0000.png", "cli-fid/results.json",
+                 "cli-psnr/results.json", "cli-pn/cmd.txt"):
+        if not (dp / path).exists():
+            failures.append(f"missing {dp / path}")
+    if MAIN_SAMPLES.get("argv") == (str(weights), 0, 2, 2):
+        err = max(_err(torch.from_numpy(gen["coords"]), torch.from_numpy(MAIN_SAMPLES["coords"])),
+                  _err(torch.from_numpy(gen["feats"]), torch.from_numpy(MAIN_SAMPLES["feats"])))
+        print(f"[dp] generate_samples --mesh samples vs phase 5's (the same seed and weights): "
+              f"max_abs_err {err:.3e} (tol 1e-4)")
+        if err > 1e-4:
+            failures.append(f"generate --mesh vs phase 5: {err}")
+    if failures:
+        raise AssertionError(f"phase 26: {failures}")
+
+    total = lambda runs: {k: sum(r[k] for r in runs) for k in runs[0]}
+    launches = {
+        "dp stage 2": total([r["stage2"]["launches"] for r in ranks]
+                            + [c["runs"]["train_diffusion"]["launches"] for c in clis]),
+        "dp fast stage 1": total([r["stage1"]["launches"] for r in ranks]
+                                 + [c["runs"]["train_pointnerf"]["launches"] for c in clis]),
+        "dp sampling": total([c["runs"]["generate_samples"]["launches"] for c in clis]),
+        "dp fid eval": total([c["runs"]["eval_diffusion"]["launches"] for c in clis]),
+        "dp psnr eval": total([c["runs"]["eval_pointnerf"]["launches"] for c in clis])}
+    shutil.rmtree(dp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -3339,6 +3759,10 @@ def main() -> None:
     paths["options O"] = (_timed("options-O", phase_options, "O")["launches"], OPTIONS_O)
     paths["D"] = (_timed("diffusion-options", phase_diffusion_options)["launches"],
                   DIFFUSION_OPTIONS)
+    dp = _timed("dp", phase_dp)
+    paths.update({path: (dp[path], names) for path, names in (
+        ("dp stage 2", TRAINING_BF16), ("dp fast stage 1", FAST_STAGE1),
+        ("dp sampling", GENERATION), ("dp fid eval", DP_FID), ("dp psnr eval", DP_PSNR))})
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

@@ -178,22 +178,39 @@ def prefetch_to_device(iterable: Iterable, transfer: Callable[[Any], Any], size:
 
 class BatchLoader:
     """Shuffled epochs of full batches over a dataset: each epoch draws a
-    permutation with ``np.random.default_rng(seed)`` (npcd_tpu's loader on
-    one shard with drop_last), so the same seed gives the same order. A
-    batch is ``dataset.batch(indices)`` where the dataset has one, else the
+    permutation with ``np.random.default_rng(seed + shard_index)`` (npcd_tpu's
+    loader with drop_last), so the same seed gives the same order. A batch
+    is ``dataset.batch(indices)`` where the dataset has one, else the
     collate of its samples. ``epoch_order`` draws an epoch without building
-    batches, which lets a resumed run skip the epochs it has done."""
+    batches, which lets a resumed run skip the epochs it has done.
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0):
+    Data parallelism (``num_shards`` > 1), as npcd_tpu's multi-process
+    loader: ``batch_size`` is the global batch and this shard's batches
+    hold ``batch_size // num_shards`` of its indices, the strided partition
+    ``[shard_index::num_shards]`` of the indices wrap-padded to a multiple
+    of ``num_shards``, so every shard has as many batches an epoch."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, num_shards: int = 1,
+                 shard_index: int = 0):
+        if batch_size % num_shards:
+            raise ValueError(f"global batch_size {batch_size} must divide by num_shards "
+                             f"{num_shards}")
         self.dataset = dataset
-        self.batch_size = batch_size
-        self._rng = np.random.default_rng(seed)
+        self.batch_size = batch_size // num_shards  # this shard's
+        indices = np.arange(len(dataset))
+        if num_shards > 1 and len(indices) % num_shards:
+            if len(indices) == 0:
+                raise ValueError("cannot shard an empty dataset")
+            pad = num_shards - len(indices) % num_shards
+            indices = np.concatenate([indices, indices[:pad]])
+        self.indices = indices[shard_index::num_shards]
+        self._rng = np.random.default_rng(seed + shard_index)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self.indices) // self.batch_size
 
     def epoch_order(self) -> np.ndarray:
-        order = np.arange(len(self.dataset))
+        order = self.indices.copy()
         self._rng.shuffle(order)
         return order
 

@@ -15,8 +15,16 @@ render's ``matmul_precision`` flips PyTorch's process-wide TF32 flags, the
 extractor finishes each group before the next render starts, so that its
 GEMMs and convolutions keep the flags set outside the render. Results go to
 ``results.json`` and ``results.csv`` in ``out_dir``, and a run whose
-``results.json`` exists is skipped. ``mesh`` (data parallelism) is not
-ported.
+``results.json`` exists is skipped.
+
+With ``mesh`` (parallel.Mesh) the objects shard over the ranks, as
+npcd_tpu's mesh shards them: ``generate_batch_size`` and
+``render_object_batch`` are rounded up to multiples of the world, each rank
+samples its rows of every generate batch (from the batch's noise drawn whole
+on every rank; an indivisible tail batch is sampled whole by every rank and
+its objects split), renders its objects and runs the extractor on them, and
+rank 0 gathers the features in the global object order, computes FID/KID and
+writes the files.
 """
 from __future__ import annotations
 
@@ -25,14 +33,15 @@ import dataclasses
 import json
 import os
 import os.path as osp
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..generate_samples import write_png
-from ..models.diffusion.diffusion_model import split_num
+from ..models.diffusion.diffusion_model import sharded_noise, split_num
 from ..models.pointnerf.pointnerf import changes_tf32_flags
+from ..parallel import is_main, mesh_world
 from ..utils import logging, writer
 from ..utils.builders import torch_dtype
 from ..utils.fidkid import FIDKID, ProjectionExtractor, TorchScriptInceptionExtractor
@@ -73,11 +82,10 @@ class DiffusionEvaluation:
     ):
         """npcd_tpu's arguments, plus ``device``, where the extractors built
         here run. ``render_dtype`` None or "float32": the model's own render
-        precision; "bfloat16": the render's MLPs in bf16."""
-        if mesh is not None:
-            raise NotImplementedError("mesh: the data-parallel eval is ROADMAP Queue 1 item 7 "
-                                      "('Data parallelism'), not ported yet")
+        precision; "bfloat16": the render's MLPs in bf16. ``mesh``: a
+        parallel.Mesh (data parallelism)."""
         self.out_dir = out_dir
+        self.mesh = mesh
         self.num_samples = num_samples
         self.generate_batch_size = generate_batch_size
         self.render_pose_batch = render_pose_batch
@@ -89,6 +97,13 @@ class DiffusionEvaluation:
                              else render_dtype)
         self.overlap_extraction = overlap_extraction
         self.device = torch.device(device)
+        world = mesh_world(mesh)
+        if generate_batch_size % world or render_object_batch % world:
+            up = lambda v: max(world, -(-v // world) * world)
+            self.generate_batch_size = up(generate_batch_size)
+            self.render_object_batch = up(render_object_batch)
+            logging.info(f"diffusion eval on {world} ranks: batch sizes rounded to generate="
+                         f"{self.generate_batch_size}, render_objects={self.render_object_batch}")
 
         poses = poses if poses is not None else np.load(poses_path)
         intrinsics = intrinsics if intrinsics is not None else np.load(intrinsics_path)
@@ -104,8 +119,9 @@ class DiffusionEvaluation:
             elif kind == "inception_jax":
                 raise ValueError(
                     "feature_extractor='inception_jax': npcd_tpu's JAX InceptionV3 reads keras "
-                    "h5 weights with JAX and h5py and is not ported; the port's device-resident "
-                    "extractor is the TorchScript graph ('inception_torchscript[:path]')")
+                    "h5 weights with JAX and h5py and is not ported (ROADMAP Queue 1 item 12); "
+                    "the port's device-resident extractor is the TorchScript graph "
+                    "('inception_torchscript[:path]')")
             elif kind == "inception_torchscript":
                 feature_extractor = TorchScriptInceptionExtractor(arg or inception_path,
                                                                   device=self.device)
@@ -147,15 +163,19 @@ class DiffusionEvaluation:
         ``NPCD``) with the normalizer stats ``diffusion_state``. Draws come
         from ``noise`` (a function of the shape, as ``generate_batch``
         takes it) or else from ``generator``; KID's subsets from
-        ``kid_seed`` (None: fresh, as npcd_tpu's)."""
+        ``kid_seed`` (None: fresh, as npcd_tpu's). Under a mesh every rank
+        returns rank 0's results."""
+        mesh = self.mesh
+        main = is_main(mesh)
         results_file = None
         if self.out_dir is not None:
-            os.makedirs(self.out_dir, exist_ok=True)
             results_file = osp.join(self.out_dir, "results.json")
             if osp.exists(results_file):
                 logging.info("Diffusion evaluation already finished; skipping.")
                 with open(results_file) as f:
                     return json.load(f)
+            if main:
+                os.makedirs(self.out_dir, exist_ok=True)
 
         device = next(model.parameters()).device
         if noise is None:
@@ -176,19 +196,24 @@ class DiffusionEvaluation:
         res = self.resolution
         stride = max(1, self.num_samples // max(num_qualitatives, 1))
         device_feed = getattr(self.feature_extractor, "device_resident", False)
+        world = mesh_world(mesh)
+        # the global index of each object whose features this rank fed, in
+        # feed order, and the qualitatives it rendered for rank 0 to write
+        fed, qualitatives = [], []
 
-        def process_group(images_q: torch.Tensor, first_idx: int) -> None:
-            """Feed one quantized group [g, V, H*W, 3] and write its
-            qualitatives (the first 4 poses side by side)."""
+        def process_group(images_q: torch.Tensor, objects: List[int]) -> None:
+            """Feed one quantized group [g, V, H*W, 3] of the objects
+            ``objects`` and keep its qualitatives (the first 4 poses side by
+            side)."""
             g = images_q.shape[0]
             images = images_q.reshape(g * n_img, res, res, 3)
             fidkid.feed(images if device_feed else images.cpu().numpy(), "fakes")
+            fed.extend(objects)
             if self.out_dir is not None:
-                for j in range(g):
-                    if (first_idx + j) % stride == 0:
+                for j, idx in enumerate(objects):
+                    if idx % stride == 0:
                         img = images_q[j, :4].reshape(-1, res, res, 3).cpu().numpy()
-                        write_png(osp.join(self.out_dir, f"sample{first_idx + j:04d}.png"),
-                                  np.concatenate(list(img), axis=1))
+                        qualitatives.append((idx, np.concatenate(list(img), axis=1)))
 
         executor, futures = None, []
         if self.overlap_extraction:
@@ -202,22 +227,36 @@ class DiffusionEvaluation:
         try:
             done = 0
             for n_gen in split_num(self.num_samples, self.generate_batch_size):
-                coords_b, feats_b = self.generate(model, diffusion_state, n_gen, noise)
-                for j0 in range(0, n_gen, self.render_object_batch):
-                    sl = slice(j0, j0 + self.render_object_batch)
+                if mesh is None:
+                    mine = np.arange(n_gen)
+                    coords_b, feats_b = self.generate(model, diffusion_state, n_gen, noise)
+                elif n_gen % world == 0:  # this rank's rows of the batch
+                    mine = np.arange(n_gen)[mesh.rows(n_gen)]
+                    coords_b, feats_b = self.generate(model, diffusion_state, len(mine),
+                                                      sharded_noise(noise, mesh))
+                else:  # the indivisible tail: sampled whole, rendered in parts
+                    part = mesh.rows(n_gen, uneven=True)
+                    mine = np.arange(n_gen)[part]
+                    if len(mine):
+                        coords_b, feats_b = self.generate(model, diffusion_state, n_gen, noise)
+                        coords_b, feats_b = coords_b[part], feats_b[part]
+                step = self.render_object_batch // world
+                for j0 in range(0, len(mine), step):
+                    sl = slice(j0, j0 + step)
                     while serial_render and futures:
                         futures.pop(0).result()
                     channels = self.render_objects(
                         pointnerf, coords_b[sl].transpose(1, 2).contiguous(),
                         feats_b[sl].transpose(1, 2).contiguous())
                     images_q = quantize(channels)
+                    objects = [done + int(i) for i in mine[sl]]
                     if executor is None:
-                        process_group(images_q, done)
+                        process_group(images_q, objects)
                     else:
                         while len(futures) >= 2:  # bound the image backlog
                             futures.pop(0).result()
-                        futures.append(executor.submit(process_group, images_q, done))
-                    done += images_q.shape[0]
+                        futures.append(executor.submit(process_group, images_q, objects))
+                done += n_gen
                 if self.verbose:
                     logging.info(f"diffusion eval: {done}/{self.num_samples} objects")
             for f in futures:  # drain; re-raises the worker's exceptions
@@ -226,13 +265,24 @@ class DiffusionEvaluation:
             if executor is not None:
                 executor.shutdown(wait=True, cancel_futures=True)
 
-        results = fidkid.summary(kid_seed)
-        logging.info(f"Diffusion evaluation results: {results}")
-        writer.put_scalar_dict("eval/diffusion/unconditional_generation", results, 0)
-        writer.write_out_storage()
-        if results_file is not None:
-            with open(results_file, "w") as f:
-                json.dump(results, f, indent=1)
-            # one metric a row, as pandas writes a Series named "metric"
-            write_csv(osp.join(self.out_dir, "results.csv"), ["", "metric"], results.items())
+        if mesh is not None:
+            fidkid.gather_fakes(mesh, fed, n_img)
+            parts = mesh.gather_objects(qualitatives, to_main=True)
+            qualitatives = sorted((q for part in parts or [] for q in part), key=lambda q: q[0])
+        results = None
+        if main:
+            results = fidkid.summary(kid_seed)
+            logging.info(f"Diffusion evaluation results: {results}")
+            writer.put_scalar_dict("eval/diffusion/unconditional_generation", results, 0)
+            writer.write_out_storage()
+            if self.out_dir is not None:
+                for idx, img in qualitatives:
+                    write_png(osp.join(self.out_dir, f"sample{idx:04d}.png"), img)
+                with open(results_file, "w") as f:
+                    json.dump(results, f, indent=1)
+                # one metric a row, as pandas writes a Series named "metric"
+                write_csv(osp.join(self.out_dir, "results.csv"), ["", "metric"], results.items())
+        if mesh is not None:
+            results = mesh.gather_objects(results)[0]
         return results
+

@@ -20,8 +20,11 @@ DiffusionEvaluation; ``--render_dtype`` overrides its ``render_dtype``.
 is ``default``: the render's cuBLAS GEMMs run in exact f32 under
 ``highest`` / ``float32`` and in TF32 under ``tensorfloat32``. The sampler
 runs in exact f32 under every setting, as npcd_tpu's keeps its own
-precision. ``--mesh`` raises NotImplementedError; ``--platform`` chooses a
-JAX backend and is refused.
+precision. ``--mesh`` evaluates data parallel, one process a card
+(parallel/mesh.py; under a launcher's environment it joins that group,
+alone it starts one worker a visible card): the objects shard over the
+ranks and rank 0 computes FID/KID and writes (DiffusionEvaluation).
+``--platform`` chooses a JAX backend and is refused.
 """
 from __future__ import annotations
 
@@ -60,38 +63,49 @@ def parse_args(argv=None):
                    help="The render's f32 matmul precision (render_config."
                         "matmul_precision): highest / float32 exact, tensorfloat32 TF32, "
                         "default the config's or PyTorch's.")
-    p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--mesh", action="store_true",
+                   help="Data parallelism over every visible card (or the launcher's group).")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise on the flags the port refuses (--platform) or lacks (--mesh),
-    before anything is built or written."""
+def start(args):
+    """Refuse --platform before anything is built or written, then the
+    eval's device and mesh (None without --mesh) -> (device, mesh)."""
+    from .generate_samples import _device, exact_f32
+    from .parallel import make_mesh
+
     if args.platform:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
-    if args.mesh:
-        raise NotImplementedError("--mesh: the data-parallel evals are ROADMAP Queue 1 item 7 "
-                                  "('Data parallelism')")
+    exact_f32()
+    device = _device(args.device)
+    mesh = make_mesh(device) if args.mesh else None
+    return (device if mesh is None else mesh.device), mesh
 
 
-def open_output(args, out_dir) -> None:
-    """The log file, cmd.txt and the metric writers of an eval run."""
+def open_output(args, out_dir, mesh=None) -> None:
+    """The log file, cmd.txt and the metric writers of a CLI's run (rank 0's
+    under a mesh); the writers in ``args.log_dir`` where the CLI has one."""
+    from .parallel import is_main
     from .utils import logging, writer
 
-    if out_dir:
+    if out_dir and is_main(mesh):
         os.makedirs(out_dir, exist_ok=True)
         logging.add_log_file(osp.join(out_dir, "log.txt"))
         with open(osp.join(out_dir, "cmd.txt"), "a") as f:
             f.write(" ".join(sys.argv) + "\n")
-        writer.setup_writers(args.log_dir or out_dir, tensorboard=not args.no_tensorboard,
+        writer.setup_writers(getattr(args, "log_dir", None) or out_dir,
+                             tensorboard=not args.no_tensorboard,
                              wandb=args.wandb, exp_id=args.exp_id, comment=args.comment)
 
 
-def close_output(out_dir) -> None:
+def close_output(out_dir, mesh=None) -> None:
+    from .parallel import is_main
     from .utils import logging, writer
 
+    if not is_main(mesh):
+        return
     writer.close_writers()
     if out_dir:
         logging.remove_log_file(osp.join(out_dir, "log.txt"))
@@ -104,21 +118,20 @@ def evaluate(args, config=None) -> dict:
     import torch
 
     from .eval import DiffusionEvaluation
-    from .generate_samples import _device, exact_f32
     from .models.npcd import NPCD
     from .models.pointnerf.pointnerf import set_render_precision
     from .utils import logging
+    from .parallel import is_main
     from .utils.config import load_config, print_config
     from .utils.from_jax import load_npz
 
-    refuse_unported(args)
-    exact_f32()
-    device = _device(args.device)
-    open_output(args, args.output)
+    device, mesh = start(args)
+    open_output(args, args.output, mesh)
     try:
         config = set_render_precision(config if config is not None else load_config(args.config),
                                       args.matmul_precision)
-        print_config(config)
+        if is_main(mesh):
+            print_config(config)
         model = NPCD.from_config(config, seed=args.seed)
         state = load_npz(model, args.weights)
         model = model.to(device).eval()
@@ -126,14 +139,26 @@ def evaluate(args, config=None) -> dict:
         eval_kw = dict(config["diffusion_evaluation"])
         if args.render_dtype:
             eval_kw["render_dtype"] = None if args.render_dtype == "float32" else args.render_dtype
-        evaluation = DiffusionEvaluation(out_dir=args.output, device=device, **eval_kw)
+        evaluation = DiffusionEvaluation(out_dir=args.output, device=device, mesh=mesh,
+                                         **eval_kw)
         results = evaluation(model, state,
                              generator=torch.Generator(device=device).manual_seed(args.seed),
                              num_qualitatives=args.num_qualitatives, kid_seed=args.seed)
     finally:
-        close_output(args.output)
+        close_output(args.output, mesh)
     return results
 
 
+def main(argv=None):
+    """The command line -> the results (None where ``--mesh`` alone started a
+    worker a card)."""
+    from .parallel import spawn_cli
+
+    args = parse_args(argv)
+    if args.mesh and spawn_cli(main, argv, args.device):
+        return None
+    return evaluate(args)
+
+
 if __name__ == "__main__":
-    evaluate(parse_args())
+    main()

@@ -20,7 +20,9 @@ it (the SRN views shuffled by ``random.Random(--seed)``).
 ``render_config.matmul_precision`` unless the config sets one or the flag
 is ``default``; the PSNR forwards (``eval_forward``, a ``render``) run
 under it (highest / float32: exact f32 GEMMs; tensorfloat32: TF32).
-``--mesh`` raises NotImplementedError, ``--platform`` is refused.
+``--mesh`` evaluates data parallel as eval_diffusion's does: each render
+call's views shard over the ranks (PointNeRFEvaluation) and rank 0 writes.
+``--platform`` is refused.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def parse_args(argv=None):
                    help="The render's f32 matmul precision (render_config."
                         "matmul_precision): highest / float32 exact, tensorfloat32 TF32, "
                         "default the config's or PyTorch's.")
-    p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--mesh", action="store_true",
+                   help="Data parallelism over every visible card (or the launcher's group).")
     p.add_argument("--platform", type=str, default=None,
                    help="A JAX backend flag; the port refuses it (use --device).")
     p.add_argument("--device", default="cuda")
@@ -98,34 +101,45 @@ def evaluate(args, config=None, dataset=None) -> dict:
     file's (a loaded config dict) and ``dataset`` the config's dataset ->
     {"rows", "summary"}."""
     from .eval import PointNeRFEvaluation
-    from .eval_diffusion import close_output, open_output, refuse_unported
-    from .generate_samples import _device, exact_f32
+    from .eval_diffusion import close_output, open_output, start
     from .models.pointnerf.pointnerf import set_render_precision
     from .utils import logging
     from .utils.builders import build_dataset, build_pointnerf
+    from .parallel import is_main
     from .utils.config import load_config, print_config
 
-    refuse_unported(args)
-    exact_f32()
-    device = _device(args.device)
-    open_output(args, args.output)
+    device, mesh = start(args)
+    open_output(args, args.output, mesh)
     try:
         config = set_render_precision(config if config is not None else load_config(args.config),
                                       args.matmul_precision)
-        print_config(config)
+        if is_main(mesh):
+            print_config(config)
         if dataset is None:
             dataset = build_dataset(config, view_rng=random.Random(args.seed))
         model = build_pointnerf(config, with_tables=True)
         load_stage1_weights(model, args.weights)
         model = model.to(device).eval()
         logging.info(f"Loaded weights from {args.weights}")
-        evaluation = PointNeRFEvaluation(out_dir=args.output, eval_batch_size=args.eval_batch_size)
+        evaluation = PointNeRFEvaluation(out_dir=args.output, eval_batch_size=args.eval_batch_size,
+                                         mesh=mesh)
         return evaluation(dataset, model, samples=args.num_samples, sample_indices=args.samples,
                           qualitatives=args.num_qualitatives,
                           resolution=model.opts.default_resolution)
     finally:
-        close_output(args.output)
+        close_output(args.output, mesh)
+
+
+def main(argv=None):
+    """The command line -> the result (None where ``--mesh`` alone started a
+    worker a card)."""
+    from .parallel import spawn_cli
+
+    args = parse_args(argv)
+    if args.mesh and spawn_cli(main, argv, args.device):
+        return None
+    return evaluate(args)
 
 
 if __name__ == "__main__":
-    evaluate(parse_args())
+    main()

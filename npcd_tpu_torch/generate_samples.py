@@ -20,9 +20,12 @@ convolutions).
 and normalizer stats bridged from the JAX package or exported by the port's
 trainers (utils/from_jax.py). Samples render with the config's
 ``render_config.validity`` ('knn' unless it says otherwise); ``--validity``
-overrides it. ``--mesh`` (data-parallel sampling) is not ported yet and
-raises NotImplementedError; ``--platform`` chooses a JAX backend and is
-refused.
+overrides it. ``--mesh`` samples data parallel, one process a card
+(parallel/mesh.py; under a launcher's environment it joins that group,
+alone it starts one worker a visible card): each rank samples its rows of
+every generate batch that divides by the world, from the batch's noise drawn
+whole on every rank, and the clouds are gathered; rank 0 renders and writes
+the files. ``--platform`` chooses a JAX backend and is refused.
 """
 from __future__ import annotations
 
@@ -62,7 +65,8 @@ def parse_args(argv=None):
     p.add_argument("--validity", choices=["voxel", "knn"], default=None,
                    help="the render's sample-validity test; default: the config's")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel sampling (not ported yet)")
+                   help="data-parallel sampling over every visible card (or the launcher's "
+                        "group)")
     p.add_argument("--platform", default=None, choices=["cpu", "tpu"],
                    help="a JAX backend; refused (use --device)")
     args = p.parse_args(argv)
@@ -114,19 +118,21 @@ def run(args) -> dict:
     """Build, sample and render as the CLI does, without writing files:
     -> {model, state, coords, feats, trajectory (a Trajectory) or None,
     channels [n, V, R, 3] or None, swap [n*n, 1, R, 3] or None, poses,
-    intrinsics, sample_s, render_s, swap_s}."""
+    intrinsics, sample_s, render_s, swap_s, mesh}; under ``--mesh`` every
+    rank has the samples and rank 0 the renders."""
     from .models.npcd import NPCD
+    from .parallel import is_main, make_mesh
     from .utils.config import load_config
     from .utils.from_jax import load_npz
 
     if args.platform:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
-    if args.mesh:
-        raise NotImplementedError("--mesh: data-parallel sampling is ROADMAP Queue 1 item 7 "
-                                  "('Data parallelism'), not ported yet")
     exact_f32()
     device = _device(args.device)
+    mesh = make_mesh(device) if args.mesh else None
+    if mesh is not None:
+        device = mesh.device
     model = NPCD.from_config(load_config(args.config), validity=args.validity, seed=args.seed)
     state = load_npz(model, args.weights)
     model = model.to(device).eval()
@@ -136,14 +142,16 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     gen = model.diffusion.generate(state, args.num, args.batch_size, generator=generator,
                                    return_trajectory=args.trajectory_stride > 0,
-                                   trajectory_stride=max(args.trajectory_stride, 1))
+                                   trajectory_stride=max(args.trajectory_stride, 1), mesh=mesh)
     sample_s = time.perf_counter() - t0
     coords, feats = gen[0], gen[1]
 
     out = {"model": model, "state": state, "coords": coords, "feats": feats,
            "trajectory": gen[2] if args.trajectory_stride > 0 else None,
            "channels": None, "swap": None, "sample_s": sample_s, "render_s": 0.0,
-           "swap_s": 0.0}
+           "swap_s": 0.0, "mesh": mesh}
+    if not is_main(mesh):
+        return out
     if args.swap > 0:
         pose = np.load(args.poses)[:1].astype(np.float32)
         intr = np.load(args.intrinsics)[:1].astype(np.float32)
@@ -204,8 +212,23 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def main(argv=None) -> dict:
+    """The command line -> run's dict (None where ``--mesh`` alone started a
+    worker a card). Under a mesh only rank 0 writes, and the others wait for
+    it."""
+    from .parallel import barrier, is_main, spawn_cli
+
     args = parse_args(argv)
+    if args.mesh and spawn_cli(main, argv, args.device):
+        return None
     out = run(args)
+    if is_main(out["mesh"]):
+        write_outputs(args, out)
+    barrier(out["mesh"])
+    return out
+
+
+def write_outputs(args, out: dict) -> None:
+    """samples.npz, and the PNGs of --swap and --render, under --out."""
     os.makedirs(args.out, exist_ok=True)
     arrays = {"coords": out["coords"], "feats": out["feats"]}
     if out["trajectory"] is not None:
@@ -230,7 +253,6 @@ def main(argv=None) -> dict:
             write_png(osp.join(args.out, f"sample{i:04d}.png"),
                       np.concatenate(list(images[i]), axis=1))
         print(f"rendered {n} objects x {v} poses to {args.out} ({out['render_s']:.1f} s)")
-    return out
 
 
 if __name__ == "__main__":

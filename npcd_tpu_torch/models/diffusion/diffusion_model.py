@@ -25,6 +25,13 @@ def split_num(num: int, max_size: int) -> List[int]:
     return [max_size] * (num // max_size) + ([num % max_size] if num % max_size else [])
 
 
+def sharded_noise(noise: NoiseFn, mesh) -> NoiseFn:
+    """``noise`` drawn for the whole batch (the leading dimension times the
+    world), this rank's rows kept."""
+    return lambda shape: noise((shape[0] * mesh.world, *shape[1:]))[mesh.rows(
+        shape[0] * mesh.world)]
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionState:
     coords_norm: NormalizerStats
@@ -71,14 +78,20 @@ class DiffusionModel(nn.Module):
         if draws is None:
             if generator is None:
                 raise ValueError("compute_loss needs a torch.Generator or explicit draws")
-            n = coords.shape[0]
-            draws = (torch.randint(0, self.process.num_timesteps, (n,), generator=generator,
-                                   device=device),
-                     torch.randn(coords.shape, generator=generator, device=device),
-                     torch.randn(feats.shape, generator=generator, device=device))
+            draws = self.loss_draws(coords.shape[0], coords.shape[1:], feats.shape[1:], generator)
         t, coords_noise, feats_noise = draws
         process = self.process.to(device)
         return process.p_losses(self.denoiser, coords, feats, t, coords_noise, feats_noise)
+
+    def loss_draws(self, n: int, coords_shape, feats_shape, generator: torch.Generator):
+        """The loss's draws for n examples from ``generator``, in its order:
+        t [n] in [0, T), then coords noise [n, *coords_shape] and feats
+        noise [n, *feats_shape]."""
+        device = generator.device
+        return (torch.randint(0, self.process.num_timesteps, (n,), generator=generator,
+                              device=device),
+                torch.randn((n, *coords_shape), generator=generator, device=device),
+                torch.randn((n, *feats_shape), generator=generator, device=device))
 
     @torch.no_grad()
     def generate_batch(self, state: DiffusionState, batch_size: int, noise: NoiseFn,
@@ -105,7 +118,7 @@ class DiffusionModel(nn.Module):
     def generate(self, state: DiffusionState, num: int, batch_size: int = 8,
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[NoiseFn] = None, return_trajectory: bool = False,
-                 trajectory_stride: int = 1):
+                 trajectory_stride: int = 1, mesh=None):
         """``num`` neural point clouds -> numpy (coords [num, C, P],
         feats [num, F, P]). Draws come from ``noise`` when given, else from
         ``generator`` (a torch.Generator on the model's device). With
@@ -113,7 +126,13 @@ class DiffusionModel(nn.Module):
         in numpy, each field stacked over the batch axis (axis 1) across
         the generate batches, in normalized latent space (only the final
         state is denormalized); ``trajectory_stride`` keeps the state after
-        every stride-th step."""
+        every stride-th step.
+
+        With ``mesh`` (parallel.Mesh) each generate batch runs data-parallel:
+        every rank draws the batch's noise for the whole batch and samples
+        its own rows, and the clouds (and trajectory) are gathered, so every
+        rank returns all ``num``; a batch that does not divide by the world
+        runs whole on every rank (npcd_tpu's unsharded tail)."""
         if noise is None:
             if generator is None:
                 raise ValueError("generate needs a torch.Generator or a noise function")
@@ -121,11 +140,17 @@ class DiffusionModel(nn.Module):
             noise = lambda shape: torch.randn(shape, generator=generator, device=device)
         coords, feats, trajectories = [], [], []
         for bs in split_num(num, batch_size):
-            out = self.generate_batch(state, bs, noise, return_trajectory, trajectory_stride)
-            coords.append(out[0].cpu().numpy())
-            feats.append(out[1].cpu().numpy())
+            if mesh is None or bs % mesh.world:
+                out = self.generate_batch(state, bs, noise, return_trajectory, trajectory_stride)
+                gather = lambda x, dim=0: x.cpu()
+            else:
+                out = self.generate_batch(state, bs // mesh.world, sharded_noise(noise, mesh),
+                                          return_trajectory, trajectory_stride)
+                gather = mesh.gather
+            coords.append(gather(out[0]).numpy())
+            feats.append(gather(out[1]).numpy())
             if return_trajectory:
-                trajectories.append(Trajectory(*(x.cpu().numpy() for x in out[2])))
+                trajectories.append(Trajectory(*(gather(x, 1).numpy() for x in out[2])))
         coords, feats = np.concatenate(coords, 0), np.concatenate(feats, 0)
         if not return_trajectory:
             return coords, feats

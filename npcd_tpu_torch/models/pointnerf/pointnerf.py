@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.knn import VoxelOccupancy, within_radius
+from ...parallel.mesh import mesh_world, shard_batch
 from ...utils.config import PointNeRFOptions, pointnerf_default_options
 from .aggregator import (aggregate_features, compact_valid_samples, gather_rows,
                          knn_neighbors, pack_rows)
@@ -434,7 +435,7 @@ class PointNeRF(nn.Module):
     def forward(self, obj_idx: torch.Tensor, intrinsics: torch.Tensor,
                 extrinsics: torch.Tensor, pixel_idx: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None):
+                draws: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
         """The train forward (the eval path is ``render``) of objects
         obj_idx [B] from intrinsics [B, V, 3, 3] and world2cam extrinsics
         [B, V, 4, 4], on the pixel subset pixel_idx [R_pre] shared by every
@@ -449,18 +450,24 @@ class PointNeRF(nn.Module):
         [0, 1), as npcd_tpu's ``draws``, and ray_scores [B*V, R_pre] (the
         uniform scores whose descending order among the valid rays is the
         selection order). aux holds coords, feats (the means),
-        feats_mean, feats_log_var and feats_std [B, P, ...]."""
+        feats_mean, feats_log_var and feats_std [B, P, ...].
+
+        With ``mesh`` (parallel.Mesh) the objects are this rank's rows of a
+        global batch of B x world: each draw is taken for the global batch
+        (and ``draws`` gives the global batch's), and this rank keeps its
+        rows."""
         o = self.opts
         draws = draws or {}
         b, v = extrinsics.shape[:2]
         i_dim = b * v
+        world = mesh_world(mesh)
         dev = extrinsics.device
         coords = self.tables.coords_table[obj_idx]
         f_mean, f_log_var, f_std = feats_mean_log_var_std(self.tables.feats_table, obj_idx)
         eps = draws.get("feats_eps")
         if eps is None:
-            eps = torch.randn(f_std.shape, generator=generator, device=dev)
-        feats = f_mean + f_std * eps
+            eps = torch.randn((b * world, *f_std.shape[1:]), generator=generator, device=dev)
+        feats = f_mean + f_std * shard_batch(eps, mesh)
         aux = {"coords": coords, "feats": f_mean, "feats_mean": f_mean,
                "feats_log_var": f_log_var, "feats_std": f_std}
 
@@ -476,14 +483,15 @@ class PointNeRF(nn.Module):
         r_dim = rays_o.shape[1]
         jitter = draws.get("depth_jitter")
         if jitter is None:
-            jitter = torch.rand((i_dim, r_dim, o.renderer.depth_resolution),
+            jitter = torch.rand((i_dim * world, r_dim, o.renderer.depth_resolution),
                                 generator=generator, device=dev)
         scores = draws.get("ray_scores")
         if scores is None:
-            scores = torch.rand((i_dim, r_dim), generator=generator, device=dev)
+            scores = torch.rand((i_dim * world, r_dim), generator=generator, device=dev)
         out = self._render_core(rep(coords), rep(feats), occ, rays_o, rays_d,
                                 o.aggregator.max_shading_pts, self.cfg.eval_ray_chunk,
-                                jitter, scores, self.cfg.train_rays)
+                                shard_batch(jitter, mesh), shard_batch(scores, mesh),
+                                self.cfg.train_rays)
         reshape = lambda a: a.reshape(b, v, *a.shape[1:])
         return {"mask": reshape(out["mask"])[..., None],
                 "depth": reshape(out["depth"])[..., None],

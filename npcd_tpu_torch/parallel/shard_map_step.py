@@ -1,0 +1,42 @@
+"""The explicit-reduce data-parallel stage-2 step. Port of
+npcd_tpu/parallel/shard_map_step.py (make_shard_map_diffusion_step).
+
+npcd_tpu's step on a mesh equals its step on the global batch: per-example
+keys make each example's (t, noise) the same on every shard, and the psum
+of the per-shard mean gradients over the shard count is the global mean.
+Here every rank draws the step's (t, coords noise, feats noise) for the
+whole global batch from the same seeded generator and keeps its own rows,
+then one all-reduce of the flat gradient buffer, divided by the world,
+gives the global gradient before kernel K3 updates the replicated
+parameters, Adam's moments and the EMAs on every rank
+(train/diffusion_training.py). The loss terms are means over fixed counts,
+so the mean over ranks of their per-rank means is the global mean.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .mesh import Mesh, shard_batch
+
+
+def global_row_draws(model, n_local: int, coords_shape, feats_shape, generator: torch.Generator,
+                     mesh: Optional[Mesh]):
+    """This rank's rows of the step's (t, coords noise, feats noise), drawn
+    for the global batch of n_local x world examples."""
+    world = 1 if mesh is None else mesh.world
+    draws = model.loss_draws(n_local * world, coords_shape, feats_shape, generator)
+    return shard_batch(draws, mesh)
+
+
+def all_reduce_mean_(grads: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                     mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The mean over ranks of the flat gradient buffer ``grads`` (in place,
+    one all-reduce) and of the scalar ``metrics`` (one more) -> the
+    metrics' means."""
+    mesh.all_reduce_(grads).div_(mesh.world)
+    names = list(metrics)
+    values = mesh.all_reduce_(torch.stack([metrics[k].detach().float() for k in names]))
+    values = values / mesh.world
+    return {k: values[i] for i, k in enumerate(names)}

@@ -18,6 +18,16 @@ resumed from a checkpoint takes the same steps as an uninterrupted one.
 npcd_tpu draws the former from fold_in(PRNGKey(seed), n), which torch
 cannot reproduce; the tests replay JAX's draws through ``train_step``'s
 ``draws``.
+
+With ``mesh`` (parallel.Mesh, data parallelism) ``batch_size`` is the
+global batch and each rank takes ``batch_size // world`` of it a step from
+its shard of the dataset (BatchLoader's strided partition, npcd_tpu's
+multi-process loader); the step is parallel/shard_map_step.py's: each rank
+keeps its rows of the global draws, and one all-reduce of the flat gradient
+buffer gives the global mean before K3 runs on every rank, so the
+parameters stay equal across ranks. Rank 0 writes the checkpoints, exports
+and scalars, and the others wait for it at a barrier at the end; every rank
+restores a checkpoint.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import torch
 from ..data import BatchLoader, prefetch_to_device
 from ..models.diffusion.diffusion_model import DiffusionModel, DiffusionState
 from ..models.diffusion.normalizers import NormalizerStats
+from ..parallel import (all_reduce_mean_, barrier, global_row_draws, is_main, mesh_world,
+                        replicate, shard_batch)
 from ..utils import logging, writer
 from ..utils.checkpoint import CheckpointSaver, timed_save_due, write_layout_meta
 from ..utils.ema import EmaConfig
@@ -112,11 +124,16 @@ class DiffusionTraining:
         save_checkpoint_interval_min: float = 20.0,
         weights_only_interval: int = 200_000,
         verbose: bool = True,
+        mesh=None,
         **_,
     ):
         """``export_extra``: flat arrays written into every weights-only
         export beside the denoiser and normalizers (the ``pointnerf.*``
-        weights, so an export loads into an NPCD with ``load_npz``)."""
+        weights, so an export loads into an NPCD with ``load_npz``).
+        ``mesh``: a parallel.Mesh whose device the trainer runs on."""
+        if batch_size % mesh_world(mesh):
+            raise ValueError(f"global batch_size {batch_size} must divide by the world "
+                             f"{mesh_world(mesh)}")
         self.out_dir = out_dir
         self.checkpoints_dir = os.path.join(out_dir, "checkpoints")
         self.weights_dir = os.path.join(out_dir, "weights_only_checkpoints_dir")
@@ -134,6 +151,7 @@ class DiffusionTraining:
         self.weights_only_interval = weights_only_interval
         self.verbose = verbose
         self.export_extra = dict(export_extra or {})
+        self.mesh = mesh
         self.ema_cfgs = tuple(EmaConfig.from_tuple(t) for t in (ema_params or [])) if use_ema \
             else ()
 
@@ -143,6 +161,7 @@ class DiffusionTraining:
         self.state = model.fit_normalizers(dataset.get_all_coords(), dataset.get_all_feats())
 
         self.flat = FlatParams(model.denoiser)
+        replicate([self.flat.params], mesh)
         self.fused = FusedAdamWEma(learning_rate=base_learning_rate, weight_decay=weight_decay,
                                    clip_max_norm=grad_clip_max_norm, ema_cfgs=self.ema_cfgs)
         self.adam = self.fused.init(self.flat.params)
@@ -165,7 +184,7 @@ class DiffusionTraining:
         if verbose:
             logging.info(f"DiffusionTraining: {self.flat.offsets[-1]} params, batch {batch_size}, "
                          f"max_iterations {max_iterations}, dataset size {len(dataset)}, "
-                         f"device {self.device}")
+                         f"device {self.device}, world {mesh_world(mesh)}")
 
     # -- state ---------------------------------------------------------------
 
@@ -221,30 +240,40 @@ class DiffusionTraining:
     # -- step ----------------------------------------------------------------
 
     def train_step(self, batch: Mapping[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
-        """One step on ``batch`` {coords [N, C, P], feats [N, F, P]}: loss ->
-        backward -> fused AdamW + EMA. ``draws`` = (t, coords_noise,
-        feats_noise) replaces this step's seeded draws. Returns the metrics
-        as device tensors (no sync)."""
+        """One step on ``batch`` {coords [N, C, P], feats [N, F, P]} (this
+        rank's rows under a mesh): loss -> backward -> (the gradients'
+        all-reduce) -> fused AdamW + EMA. ``draws`` = (t, coords_noise,
+        feats_noise) of the global batch replaces this step's seeded draws.
+        Returns the metrics (global under a mesh) as device tensors (no
+        sync)."""
         coords = torch.as_tensor(batch["coords"], dtype=torch.float32, device=self.device)
         feats = torch.as_tensor(batch["feats"], dtype=torch.float32, device=self.device)
         self.flat.grads.zero_()
-        generator = None
         if draws is None:
-            generator = self._generator.manual_seed(_step_seed(self.seed, self.step))
-        loss, sub_losses = self.model.compute_loss(self.state, coords, feats, generator, draws)
+            draws = global_row_draws(self.model, coords.shape[0], coords.shape[1:],
+                                     feats.shape[1:],
+                                     self._generator.manual_seed(_step_seed(self.seed, self.step)),
+                                     self.mesh)
+        else:
+            draws = shard_batch(tuple(map(torch.as_tensor, draws)), self.mesh)
+        loss, sub_losses = self.model.compute_loss(self.state, coords, feats, draws=draws)
         loss.backward()
         self.flat.check_grads()
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
+        if self.mesh is not None:
+            metrics = all_reduce_mean_(self.flat.grads, metrics, self.mesh)
         self.adam, grad_norm = self.fused.update(self.flat.grads, self.flat.params, self.adam,
                                                  self.emas, self.step)
         self.step += 1
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()},
-                "grad_norm": grad_norm}
+        return {**metrics, "grad_norm": grad_norm}
 
     # -- loop ----------------------------------------------------------------
 
     def batches(self, start: int):
-        """Batches from iteration ``start`` on, epoch after epoch."""
-        loader = BatchLoader(self.dataset, self.batch_size, self.seed)
+        """Batches (this rank's under a mesh) from iteration ``start`` on,
+        epoch after epoch."""
+        loader = BatchLoader(self.dataset, self.batch_size, self.seed, mesh_world(self.mesh),
+                             0 if self.mesh is None else self.mesh.rank)
         per_epoch = len(loader)
         if per_epoch == 0:
             raise ValueError(f"dataset of {len(self.dataset)} has no full batch of "
@@ -268,6 +297,7 @@ class DiffusionTraining:
             return self
         writer.set_max_iterations(self.max_iterations)
         it = self.step
+        main = is_main(self.mesh)
         last_ckpt_time = time.time()
         t_print = time.perf_counter()
         # the loader and the copy of the next batches run on a thread ahead
@@ -284,22 +314,24 @@ class DiffusionTraining:
                     self.history.append({"it": it, "time": now, **values})
                     logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
                                  f"grad_norm {values['grad_norm']:.5f} ({dt * 1000:.1f} ms/it)")
-                if it % self.log_scalars_interval == 0:
+                if main and it % self.log_scalars_interval == 0:
                     writer.put_scalar_dict("diffusion_train",
                                            {k: float(v) for k, v in metrics.items()}, it)
                     writer.write_out_storage()
-                if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
-                                  iteration=it):
+                if main and timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
+                                           iteration=it):
                     self.saver.save(self.state_dict(), it)
                     last_ckpt_time = time.time()
-                if it % self.weights_only_interval == 0:
+                if main and it % self.weights_only_interval == 0:
                     self._save_weights_only(it)
                 if it >= self.max_iterations:
                     break
 
-        self.saver.save(self.state_dict(), it)
-        self._save_weights_only(it)
-        self.saver.finish()  # the final snapshot is on disk before returning
+        if main:
+            self.saver.save(self.state_dict(), it)
+            self._save_weights_only(it)
+            self.saver.finish()  # the final snapshot is on disk before returning
+        barrier(self.mesh)
         return self
 
     def weights_only_paths(self, it: int) -> List[str]:

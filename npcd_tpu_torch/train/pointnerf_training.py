@@ -26,6 +26,22 @@ the step consumed with the model, Adam's state and the step, so a resumed
 run takes the same steps as an uninterrupted one. Every ``log_interval``
 steps the consumed batch's first object is rendered again in eval mode
 (``_log_qualitative``).
+
+With ``mesh`` (parallel.Mesh, data parallelism) ``batch_size`` is the
+global batch: each rank takes ``batch_size // world`` objects a step from
+its shard of the dataset (BatchLoader's strided partition), draws the
+shared pixel subset from the same generator as every other rank, and keeps
+its rows of the global feats eps, depth jitter and ray scores. Its loss is
+its share of the global loss (losses/pointnerf_loss.py), so the gradients
+are summed over the ranks: one all-reduce of a buffer that holds the feats
+table's gradient rows of this rank's objects at their places in the global
+batch ([B, P, 2F], 1 MiB at B 8, beside the rows of the other ranks, which
+are zero here), the objects' indices, the MLPs' gradients and the metrics;
+the rows are then added back into the table's gradient at the global
+batch's objects. The clip and Adam run after the reduce on every rank, so
+the parameters stay equal across ranks. Rank 0 writes the checkpoints,
+exports, scalars and qualitatives; the others wait for it at a barrier at
+the end.
 """
 from __future__ import annotations
 
@@ -42,6 +58,7 @@ from ..data import BatchLoader, collate, prefetch_to_device
 from ..losses import PointNeRFLossWeights, pointnerf_loss
 from ..models.pointnerf.embeddings import feats_mean_log_var_std
 from ..models.pointnerf.pointnerf import PointNeRF
+from ..parallel import barrier, is_main, mesh_world, replicate
 from ..utils import logging, writer
 from ..utils.checkpoint import CheckpointSaver, timed_save_due
 from ..utils.from_jax import LATENTS, save_npz
@@ -69,10 +86,15 @@ class PointNeRFTraining:
         log_interval: int = 5000,
         save_checkpoint_interval_min: float = 20.0,
         verbose: bool = True,
+        mesh=None,
         **_,
     ):
         """``model``: a PointNeRF with its latent tables (n_obj objects) and
-        ``renderer.ray_subsamples`` set (the pixels presampled per step)."""
+        ``renderer.ray_subsamples`` set (the pixels presampled per step).
+        ``mesh``: a parallel.Mesh whose device the trainer runs on."""
+        if batch_size % mesh_world(mesh):
+            raise ValueError(f"global batch_size {batch_size} must divide by the world "
+                             f"{mesh_world(mesh)}")
         self.out_dir = out_dir
         self.checkpoints_dir = os.path.join(out_dir, "checkpoints")
         self.weights_dir = os.path.join(out_dir, "weights_only_checkpoints_dir")
@@ -91,6 +113,7 @@ class PointNeRFTraining:
         self.log_interval = log_interval
         self.save_checkpoint_interval_min = save_checkpoint_interval_min
         self.verbose = verbose
+        self.mesh = mesh
 
         if model.tables is None:
             raise ValueError("PointNeRFTraining needs a PointNeRF with latent tables (n_obj)")
@@ -99,6 +122,7 @@ class PointNeRFTraining:
                              "step; full-frame training is not ported")
         self.model = model.to(self.device).train()
         model.set_all_coords(dataset.get_all_coords())  # npcd_tpu :119
+        replicate(list(model.parameters()), mesh)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=base_learning_rate,
                                           betas=(0.9, 0.999), eps=1e-8)
         self._presample_rng = np.random.default_rng(seed + 0x51D)
@@ -116,7 +140,8 @@ class PointNeRFTraining:
         if verbose:
             n_params = sum(p.numel() for p in model.parameters())
             logging.info(f"PointNeRFTraining: {n_params} trainable params, batch {batch_size}, "
-                         f"max_iterations {self.max_iterations}, device {self.device}")
+                         f"max_iterations {self.max_iterations}, device {self.device}, "
+                         f"world {mesh_world(mesh)}")
 
     # -- state ---------------------------------------------------------------
 
@@ -154,10 +179,13 @@ class PointNeRFTraining:
     def train_step(self, batch: Mapping[str, np.ndarray],
                    draws: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """One step on ``batch`` {obj_idx [B], images [B, V, H*W, 3],
-        intrinsics [B, V, 3, 3], extrinsics [B, V, 4, 4]}: presample ->
-        forward -> loss -> backward -> Adam. ``draws`` replaces draws of this
-        step (pixel_idx, feats_eps, depth_jitter, ray_scores; see
-        PointNeRF.forward). Returns the metrics as device tensors (no sync)."""
+        intrinsics [B, V, 3, 3], extrinsics [B, V, 4, 4]} (this rank's rows
+        under a mesh): presample -> forward -> loss -> backward -> (the
+        gradients' all-reduce) -> Adam. ``draws`` replaces draws of this
+        step (pixel_idx, feats_eps, depth_jitter, ray_scores, those of the
+        global batch; see PointNeRF.forward). Returns the metrics (global
+        under a mesh) and grad_norm, the global norm of the (reduced)
+        gradient before the clip, as device tensors (no sync)."""
         draws = dict(draws or {})
         images = np.asarray(batch["images"])
         pixel_idx = draws.pop("pixel_idx", None)
@@ -213,31 +241,71 @@ class PointNeRFTraining:
         self.optimizer.zero_grad(set_to_none=False)
         generator = self._generator.manual_seed(_step_seed(self.seed, self.step))
         pred, aux = self.model(feed["obj_idx"], feed["intrinsics"], feed["extrinsics"],
-                               feed["pixel_idx"], generator=generator, draws=draws)
+                               feed["pixel_idx"], generator=generator, draws=draws,
+                               mesh=self.mesh)
         loss, sub_losses = pointnerf_loss({"images": feed["images"]}, pred, aux,
-                                          self.model.opts, self.loss_weights)
+                                          self.model.opts, self.loss_weights, self.mesh)
         loss.backward()
-        if self.grad_clip_max_norm:
-            self._clip_by_global_norm(self.grad_clip_max_norm)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
+        if self.mesh is not None:
+            metrics = self._all_reduce_sum(feed["obj_idx"], metrics)
+        grads = [p.grad for p in self.model.parameters()]
+        metrics["grad_norm"] = norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        if self.grad_clip_max_norm:  # optax.clip_by_global_norm
+            scale = torch.where(norm < self.grad_clip_max_norm, torch.ones_like(norm),
+                                self.grad_clip_max_norm / norm)
+            for g in grads:
+                g.mul_(scale)
         self.optimizer.step()
         self.step += 1
         self._presample_state = feed["presample_state"]
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
+        return metrics
 
-    def _clip_by_global_norm(self, max_norm: float) -> None:
-        """optax.clip_by_global_norm: g * max_norm / |g| when |g| >= max_norm."""
-        grads = [p.grad for p in self.model.parameters()]
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        for g in grads:
-            g.mul_(scale)
+    def _all_reduce_sum(self, obj_idx: torch.Tensor, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """The gradients and ``metrics`` summed over the ranks in one
+        all-reduce -> the summed metrics. The feats table's gradient is
+        non-zero only at the global batch's objects: each rank puts the rows
+        of its objects (each once) and their indices at its places in the
+        global batch, and the summed rows are added back into a zeroed
+        table gradient at the summed indices."""
+        mesh = self.mesh
+        table = self.model.tables.feats_table
+        others = [p for p in self.model.parameters() if p is not table]
+        b = obj_idx.shape[0]
+        n_rows = b * mesh.world
+        row = table.shape[1:]
+        row_numel = table[0].numel()
+        n_other = sum(p.numel() for p in others)
+        names = list(metrics)
+        buf = torch.zeros(n_rows * row_numel + n_other + n_rows + len(names),
+                          device=table.device)
+        rows = buf[:n_rows * row_numel].view(n_rows, *row)
+        other = buf[n_rows * row_numel:n_rows * row_numel + n_other]
+        idx = buf[n_rows * row_numel + n_other:n_rows * row_numel + n_other + n_rows]
+        mine = mesh.rows(n_rows)
+        # an object twice in this rank's batch: its gradient row once
+        repeat = (obj_idx[:, None] == obj_idx[None, :]).triu(1).any(0)
+        rows[mine] = table.grad[obj_idx] * (~repeat).to(table.dtype).view(-1, *([1] * len(row)))
+        torch.cat([p.grad.reshape(-1) for p in others], out=other)
+        idx[mine] = obj_idx.to(idx.dtype)
+        buf[-len(names):] = torch.stack([metrics[k].float() for k in names])
+        mesh.all_reduce_(buf)
+        table.grad.zero_()
+        table.grad.index_put_((idx.long(),), rows, accumulate=True)
+        offset = 0
+        for p in others:
+            p.grad.copy_(other[offset:offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+        return {k: buf[len(buf) - len(names) + i] for i, k in enumerate(names)}
 
     # -- loop ----------------------------------------------------------------
 
     def index_batches(self, start: int) -> Iterator[np.ndarray]:
-        """The object indices of each batch from iteration ``start`` on,
-        epoch after epoch."""
-        loader = BatchLoader(self.dataset, self.batch_size, self.seed)
+        """The object indices of each batch (this rank's under a mesh) from
+        iteration ``start`` on, epoch after epoch."""
+        loader = BatchLoader(self.dataset, self.batch_size, self.seed, mesh_world(self.mesh),
+                             0 if self.mesh is None else self.mesh.rank)
         per_epoch = len(loader)
         if per_epoch == 0:
             raise ValueError(f"dataset of {len(self.dataset)} has no full batch of "
@@ -265,6 +333,7 @@ class PointNeRFTraining:
             return self
         writer.set_max_iterations(self.max_iterations)
         it = self.step
+        main = is_main(self.mesh)
         last_ckpt_time = time.time()
         t_print = time.perf_counter()
         try:
@@ -280,14 +349,14 @@ class PointNeRFTraining:
                         self.history.append({"it": it, "time": now, **values})
                         logging.info(f"iter {it}/{self.max_iterations} loss {values['loss']:.5f} "
                                      f"({dt * 1000:.1f} ms/it)")
-                    if it % self.log_scalars_interval == 0:
+                    if main and it % self.log_scalars_interval == 0:
                         writer.put_scalar_dict("pointnerf_train",
                                                {k: float(v) for k, v in metrics.items()}, it)
                         writer.write_out_storage()
-                    if self.log_interval and it % self.log_interval == 0:
+                    if main and self.log_interval and it % self.log_interval == 0:
                         self._log_qualitative(feed, it)
-                    if timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
-                                      iteration=it):
+                    if main and timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
+                                               iteration=it):
                         self.saver.save(self.state_dict(), it)
                         last_ckpt_time = time.time()
                     if it >= self.max_iterations:
@@ -296,9 +365,11 @@ class PointNeRFTraining:
             # the prefetch thread drew ahead; rewind to the last consumed draw
             self._presample_rng.bit_generator.state = json.loads(self._presample_state)
 
-        self.saver.save(self.state_dict(), it)
-        self.save_weights_only(self.weights_only_path(it))
-        self.saver.finish()  # the final snapshot is on disk before returning
+        if main:
+            self.saver.save(self.state_dict(), it)
+            self.save_weights_only(self.weights_only_path(it))
+            self.saver.finish()  # the final snapshot is on disk before returning
+        barrier(self.mesh)
         return self
 
     def _log_qualitative(self, feed: Mapping[str, Any], it: int) -> None:

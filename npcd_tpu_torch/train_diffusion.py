@@ -18,16 +18,19 @@ which every weights-only export carries on, so that
         --out runs/samples --weights \\
         runs/diffusion/weights_only_checkpoints_dir/npcd-ema_<...>-iter-<n>.npz
 
-generates from what it trained (sampling in f32). ``--tp > 1`` and
-``--mesh`` are not ported yet and raise NotImplementedError; ``--platform``
-chooses a JAX backend and is refused.
+generates from what it trained (sampling in f32). ``--mesh`` trains data
+parallel, one process a card (parallel/mesh.py): under a launcher's
+environment (``python -m torch.distributed.run --nproc-per-node N -m
+npcd_tpu_torch.train_diffusion --mesh ...``) it joins that group; alone it
+starts one worker a visible card (a group of one on one card or with
+``--device cpu``). The config's batch_size is the global batch, and rank 0
+writes the outputs. ``--tp > 1`` (tensor parallelism) is not ported yet and
+raises NotImplementedError; ``--platform`` chooses a JAX backend and is
+refused.
 """
 from __future__ import annotations
 
 import argparse
-import os
-import os.path as osp
-import sys
 
 import numpy as np
 
@@ -56,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--exp_id", type=str, help="Experiment ID.")
     p.add_argument("--comment", type=str, help="Comment for the experiment.")
     p.add_argument("--tp", type=int, default=1, help="Tensor-parallel degree (1 only).")
-    p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--mesh", action="store_true",
+                   help="Data parallelism over every visible card (or the launcher's group).")
     p.add_argument("--platform", type=str, default=None,
                    help="A JAX backend flag; the port refuses it (use --device).")
     p.add_argument("--device", default="cuda")
@@ -82,30 +86,22 @@ def load_pointnerf_weights(path: str, num_points: int, feats_dim: int):
 def train(args, config=None):
     """Build and run the trainer as the CLI does; ``config`` replaces the
     file's (a loaded config dict, e.g. with overrides) -> the trainer."""
-    from .generate_samples import _device, exact_f32
+    from .eval_diffusion import close_output, open_output, start
+    from .parallel import is_main
     from .train import DiffusionTraining
-    from .utils import logging, writer
+    from .utils import logging
     from .utils.builders import build_diffusion_model, torch_dtype
     from .utils.config import load_config, print_config
 
-    if args.platform:
-        raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
-                         "takes --device cuda or --device cpu")
-    if args.tp > 1 or args.mesh:
-        raise NotImplementedError("--tp > 1 and --mesh: multi-GPU training is ROADMAP Queue 1 "
-                                  "item 7 ('Data parallelism'); tensor parallelism is not "
-                                  "planned (the note under that item)")
-    exact_f32()
-    device = _device(args.device)
-    os.makedirs(args.output, exist_ok=True)
-    logging.add_log_file(osp.join(args.output, "log.txt"))
-    with open(osp.join(args.output, "cmd.txt"), "a") as f:
-        f.write(" ".join(sys.argv) + "\n")
-    writer.setup_writers(args.output, tensorboard=not args.no_tensorboard, wandb=args.wandb,
-                         exp_id=args.exp_id, comment=args.comment)
+    if args.tp > 1:
+        raise NotImplementedError("--tp > 1: tensor parallelism is ROADMAP Queue 1 item 9 "
+                                  "('Tensor parallelism'), not ported yet")
+    device, mesh = start(args)
+    open_output(args, args.output, mesh)
     try:
         config = config if config is not None else load_config(args.config)
-        print_config(config)
+        if is_main(mesh):
+            print_config(config)
         m = config["model"]
         dataset, pointnerf = load_pointnerf_weights(args.pointnerf_weights, m["num_points"],
                                                     m["feats_dim"])
@@ -114,13 +110,25 @@ def train(args, config=None):
         model = build_diffusion_model(config, dtype=torch_dtype(dtype), remat=remat)
         training = DiffusionTraining(out_dir=args.output, model=model,
                                      dataset=dataset, seed=args.seed, device=device,
-                                     export_extra=pointnerf, **config["diffusion_training"])
+                                     export_extra=pointnerf, mesh=mesh,
+                                     **config["diffusion_training"])
         training()
     finally:
-        writer.close_writers()
-        logging.remove_log_file(osp.join(args.output, "log.txt"))
+        close_output(args.output, mesh)
     return training
 
 
+def main(argv=None):
+    """The command line -> the trainer. ``--mesh`` alone on several cards
+    starts a worker a card, each running this again under the launcher's
+    environment, and -> None."""
+    from .parallel import spawn_cli
+
+    args = parse_args(argv)
+    if args.mesh and spawn_cli(main, argv, args.device):
+        return None
+    return train(args)
+
+
 if __name__ == "__main__":
-    train(parse_args())
+    main()

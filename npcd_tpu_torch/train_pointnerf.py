@@ -19,16 +19,14 @@ generation read:
         --output runs/diffusion --dtype float32 --device cpu --pointnerf_weights \\
         runs/pointnerf/weights_only_checkpoints_dir/pointnerf-iter-<n>.npz
 
-``--mesh`` (data parallelism) is not ported yet and raises
-NotImplementedError; ``--platform`` chooses a JAX backend and is refused.
+``--mesh`` trains data parallel, one process a card, as train_diffusion's
+does (the config's batch_size is the global batch; rank 0 writes);
+``--platform`` chooses a JAX backend and is refused.
 """
 from __future__ import annotations
 
 import argparse
-import os
-import os.path as osp
 import random
-import sys
 
 
 def parse_args(argv=None):
@@ -44,7 +42,8 @@ def parse_args(argv=None):
                    help="Log to Weights & Biases (requires the wandb package).")
     p.add_argument("--exp_id", type=str, help="Experiment ID.")
     p.add_argument("--comment", type=str, help="Comment for the experiment.")
-    p.add_argument("--mesh", action="store_true", help="Data parallelism (not ported yet).")
+    p.add_argument("--mesh", action="store_true",
+                   help="Data parallelism over every visible card (or the launcher's group).")
     p.add_argument("--platform", type=str, default=None,
                    help="A JAX backend flag; the port refuses it (use --device).")
     p.add_argument("--device", default="cuda")
@@ -55,32 +54,21 @@ def train(args, config=None, dataset=None):
     """Build and run the trainer as the CLI does; ``config`` replaces the
     file's (a loaded config dict, e.g. with overrides) and ``dataset`` the
     config's dataset -> the trainer."""
-    from .generate_samples import _device, exact_f32
+    import torch
+
+    from .eval_diffusion import close_output, open_output, start
     from .losses import PointNeRFLossWeights
+    from .parallel import is_main
     from .train import PointNeRFTraining
-    from .utils import logging, writer
     from .utils.builders import build_dataset, build_pointnerf
     from .utils.config import load_config, print_config
 
-    if args.platform:
-        raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
-                         "takes --device cuda or --device cpu")
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-GPU training is ROADMAP Queue 1 item 7 ('Data "
-                                  "parallelism')")
-    import torch
-
-    exact_f32()
-    device = _device(args.device)
-    os.makedirs(args.output, exist_ok=True)
-    logging.add_log_file(osp.join(args.output, "log.txt"))
-    with open(osp.join(args.output, "cmd.txt"), "a") as f:
-        f.write(" ".join(sys.argv) + "\n")
-    writer.setup_writers(args.output, tensorboard=not args.no_tensorboard, wandb=args.wandb,
-                         exp_id=args.exp_id, comment=args.comment)
+    device, mesh = start(args)
+    open_output(args, args.output, mesh)
     try:
         config = config if config is not None else load_config(args.config)
-        print_config(config)
+        if is_main(mesh):
+            print_config(config)
         if dataset is None:
             dataset = build_dataset(config, view_rng=random.Random(args.seed))
         training = PointNeRFTraining(
@@ -90,13 +78,24 @@ def train(args, config=None, dataset=None):
             loss_weights=PointNeRFLossWeights(image_reconstruction=1.0,
                                               neural_point_cloud_kl=1e-7,
                                               neural_point_cloud_tv=3.5e-7),
-            seed=args.seed, device=device, **config["pointnerf_training"])
+            seed=args.seed, device=device, mesh=mesh, **config["pointnerf_training"])
         training()
     finally:
-        writer.close_writers()
-        logging.remove_log_file(osp.join(args.output, "log.txt"))
+        close_output(args.output, mesh)
     return training
 
 
+def main(argv=None):
+    """The command line -> the trainer. ``--mesh`` alone on several cards
+    starts a worker a card, each running this again under the launcher's
+    environment, and -> None."""
+    from .parallel import spawn_cli
+
+    args = parse_args(argv)
+    if args.mesh and spawn_cli(main, argv, args.device):
+        return None
+    return train(args)
+
+
 if __name__ == "__main__":
-    train(parse_args())
+    main()

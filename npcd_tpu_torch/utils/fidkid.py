@@ -14,7 +14,7 @@ pickle {mean, cov, feats_np}.
 from __future__ import annotations
 
 import pickle
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -129,6 +129,21 @@ class FIDKID:
         """images [N, H, W, 3] in [0, 1], as the extractor takes them."""
         feats = self.extract(images)
         (self._fake_feats if kind == "fakes" else self._real_feats).append(feats)
+
+    def gather_fakes(self, mesh, objects: List[int], rows_per_object: int) -> None:
+        """Every rank's fake features to rank 0, in the global object order
+        (data parallelism): ``objects`` names the object of each group of
+        ``rows_per_object`` features this rank fed, in feed order. Rank 0's
+        features are then those of one process over all the objects."""
+        feats = np.concatenate(self._fake_feats, 0) if self._fake_feats else None
+        parts = mesh.gather_objects((objects, feats), to_main=True)
+        if parts is None:
+            return
+        rows = {}
+        for objs, f in parts:
+            for i, idx in enumerate(objs):
+                rows[idx] = f[i * rows_per_object:(i + 1) * rows_per_object]
+        self._fake_feats = [np.concatenate([rows[i] for i in sorted(rows)], 0)]
 
     def summary(self, seed: Optional[int] = None) -> Dict[str, float]:
         if self.real_feats_np is None:

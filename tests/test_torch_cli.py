@@ -2,8 +2,8 @@
 ``generate_samples`` requires ``--weights`` and renders with the config's
 ``render_config.validity`` unless ``--validity`` overrides it, and
 ``train_diffusion`` and ``generate_samples`` accept ``--platform`` (a JAX
-backend flag) only to refuse it; ``generate_samples --mesh`` raises
-NotImplementedError until data parallelism is ported.
+backend flag) only to refuse it; ``generate_samples --mesh`` on two gloo
+ranks writes what the run without it writes.
 
 The render test runs ``generate_samples`` on configs/npcd_synthetic_tiny.yaml
 (validity 'knn' by npcd_tpu's default) from weights bridged from npcd_tpu,
@@ -126,11 +126,43 @@ def test_train_diffusion_refuses_platform(tmp_path):
     assert not any(tmp_path.iterdir())  # refused before it wrote anything
 
 
-@pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError),
-                                        (["--mesh"], NotImplementedError)])
+@pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError)])
 def test_generate_refuses_jax_flags(tmp_path, flag, error):
     out = tmp_path / "out"
     with pytest.raises(error, match=flag[0]):
         generate_main(["--config", CONFIG, "--out", str(out), "--weights", "x.npz",
                        "--device", "cpu", *flag])
     assert not out.exists()  # refused before it wrote anything
+
+
+def test_generate_mesh_on_two_ranks(tmp_path):
+    """generate_samples --mesh on 2 gloo ranks (a launcher's environment),
+    3 samples in batches of 2 (the tail of 1 runs whole on each rank), with
+    --trajectory-stride, --swap and --render: rank 0 writes samples.npz and
+    the PNGs, and they equal the run without --mesh (the samples and the
+    trajectory within tests/test_torch_generation.py's 1e-4; the images
+    rendered from them)."""
+    import os
+
+    from npcd_tpu_torch.generate_samples import write_seeded_weights
+    from torch_parallel_worker import run_ranks
+
+    weights = write_seeded_weights(CONFIG, str(tmp_path / "seeded.npz"))
+    argv = ["--config", CONFIG, "--weights", weights, "--num", "3", "--batch-size", "2",
+            "--trajectory-stride", "500", "--swap", "2", "--render", "1", "--poses",
+            "data/srncars_test_poses.npy", "--intrinsics", "data/srncars_test_intrinsics.npy",
+            "--resolution", "16", "--device", "cpu"]
+    outs = run_ranks("npcd_tpu_torch.generate_samples",
+                     argv + ["--out", tmp_path / "dp", "--mesh"])
+    assert "saved 3 point clouds" in outs[0] and "saved" not in outs[1]  # rank 0 writes
+    generate_main(argv + ["--out", str(tmp_path / "one")])
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert sorted(os.listdir(tmp_path / "dp")) == names == ["sample0000.png", "samples.npz",
+                                                            "swap_grid.png"]
+    with np.load(tmp_path / "dp" / "samples.npz") as a, \
+            np.load(tmp_path / "one" / "samples.npz") as b:
+        assert set(a.files) == set(b.files) == {"coords", "feats", "trajectory_coords",
+                                                "trajectory_feats"}
+        for k in b.files:
+            assert a[k].shape == b[k].shape, k
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-4, err_msg=k)

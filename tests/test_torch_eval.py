@@ -21,13 +21,15 @@ FID/KID (DiffusionEvaluation), in three stages:
 Then the files, the idempotent skip, overlapped == serial bitwise, the host
 feed, a failing extractor on the worker thread, and render_dtype bfloat16
 above 40 dB cross-PSNR of the f32 render (npcd_tpu's
-test_fid_eval_bf16_render).
+test_fid_eval_bf16_render), and the eval on two gloo ranks (mesh=) against
+the eval in one process.
 
 PSNR (PointNeRFEvaluation) on SyntheticNPCTrain (4 objects, 2 views, 16²),
 validity 'knn' (npcd_tpu's default) with the radius margins asserted:
 the same rows, each view's PSNR within the change in PSNR that renders
 within 1e-4 can make (Minkowski: |rmse_a - rmse_b| <= 1e-4, so the PSNRs
-differ by at most 20 log10(1 + 1e-4 / rmse)), the summary and the skip."""
+differ by at most 20 log10(1 + 1e-4 / rmse)), the summary and the skip;
+then the eval on two gloo ranks (mesh=) against the eval in one process."""
 import dataclasses
 import json
 import pickle
@@ -303,7 +305,6 @@ def test_eval_bf16_render(setup):
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(mesh=object()), NotImplementedError),
     (dict(feature_extractor="inception_jax:w.h5"), ValueError),
     (dict(feature_extractor="mystery"), ValueError),
     (dict(feature_extractor=None, inception_path="missing.pt"), FileNotFoundError)])
@@ -421,6 +422,57 @@ def test_psnr_eval_matches_jax(tmp_path):
     assert set(some["summary"]) == {"psnr"}
 
 
-def test_psnr_eval_refuses_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PointNeRFEvaluation(mesh=object())
+@pytest.fixture(scope="module")
+def mesh_runs(setup, tmp_path_factory):
+    """Both evals on 2 gloo ranks (tests/torch_parallel_worker.py): the FID
+    eval of npcd_tpu's two clouds (fed by object id), the PSNR eval at
+    eval_batch_size 2 (each call's two views sharded)."""
+    from torch_parallel_worker import run_group
+
+    s = setup
+    tmp = tmp_path_factory.mktemp("mesh")
+    _, _, _, pn = _psnr_models()
+    ds = SyntheticNPCTrain(n_obj=4, num_views=2, image_size=RES, num_points=P)
+    ranks = run_group({
+        "fid": ("fid_eval", dict(model=s["model"], state=s["state"], kw=_kw(s),
+                                 clouds=(s["coords"], s["feats"]), out_dir=str(tmp / "fid"),
+                                 kid_seed=0)),
+        "psnr": ("psnr_eval", dict(model=pn, dataset=ds, eval_batch_size=2, resolution=RES,
+                                   out_dir=str(tmp / "psnr")))}, tmp)
+    return {"ranks": ranks, "tmp": tmp, "pn": pn, "ds": ds}
+
+
+def test_eval_mesh_on_two_ranks(setup, mesh_runs, tmp_path):
+    """DiffusionEvaluation(mesh=) on 2 ranks: every rank's results equal the
+    eval in one process on the same clouds within npcd_tpu's DP tolerance
+    (rtol 1e-4, atol 1e-5), and rank 0 wrote the files once."""
+    from torch_parallel_worker import ids_noise, stub_generate
+
+    s = setup
+    ev = _port_eval(s, out_dir=str(tmp_path / "one"))
+    ev.generate = stub_generate((s["coords"], s["feats"]))
+    want = ev(s["model"], s["state"], noise=ids_noise(), kid_seed=0)
+    for r in mesh_runs["ranks"]:
+        got = r["fid"]["results"]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    out = mesh_runs["tmp"] / "fid"
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        p.name for p in (tmp_path / "one").iterdir())
+
+
+def test_psnr_eval_mesh_on_two_ranks(mesh_runs, tmp_path):
+    """PointNeRFEvaluation(mesh=) on 2 ranks: every rank's rows equal the eval
+    in one process (PSNR within 1e-5), and rank 0 wrote the files once."""
+    want = PointNeRFEvaluation(str(tmp_path / "one"), eval_batch_size=2, verbose=False)(
+        mesh_runs["ds"], mesh_runs["pn"], qualitatives=1, resolution=RES)
+    for r in mesh_runs["ranks"]:
+        got = r["psnr"]
+        assert [(x["obj_idx"], x["view"]) for x in got["rows"]] == [
+            (x["obj_idx"], x["view"]) for x in want["rows"]]
+        np.testing.assert_allclose([x["psnr"] for x in got["rows"]],
+                                   [x["psnr"] for x in want["rows"]], rtol=1e-5)
+    out = mesh_runs["tmp"] / "psnr"
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        p.name for p in (tmp_path / "one").iterdir())

@@ -5,11 +5,11 @@ object, summary.csv) and ``eval_diffusion`` on stage 2's EMA export
 (finite fid, fid_mean, fid_cov, kid in results.json and results.csv); a
 second run of each skips. The real-stats pickle is written under the test's
 own tmp_path and a copy of the config points at it (npcd_tpu's tests use
-the config's /tmp path). Both refuse --platform (ValueError) and --mesh
-(NotImplementedError) before they write anything, as tests/test_torch_cli.py
-holds the other CLIs, and both take every --matmul_precision: its value
-reaches the render config (nothing for "default") and the renders run
-under it."""
+the config's /tmp path). Both refuse --platform (ValueError) before they
+write anything, as tests/test_torch_cli.py holds the other CLIs; both run
+with --mesh on two gloo ranks, rank 0 writing the results of the run
+without it; and both take every --matmul_precision: its value reaches the
+render config (nothing for "default") and the renders run under it."""
 import json
 import pickle
 
@@ -107,14 +107,41 @@ def test_eval_diffusion_cli(exports, tmp_path):
 
 
 @pytest.mark.parametrize("cli", [eval_diffusion, eval_pointnerf])
-@pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError),
-                                        (["--mesh"], NotImplementedError)])
+@pytest.mark.parametrize("flag,error", [(["--platform", "cpu"], ValueError)])
 def test_eval_clis_refuse(tmp_path, cli, flag, error):
     out = tmp_path / "out"
     with pytest.raises(error, match=flag[0]):
         cli.evaluate(cli.parse_args(["--config", CONFIG, "--weights", "x.npz", "--output",
                                      str(out), "--device", "cpu", *flag]))
     assert not out.exists()  # refused before it wrote anything
+
+
+@pytest.mark.parametrize("cli", [eval_diffusion, eval_pointnerf])
+def test_eval_clis_mesh_on_two_ranks(exports, tmp_path, cli):
+    """The CLI with --mesh on 2 gloo ranks (a launcher's environment): rank
+    0 writes one results.json, equal to the run without --mesh within
+    npcd_tpu's DP tolerances (FID/KID rtol 1e-4, atol 1e-5; PSNR 1e-5)."""
+    from torch_parallel_worker import assert_one_writer, run_ranks
+
+    _, pn_npz, ema_npz = exports
+    if cli is eval_diffusion:
+        argv = ["--config", _fid_config(tmp_path), "--weights", ema_npz, "--seed", "3"]
+    else:
+        argv = ["--config", CONFIG, "--weights", pn_npz, "--eval_batch_size", "2"]
+    argv += ["--device", "cpu", "--no_tensorboard"]
+    run_ranks(cli.__name__, argv + ["--output", tmp_path / "dp", "--mesh"])
+    assert_one_writer(tmp_path / "dp")
+    want = cli.evaluate(cli.parse_args(argv + ["--output", str(tmp_path / "one")]))
+    got = json.loads((tmp_path / "dp" / "results.json").read_text())
+    if cli is eval_diffusion:
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    else:
+        assert [(r["obj_idx"], r["view"]) for r in got["rows"]] == [
+            (r["obj_idx"], r["view"]) for r in want["rows"]]
+        np.testing.assert_allclose([r["psnr"] for r in got["rows"]],
+                                   [r["psnr"] for r in want["rows"]], rtol=1e-5)
 
 
 @pytest.mark.parametrize("cli", [eval_diffusion, eval_pointnerf])

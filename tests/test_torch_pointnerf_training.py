@@ -422,11 +422,48 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     from npcd_tpu_torch.train_pointnerf import parse_args, train
 
     base = ["--config", CONFIG, "--output", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        train(parse_args(base + ["--device", "cpu", "--mesh"]))
     with pytest.raises(ValueError, match="JAX backend"):
         train(parse_args(base + ["--device", "cpu", "--platform", "cpu"]))
     assert parse_args(base).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             train(parse_args(base))
+        with pytest.raises(RuntimeError, match="no GPU"):
+            train(parse_args(base + ["--mesh"]))
+
+
+def test_cli_mesh_on_two_ranks(tmp_path):
+    """train_pointnerf --mesh on 2 gloo ranks (a launcher's environment):
+    rank 0 writes one run, whose export equals the port's one-process steps
+    on the same global batches (each rank's BatchLoader shard, rank 0's rows
+    first; the same seeded draws of the global batch) within npcd_tpu's DP
+    tolerance (rtol 1e-4, atol 1e-6)."""
+    import random
+
+    from npcd_tpu_torch.utils.builders import build_dataset
+    from torch_parallel_worker import assert_one_writer, global_batches, run_ranks
+
+    config = load_config(CONFIG)
+    out = tmp_path / "dp"
+    run_ranks("npcd_tpu_torch.train_pointnerf",
+              ["--config", CONFIG, "--output", out, "--device", "cpu", "--no_tensorboard",
+               "--mesh"], cwd=tmp_path)
+    assert_one_writer(out)
+    t = config["pointnerf_training"]
+    steps = config["model"]["n_obj"] // t["batch_size"] * t["max_epochs"]
+    assert sorted(os.listdir(out / "checkpoints")) == [
+        f"pointnerf_training-iter-{steps:09d}", f"pointnerf_training-iter-{steps:09d}.layout.json"]
+
+    ds = build_dataset(config, view_rng=random.Random(42))
+    single = PointNeRFTraining(str(tmp_path / "single"), build_pointnerf(
+        config, torch.Generator().manual_seed(42), with_tables=True), ds,
+        loss_weights=PointNeRFLossWeights(1.0, 1e-7, 3.5e-7), seed=42, device="cpu",
+        verbose=False, **t)
+    for idx in global_batches(ds, t["batch_size"], 42, 2, steps):
+        single.train_step(ds.batch(idx))
+    single.save_weights_only(str(tmp_path / "single.npz"))
+    with np.load(out / "weights_only_checkpoints_dir" / f"pointnerf-iter-{steps:09d}.npz") as z, \
+            np.load(tmp_path / "single.npz") as w:
+        assert set(z.files) == set(w.files)
+        for k in w.files:
+            np.testing.assert_allclose(z[k], w[k], rtol=1e-4, atol=1e-6, err_msg=k)

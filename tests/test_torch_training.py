@@ -379,6 +379,46 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
     base = ["--config", "x.yaml", "--output", str(tmp_path), "--pointnerf_weights", "x.npz",
             "--device", "cpu"]
-    for extra in (["--tp", "2"], ["--dtype", "float32", "--mesh"]):
-        with pytest.raises(NotImplementedError):
-            train(parse_args(base + extra))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        train(parse_args(base + ["--tp", "2"]))
+
+
+def test_cli_mesh_on_two_ranks(tmp_path):
+    """train_diffusion --mesh on 2 gloo ranks (a launcher's environment):
+    rank 0 writes one run, whose export equals the port's one-process
+    steps on the same global batches (each rank's BatchLoader shard, rank 0's
+    rows first) within npcd_tpu's DP tolerance (rtol 1e-4, atol 1e-6)."""
+    from npcd_tpu_torch.utils.builders import build_diffusion_model
+    from torch_parallel_worker import assert_one_writer, global_batches, run_ranks
+
+    cfg = os.path.join(ROOT, "configs/npcd_synthetic_tiny.yaml")
+    config = load_config(cfg)
+    m = config["model"]
+    npcd = NPCD.from_config(config)
+    rng = np.random.default_rng(0)
+    flat = {f"pointnerf.{k}": v.numpy() for k, v in npcd.pointnerf.state_dict().items()}
+    flat["latents.coords_table"] = rng.uniform(-0.5, 0.5, (m["n_obj"], m["num_points"], 3))
+    flat["latents.feats_table"] = rng.normal(size=(m["n_obj"], m["num_points"], m["feats_dim"]))
+    save_npz(str(tmp_path / "pointnerf.npz"), flat)
+    out = tmp_path / "dp"
+    run_ranks("npcd_tpu_torch.train_diffusion",
+              ["--config", cfg, "--output", out, "--pointnerf_weights", tmp_path / "pointnerf.npz",
+               "--dtype", "float32", "--device", "cpu", "--no_tensorboard", "--mesh"],
+              cwd=tmp_path)
+    assert_one_writer(out)
+    steps = config["diffusion_training"]["max_iterations"]
+    assert sorted(os.listdir(out / "checkpoints")) == [
+        f"diffusion_training-iter-{steps:09d}", f"diffusion_training-iter-{steps:09d}.layout.json"]
+
+    dataset, _ = load_pointnerf_weights(str(tmp_path / "pointnerf.npz"), m["num_points"],
+                                        m["feats_dim"])
+    single = DiffusionTraining(str(tmp_path / "single"), build_diffusion_model(config),
+                               dataset, seed=42, device="cpu", verbose=False,
+                               **config["diffusion_training"])
+    loader = BatchLoader(dataset, single.batch_size)
+    for idx in global_batches(dataset, single.batch_size, 42, 2, steps):
+        single.train_step(loader.batch(idx))
+    with np.load(out / "weights_only_checkpoints_dir" / f"npcd-iter-{steps:09d}.npz") as z:
+        for name, v in single.flat.as_dict(single.flat.params).items():
+            np.testing.assert_allclose(z[f"diffusion.denoiser.{name}"], v.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
