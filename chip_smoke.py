@@ -136,12 +136,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
  17. GPU vs CPU, bf16: phase 7 with the bf16 denoiser and remat, then the
      card's step in f32 against the CPU's bf16 step, a control that must
      fail at least one of the bf16 limits;
- 18. launch counts, checked after phase 26: every kernel must have launched
-     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23, 24, 25 or 26, each
-     kernel of a path during that path ("generation", "training", "bf16
+ 18. launch counts, checked after phase 27: every kernel must have launched
+     during phase 5, 6, 9, 12, 15, 16, 19, 20, 21, 22, 23, 24, 25, 26 or 27,
+     each kernel of a path during that path ("generation", "training", "bf16
      training", "stage 1", "fast stage 1", "attention", "fid eval", "psnr
      eval", "srn fast stage 1", "reference weights", "options V", "options
-     O", "D", and phase 26's five DP paths); the bf16
+     O", "D", phase 26's five DP paths, and phase 27's "tp stage 2" and
+     "sharded fast stage 1"); the bf16
      launches of K1, K2, K6 and K8 are counted apart from the f32 ones, and
      so are the forms of phases 23-24: K4 at a k other than 8, K6 by posenc
      method and its no-reduction form, K7 at an input other than 256 wide
@@ -282,7 +283,29 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      samples within 1e-4 of phase 5's when it ran), eval_diffusion (2
      samples x 8 SRN test poses at 128^2, the denoiser at full width and 2
      blocks); finite outputs and the files; each worker returns its launch
-     counts to the parent.
+     counts to the parent. The peak device memory of a run of steps is read
+     after the steps, before the parameters are gathered for the checks.
+ 27. tensor parallelism and row-sharded tables (npcd_tpu_torch/parallel's
+     tp.py, tp_step.py, pointnerf_sharding.py), paths "tp stage 2" and
+     "sharded fast stage 1": (c) K1f/K1b as a model rank of tp 2 launches
+     them, 8 heads in one layout group over qkv [32*520, 1536], in f32 (also
+     against float64) and bf16, held against their plain versions as phases
+     4 and 14 hold the 16-head form, timed beside it; then two gloo ranks
+     sharing the card against phase 26's one-process runs on the same
+     batches and draws: (a) 3 bf16 stage-2 steps at full width with tp 2
+     (dp 1), held to phase 26's stage-2 limits, the ranks' replicated
+     parameters bitwise equal, with the count, bytes and ms of the model
+     group's reduces a step, peak memory a rank and steps/s; (b) 3 f32
+     steps at full width and 2 blocks with tp 2 against one process (loss
+     within 1e-5 relative, grad_norm 1e-4); (d) 3 fast stage-1 steps with
+     the tables row-sharded (2347 objects: 1174 + 1173 rows), held to phase
+     26's stage-1 limits, with the tables' and moments' bytes and the peak a
+     rank beside phase 26's replicated-table ranks; (e) python -m
+     npcd_tpu_torch.train_diffusion --tp 2 through main(argv) in the two
+     ranks' group (bf16, full width, 2 blocks, 3 steps): a tp=1 trainer
+     restores its checkpoint (step 3, the parameters bitwise its export's),
+     and --tp 2 over NCCL on the one card raises "tp=2 does not divide
+     device count 1". Prints the phase's seconds.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -372,6 +395,7 @@ from npcd_tpu_torch.utils.util import psnr  # noqa: E402
 from min_d2_filter import hard_min_d2_inputs  # noqa: E402
 from reference_checkpoint import reference_forward, reference_state  # noqa: E402
 from srn_fixture import VIEWS, fixture_image, write_srn_tree  # noqa: E402
+from tp_split_control import split_products  # noqa: E402
 
 # the generation CLI's required --out (run() itself writes no files); the
 # training path writes its checkpoints and exports under OUT / "train"
@@ -532,6 +556,11 @@ REFERENCE_WEIGHTS = ("fused_qkv_attention", "layer_norm", "layer_norm_residual",
 # of batch 8), blocks of the FID eval's denoiser (full width, depth cut)
 # and its poses; the DP evals' paths
 DP_STEPS, DP_CLI_STEPS, DP_STAGE1_OBJECTS, DP_EVAL_LAYERS, DP_FID_POSES = 3, 5, 16, 2, 8
+# _dp_steps's keys other than the step's metrics
+REDUCE_KEYS = ("s", "reduce_bytes", "reduce_ms", "model_reduces", "model_bytes", "model_ms")
+# phase 27: the f32 check's depth (full width) and the --tp 2 CLI's steps
+# and depth
+TP_F32_LAYERS, TP_CLI_STEPS, TP_CLI_LAYERS = 2, 3, 2
 # phase 26 (a): each metric's limit, relative, of two ranks against one
 # process: 100 times the largest reading of the H100 runs (PERF.md §6),
 # but 10 times stage 1's grad_norm reading of 1.96e-3 (100 times would pass
@@ -954,58 +983,7 @@ def phase_train_kernels() -> dict:
         library_fn = y_lib = None
     del x, d, gy, gr, r_k, y_k, mean_k, rstd_k, r_p, y_p, mean_p, rstd_p
 
-    # K1f with its base-2 lse, then K1b: qkv [32*520, 3072], G 2, 513 valid
-    # keys, the cotangent zero on pad-query rows as the denoiser's; each
-    # side's backward reads its own forward's out and lse. Every row of out
-    # is compared: pad-query rows attend to the valid keys like the others
-    # and feed c_proj's weight gradient. f32 online softmax vs torch's, sums
-    # over 513 keys: out and dqkv within 1e-4 of max(1, max|plain|), the lse
-    # (~10) within 1e-5 of it
-    qkv = 0.5 * randn(b * s, 3 * w)
-    dout = randn(b * s, w)
-    dout.reshape(b, s, w)[:, valid:] = 0
-    fargs = (qkv, h, b, s, valid, 2)
-    fwd = lambda: fused_qkv_attention_fwd(*fargs)
-    fwd_plain = lambda: fused_qkv_attention_plain(*fargs, return_lse=True)
-    (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
-    err, tol = _worst([(out_k, out_p, 1e-4), (lse_k, lse_p, 1e-5)])
-    # the f32 stage-2 step's K1f row: 3xTF32, out and lse also against
-    # float64; the library call is scaled_dot_product_attention in f32
-    q, k, v = _bhsd(qkv, b, s, h, 2)
-    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
-    check("fused_qkv_attention (with lse)", err, tol, fwd, fwd_plain,
-          extra=_k1f_vs_f64("fused_qkv_attention (with lse)", fargs),
-          flops=4 * b * h * s * valid * 64, nbytes=4 * (qkv.numel() + qkv.numel() // 3),
-          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask),
-          tf32=True)
-    del q, k, v
-    bwd = lambda: fused_qkv_attention_bwd(qkv, out_k, lse_k, dout, h, b, s, valid, 2)
-    bwd_plain = lambda: fused_qkv_attention_bwd_plain(qkv, out_p, lse_p, dout, h, b, s, valid, 2)
-    got, want = bwd(), bwd_plain()
-    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, 2)
-    pad_nonzero = int((dq[:, valid:] != 0).sum() + (dk[:, valid:] != 0).sum()
-                      + (dv[:, valid:] != 0).sum())
-    if pad_nonzero or not torch.isfinite(got).all():
-        raise AssertionError(f"fused_qkv_attention_bwd: {pad_nonzero} nonzero pad-row "
-                             "dq/dk/dv values or non-finite dqkv")
-    err, tol = _worst([(got, want, 1e-4)])
-    exact = split_grouped_qkv(_fqa_bwd_f64(qkv, dout, h, b, s, valid, 2).reshape(b, s, -1), h, 2)
-    parts = lambda x: split_grouped_qkv(x.reshape(b, s, -1), h, 2)
-    errs = lambda x: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(parts(x), exact))
-    flops = 10 * b * h * s * valid * 64
-    extra = (f" pad-row dq/dk/dv all 0; vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
-             f"{_f64_gate('fused_qkv_attention_bwd', parts(got), exact)}, f32 plain "
-             f"{errs(want)}")
-    del exact
-    # the library call: autograd's backward of scaled_dot_product_attention
-    q, k, v = _bhsd(qkv, b, s, h, 2, grad=True)
-    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
-    o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
-    do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
-    check("fused_qkv_attention_bwd", err, tol, bwd, bwd_plain, extra=extra, flops=flops,
-          nbytes=4 * (2 * qkv.numel() + 2 * dout.numel() + lse_k.numel()), tf32=True,
-          library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
-    del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
+    _k1_f32_checks(check, randn, b, s, h, w, valid, 2)
 
     # K3: one [4096, 1024] leaf, then the whole denoiser (its 302M
     # parameters as one flat buffer, one EMA). Elementwise f32 with an ulp
@@ -1038,6 +1016,68 @@ def phase_train_kernels() -> dict:
     results["adamw_ema"] = results.pop(f"adamw_ema ({n_full} params)")
     torch.cuda.empty_cache()
     return results
+
+
+def _k1_f32_checks(check, randn, b: int, s: int, h: int, w: int, valid: int, groups: int,
+                   suffix: str = "") -> None:
+    """The f32 K1f (with its lse) and K1b against their plain versions and
+    float64, over qkv [b*s, 3w] of h heads in ``groups`` layout groups;
+    ``suffix`` ends the results' names."""
+    dev = torch.device("cuda")
+    # K1f with its base-2 lse, then K1b: qkv [b*s, 3w] (the step's [32*520,
+    # 3072], G 2), 513 valid keys, the cotangent zero on pad-query rows as
+    # the denoiser's; each side's backward reads its own forward's out and lse. Every row of out
+    # is compared: pad-query rows attend to the valid keys like the others
+    # and feed c_proj's weight gradient. f32 online softmax vs torch's, sums
+    # over 513 keys: out and dqkv within 1e-4 of max(1, max|plain|), the lse
+    # (~10) within 1e-5 of it
+    qkv = 0.5 * randn(b * s, 3 * w)
+    dout = randn(b * s, w)
+    dout.reshape(b, s, w)[:, valid:] = 0
+    fargs = (qkv, h, b, s, valid, groups)
+    fwd = lambda: fused_qkv_attention_fwd(*fargs)
+    fwd_plain = lambda: fused_qkv_attention_plain(*fargs, return_lse=True)
+    (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
+    err, tol = _worst([(out_k, out_p, 1e-4), (lse_k, lse_p, 1e-5)])
+    # the f32 stage-2 step's K1f row: 3xTF32, out and lse also against
+    # float64; the library call is scaled_dot_product_attention in f32
+    q, k, v = _bhsd(qkv, b, s, h, groups)
+    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
+    check(f"fused_qkv_attention (with lse){suffix}", err, tol, fwd, fwd_plain,
+          extra=_k1f_vs_f64(f"fused_qkv_attention (with lse){suffix}", fargs),
+          flops=4 * b * h * s * valid * 64, nbytes=4 * (qkv.numel() + qkv.numel() // 3),
+          library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask),
+          tf32=True)
+    del q, k, v
+    bwd = lambda: fused_qkv_attention_bwd(qkv, out_k, lse_k, dout, h, b, s, valid, groups)
+    bwd_plain = lambda: fused_qkv_attention_bwd_plain(qkv, out_p, lse_p, dout, h, b, s, valid,
+                                                      groups)
+    got, want = bwd(), bwd_plain()
+    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, groups)
+    pad_nonzero = int((dq[:, valid:] != 0).sum() + (dk[:, valid:] != 0).sum()
+                      + (dv[:, valid:] != 0).sum())
+    if pad_nonzero or not torch.isfinite(got).all():
+        raise AssertionError(f"fused_qkv_attention_bwd{suffix}: {pad_nonzero} nonzero pad-row "
+                             "dq/dk/dv values or non-finite dqkv")
+    err, tol = _worst([(got, want, 1e-4)])
+    exact = split_grouped_qkv(_fqa_bwd_f64(qkv, dout, h, b, s, valid, groups).reshape(b, s, -1),
+                              h, groups)
+    parts = lambda x: split_grouped_qkv(x.reshape(b, s, -1), h, groups)
+    errs = lambda x: " ".join(f"{_err64(a, e):.2e}" for a, e in zip(parts(x), exact))
+    flops = 10 * b * h * s * valid * 64
+    extra = (f" pad-row dq/dk/dv all 0; vs float64 dq/dk/dv (tol 1e-5 of each scale): kernel "
+             f"{_f64_gate(f'fused_qkv_attention_bwd{suffix}', parts(got), exact)}, f32 plain "
+             f"{errs(want)}")
+    del exact
+    # the library call: autograd's backward of scaled_dot_product_attention
+    q, k, v = _bhsd(qkv, b, s, h, groups, grad=True)
+    key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
+    o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
+    check(f"fused_qkv_attention_bwd{suffix}", err, tol, bwd, bwd_plain, extra=extra, flops=flops,
+          nbytes=4 * (2 * qkv.numel() + 2 * dout.numel() + lse_k.numel()), tf32=True,
+          library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
+    del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
 
 
 def _fqa_fwd_f64(qkv64, heads: int, b: int, s: int, valid: int, groups: int):
@@ -1852,10 +1892,23 @@ def phase_bf16_train_kernels() -> dict:
     del x, d, gy, gr, r_k, y_k, mean_k, rstd_k, r_p, y_p, mean_p, rstd_p, got, want
     torch.cuda.empty_cache()
 
-    # K1f with its base-2 lse, then K1b, in bf16: qkv [32*520, 3072], G 2, 513
-    # valid keys, the cotangent zero on pad-query rows; each side's backward
-    # reads its own forward's lse. out over every row within one bf16 ulp of
-    # itself plus one of its scale, 99% bitwise; the lse (f32, ~10) within
+    _k1_bf16_checks(check, randn, b, s, h, w, valid, 2)
+    torch.cuda.empty_cache()
+    return results
+
+
+def _k1_bf16_checks(check, randn, b: int, s: int, h: int, w: int, valid: int, groups: int,
+                    suffix: str = "") -> None:
+    """The bf16 K1f (with its lse) and K1b against their bf16 plain versions
+    over qkv [b*s, 3w] of h heads in ``groups`` layout groups; ``suffix``
+    ends the results' names."""
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    # K1f with its base-2 lse, then K1b, in bf16: qkv [b*s, 3w] (the step's
+    # [32*520, 3072], G 2), 513 valid keys, the cotangent zero on pad-query
+    # rows; each side's backward reads its own forward's lse. out over every
+    # row within one bf16 ulp of itself plus one of its scale, 99% bitwise;
+    # the lse (f32, ~10) within
     # 2**-8 / ln 2 (an e whose bf16 rounding flips moves l by an ulp of e);
     # dq, dk and dv (bf16) each as the output, at its own scale (dq and dk
     # ~1e-2 here, so that a dropped delta term, ~5e-4, moves most of their
@@ -1864,45 +1917,44 @@ def phase_bf16_train_kernels() -> dict:
     qkv = (0.5 * randn(b * s, 3 * w)).to(bf)
     dout = randn(b * s, w).to(bf)
     dout.reshape(b, s, w)[:, valid:] = 0
-    fargs = (qkv, h, b, s, valid, 2)
+    fargs = (qkv, h, b, s, valid, groups)
     fwd = lambda: fused_qkv_attention_fwd(*fargs)
     fwd_plain = lambda: fused_qkv_attention_bf16_plain(*fargs, return_lse=True)
     (out_k, lse_k), (out_p, lse_p) = fwd(), fwd_plain()
     out_err, out_tol, share = _bf16_err(out_k, out_p)
     lse_err = _err(lse_k, lse_p)
     if out_k.dtype != bf or lse_err > 2 ** -8 / np.log(2):
-        raise AssertionError(f"fused_qkv_attention (bf16): out {out_k.dtype}, lse err {lse_err}")
-    q, k, v = _bhsd(qkv, b, s, h, 2)
+        raise AssertionError(f"fused_qkv_attention (bf16){suffix}: out {out_k.dtype}, lse err "
+                             f"{lse_err}")
+    q, k, v = _bhsd(qkv, b, s, h, groups)
     key_mask = (torch.arange(s, device=dev) < valid)[None, None, None, :]
-    check("fused_qkv_attention (bf16)", out_err, out_tol, fwd, fwd_plain,
+    check(f"fused_qkv_attention (bf16){suffix}", out_err, out_tol, fwd, fwd_plain,
           extra=f" bitwise share {share:.4f}, lse max_abs_err {lse_err:.3e} (tol "
                 f"{2 ** -8 / np.log(2):.1e})",
           flops=4 * b * h * s * valid * 64, nbytes=2 * (qkv.numel() + out_k.numel())
           + 4 * lse_k.numel(),
           library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
     del q, k, v
-    bwd = lambda: fused_qkv_attention_bwd(qkv, None, lse_k, dout, h, b, s, valid, 2)
-    bwd_plain = lambda: fused_qkv_attention_bwd_bf16_plain(qkv, lse_p, dout, h, b, s, valid, 2)
+    bwd = lambda: fused_qkv_attention_bwd(qkv, None, lse_k, dout, h, b, s, valid, groups)
+    bwd_plain = lambda: fused_qkv_attention_bwd_bf16_plain(qkv, lse_p, dout, h, b, s, valid, groups)
     got, want = bwd(), bwd_plain()
-    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, 2)
+    dq, dk, dv = split_grouped_qkv(got.reshape(b, s, -1), h, groups)
     pad_nonzero = int((dq[:, valid:] != 0).sum() + (dk[:, valid:] != 0).sum()
                       + (dv[:, valid:] != 0).sum())
     if got.dtype != bf or pad_nonzero or not torch.isfinite(got).all():
-        raise AssertionError(f"fused_qkv_attention_bwd (bf16): {got.dtype}, {pad_nonzero} "
+        raise AssertionError(f"fused_qkv_attention_bwd (bf16){suffix}: {got.dtype}, {pad_nonzero} "
                              "nonzero pad-row dq/dk/dv values or non-finite dqkv")
     err, tol, shares = _bf16_grads_err(
-        (dq, dk, dv), split_grouped_qkv(want.reshape(b, s, -1), h, 2))
-    q, k, v = _bhsd(qkv, b, s, h, 2, grad=True)
+        (dq, dk, dv), split_grouped_qkv(want.reshape(b, s, -1), h, groups))
+    q, k, v = _bhsd(qkv, b, s, h, groups, grad=True)
     o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
     do_lib = dout.reshape(b, s, h, -1).transpose(1, 2).contiguous()
-    check("fused_qkv_attention_bwd (bf16)", err, tol, bwd, bwd_plain,
+    check(f"fused_qkv_attention_bwd (bf16){suffix}", err, tol, bwd, bwd_plain,
           extra=" dq/dk/dv bitwise shares " + " ".join(f"{x:.4f}" for x in shares)
           + ", pad-row dq/dk/dv all 0", flops=10 * b * h * s * valid * 64,
           nbytes=2 * (2 * qkv.numel() + dout.numel()) + 4 * lse_k.numel(),
           library_fn=lambda: torch.autograd.grad(o_lib, (q, k, v), do_lib, retain_graph=True))
     del qkv, dout, out_k, lse_k, out_p, lse_p, got, want, dq, dk, dv, q, k, v, o_lib, do_lib
-    torch.cuda.empty_cache()
-    return results
 
 
 def phase_attention() -> tuple:
@@ -3356,53 +3408,88 @@ def _rss_mib() -> float:
 
 def _timed_reduces(log: list):
     """Mesh.all_reduce_ timed (host clock between synchronizes) into ``log``
-    as (bytes, ms); -> the original, to restore."""
+    as (bytes, ms, axis); -> the original, to restore."""
     orig = Mesh.all_reduce_
 
-    def timed(self, t):
+    def timed(self, t, axis=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig(self, t)
+        out = orig(self, t, axis)
         torch.cuda.synchronize()
-        log.append((t.numel() * t.element_size(), 1e3 * (time.perf_counter() - t0)))
+        log.append((t.numel() * t.element_size(), 1e3 * (time.perf_counter() - t0), axis))
         return out
     Mesh.all_reduce_ = timed
     return orig
 
 
-def _dp_stage2_trainer(out: Path, mesh=None):
-    """Stage 2 at full width as train_diffusion --dtype float16 builds it
-    (bf16 compute, f32 master weights, block remat), on phase 26's seeded
-    latent tables; ``mesh`` or one process."""
+def _warm_output_proj(trainer) -> None:
+    """output_proj drawn nonzero from a seed (U(+-1/sqrt(width)), as
+    init_seeded draws the other layers), in the parameters and the EMAs.
+    init_scratch zeroes it: the first step would then train output_proj
+    alone and the next ones pass the rest a gradient scaled by its lr-sized
+    weights, so that the losses and grad_norm of a few steps would see
+    nothing of the rest. output_proj is replicated under tp: every rank
+    draws the same values into its own buffers."""
+    g = torch.Generator().manual_seed(27)
+    bufs = [trainer.flat.params] + ([] if trainer.emas is None else list(trainer.emas))
+    views = trainer.flat.as_dict(trainer.flat.params)
+    bound = views["output_proj.weight"].shape[1] ** -0.5
+    with torch.no_grad():
+        for name in ("output_proj.weight", "output_proj.bias"):
+            shape = views[name].shape
+            value = ((torch.rand(shape, generator=g) * 2 - 1) * bound).to(views[name].device)
+            for buf in bufs:
+                trainer.flat.as_dict(buf)[name].copy_(value)
+
+
+def _dp_stage2_trainer(out: Path, mesh=None, tp: int = 1, layers: int | None = None,
+                       dtype: str = "float16", warm: bool = False, split: int = 1):
+    """Stage 2 at full width as train_diffusion --dtype ``dtype`` builds it
+    (float16: bf16 compute, f32 master weights, block remat), on phase 26's
+    seeded latent tables; ``mesh`` or one process, ``tp`` its
+    tensor-parallel degree, ``layers`` the depth (the config's when None),
+    ``warm`` output_proj drawn nonzero (``_warm_output_proj``), ``split`` > 1
+    the products split as that tp splits them, in one process
+    (tests/tp_split_control.py)."""
     config = load_config(str(SRNCARS))
+    if layers is not None:
+        config["model"]["layers"] = layers
     dataset, _ = train_diffusion.load_pointnerf_weights(
         str(OUT / "dp" / "pointnerf.npz"), config["model"]["num_points"],
         config["model"]["feats_dim"])
-    compute, remat = train_diffusion.DTYPES["float16"]
+    compute, remat = train_diffusion.DTYPES[dtype]
     model = build_diffusion_model(config, torch_dtype(compute), remat)
-    return DiffusionTraining(str(out), model, dataset, seed=0,
-                             device=mesh.device if mesh else "cuda", verbose=False, mesh=mesh,
-                             **config["diffusion_training"]), dataset
+    trainer = DiffusionTraining(str(out), model, dataset, seed=0,
+                                device=mesh.device if mesh else "cuda", verbose=False, mesh=mesh,
+                                tp=tp, **config["diffusion_training"])
+    if warm:
+        _warm_output_proj(trainer)
+    if split > 1:
+        split_products(trainer.model.denoiser, split)
+    return trainer, dataset
 
 
-def _dp_stage1_trainer(out: Path, mesh=None):
+def _dp_stage1_trainer(out: Path, mesh=None, shard_tables: bool = False):
     """Fast stage 1 (configs/npcd_srncars_fast.yaml) as train_pointnerf
     builds it, over phase 12's seeded dataset of 2347 clouds; ``mesh`` or
-    one process."""
+    one process, the tables row-sharded with ``shard_tables``."""
     config = load_config(str(FAST))
     dataset = _stage1_dataset(config, config["model"]["n_obj"], 50)
     model = build_pointnerf(config, torch.Generator().manual_seed(0), with_tables=True)
     return PointNeRFTraining(str(out), model, dataset,
                              loss_weights=PointNeRFLossWeights(1.0, 1e-7, 3.5e-7),
                              seed=0, device=mesh.device if mesh else "cuda", verbose=False,
-                             mesh=mesh, **config["pointnerf_training"]), dataset
+                             mesh=mesh, shard_tables=shard_tables,
+                             **config["pointnerf_training"]), dataset
 
 
 def _dp_steps(trainer, dataset, batches, mesh=None, params_path=None) -> dict:
     """train_step on this rank's rows of each global batch (indices) -> each
-    step's metrics and seconds, the gradient reduces, the launches, peak
-    memory and RSS; with ``params_path`` the parameters are saved there
-    (rank 0) and compared bitwise with rank 0's (the others)."""
+    step's metrics and seconds, the gradient reduces (and the model axis's,
+    under tp), the launches, peak memory and RSS; with ``params_path`` the
+    parameters (whole: the tp shards and the table rows gathered) are saved
+    there (rank 0); the replicated ones are compared bitwise with rank 0's
+    (the others)."""
     reduces: list = []
     orig = _timed_reduces(reduces)
     loader = BatchLoader(dataset, len(batches[0]))
@@ -3417,26 +3504,38 @@ def _dp_steps(trainer, dataset, batches, mesh=None, params_path=None) -> dict:
             t0 = time.perf_counter()
             m = trainer.train_step(loader.batch(rows))
             torch.cuda.synchronize()
-            big = max(reduces[n:], default=(0, 0.0))  # the gradients' reduce
+            model = [r for r in reduces[n:] if r[2] == "model"]
+            big = max((r for r in reduces[n:] if r[2] != "model"),
+                      default=(0, 0.0, None))  # the gradients' reduce
             steps.append({"s": time.perf_counter() - t0, "reduce_bytes": big[0],
-                          "reduce_ms": big[1], **{k: float(v) for k, v in m.items()}})
+                          "reduce_ms": big[1], "model_reduces": len(model),
+                          "model_bytes": sum(r[0] for r in model),
+                          "model_ms": sum(r[1] for r in model),
+                          **{k: float(v) for k, v in m.items()}})
         launches = _read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20  # the steps', not the gather's
     finally:
         Mesh.all_reduce_ = orig
     if isinstance(trainer, DiffusionTraining):
-        params = trainer.flat.params.detach()
+        params = trainer._full(trainer.flat.params).detach() if params_path else None
+        mine = trainer.flat.params.detach()
+        if trainer.tp_layout is not None:  # the leaves every model rank holds whole
+            mine = mine[trainer.tp_layout.replicated_index(mine.device)]
     else:
-        params = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
+        table = trainer.model.tables.feats_table
+        params = torch.cat([(trainer._whole(p) if p is table else p).detach().reshape(-1)
+                            for p in trainer.model.parameters()])
+        mine = params
     same = None
     if mesh is not None:
-        ref = params.clone()
+        ref = mine.clone()
         mesh.broadcast_(ref)
-        same = torch.equal(ref, params)
+        same = torch.equal(ref, mine)
         del ref
     if params_path is not None and (mesh is None or mesh.is_main):
         torch.save(params.cpu(), params_path)
-    return {"steps": steps, "launches": launches, "same_as_rank0": same,
-            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "rss_mib": _rss_mib()}
+    return {"steps": steps, "launches": launches, "same_as_rank0": same, "peak_mib": peak_mib,
+            "rss_mib": _rss_mib()}
 
 
 def _dp_worker(batches2: list, batches1: list) -> dict:
@@ -3552,10 +3651,12 @@ def _dp_cli_worker(cut_config: str, weights: str, pkl: str) -> dict:
             "backend": dist.get_backend()}
 
 
-def phase_dp() -> dict:
+def phase_dp() -> tuple:
     """Phase 26, data parallelism (npcd_tpu_torch/parallel): two ranks on
     the one card over gloo against one process, then the five CLIs with
-    --mesh over NCCL at one rank a card -> the launches of each DP path."""
+    --mesh over NCCL at one rank a card -> the launches of each DP path, and
+    what phase 27 compares with (the one-process runs, the DP ranks, the
+    batches; their files stay under OUT / "dp" for it)."""
     dp = OUT / "dp"
     shutil.rmtree(dp, ignore_errors=True)
     dp.mkdir(parents=True)
@@ -3607,7 +3708,7 @@ def phase_dp() -> dict:
             if r and not got["same_as_rank0"]:
                 failures.append(f"{tag}: rank {r}'s parameters differ from rank 0's")
         per = ranks[0][tag]["steps"]
-        keys = [k for k in per[0] if k not in ("s", "reduce_bytes", "reduce_ms")]
+        keys = [k for k in per[0] if k not in REDUCE_KEYS]
         for k in keys:
             got_v = [s[k] for s in per]
             want_v = [s[k] for s in ref["steps"]]
@@ -3659,7 +3760,7 @@ def phase_dp() -> dict:
         print(f"[dp] {name} --mesh: {run['s']:.1f} s, peak {run['peak_mib']:.0f} MiB, host RSS "
               f"after it {run['rss_mib']:.0f} MiB"
               + (f"; gradient all-reduces " + ", ".join(f"{b / 2**20:.2f} MiB in {ms:.2f} ms"
-                                                         for b, ms in big)
+                                                         for b, ms, _ in big)
                  + (" (world 1: no collective runs)" if c0["world"] == 1 else "")
                  if big else ""))
     out = c0["results"]
@@ -3712,6 +3813,276 @@ def phase_dp() -> dict:
         "dp sampling": total([c["runs"]["generate_samples"]["launches"] for c in clis]),
         "dp fid eval": total([c["runs"]["eval_diffusion"]["launches"] for c in clis]),
         "dp psnr eval": total([c["runs"]["eval_pointnerf"]["launches"] for c in clis])}
+    torch.cuda.empty_cache()
+    return launches, {"one": one, "ranks": ranks, "batches2": batches2, "batches1": batches1,
+                      "lr2": lr2, "lr1": lr1, "smi": smi}
+
+
+# -- phase 27: tensor parallelism and row-sharded tables ------------------------------------
+
+
+def _tp_worker(batches2: list, batches1: list, cli_argv: list) -> dict:
+    """Phase 27's two gloo ranks on one card: (a) the bf16 stage-2 steps at
+    tp 2, then its control, the first step with the planted fault (b)
+    (torch.distributed.nn's all_reduce as the "g" operator, whose backward
+    sums the cotangent again), (b) the f32 steps at tp 2 and TP_F32_LAYERS
+    blocks, (d) the fast stage-1 steps with the tables row-sharded, on each
+    rank's rows of the global batches, then (e) train_diffusion --tp 2
+    through main(argv) (joining this group)."""
+    import torch.distributed.nn.functional as dist_fn
+    from npcd_tpu_torch.models.diffusion import transformer
+
+    mesh = make_mesh("cuda", backend="gloo")
+    exact_f32()
+    tp_dir = OUT / "tp"
+    out = {"world": mesh.world, "backend": mesh.backend}
+    trainer, dataset = _dp_stage2_trainer(tp_dir / "stage2", mesh, tp=2, warm=True)
+    out["stage2"] = _dp_steps(trainer, dataset, batches2, trainer.mesh, tp_dir / "stage2-tp.pt")
+    out["stage2"]["local_params"] = trainer.flat.params.numel()
+    del trainer, dataset
+    torch.cuda.empty_cache()
+    reduce = transformer.tp_reduce
+    transformer.tp_reduce = lambda y, m: dist_fn.all_reduce(y, group=m.model_group)
+    try:
+        trainer, dataset = _dp_stage2_trainer(tp_dir / "fault", mesh, tp=2, warm=True)
+        out["fault"] = _dp_steps(trainer, dataset, batches2[:1], trainer.mesh)
+    finally:
+        transformer.tp_reduce = reduce
+    del trainer, dataset
+    torch.cuda.empty_cache()
+    trainer, dataset = _dp_stage2_trainer(tp_dir / "f32", mesh, tp=2, layers=TP_F32_LAYERS,
+                                          dtype="float32", warm=True)
+    out["f32"] = _dp_steps(trainer, dataset, batches2, trainer.mesh, tp_dir / "f32-tp.pt")
+    del trainer, dataset
+    torch.cuda.empty_cache()
+    trainer, dataset = _dp_stage1_trainer(tp_dir / "stage1", mesh, shard_tables=True)
+    out["stage1"] = _dp_steps(trainer, dataset, batches1, mesh, tp_dir / "stage1-sharded.pt")
+    tables = trainer.model.tables
+    moments = trainer.optimizer.state[tables.feats_table]
+    out["stage1"].update(rows=tables.feats_table.shape[0], own=(trainer.own.start,
+                                                                trainer.own.stop),
+                         table_bytes=sum(t.numel() * t.element_size() for t in (
+                             tables.feats_table, tables.coords_table, moments["exp_avg"],
+                             moments["exp_avg_sq"])))
+    del trainer, dataset, tables, moments
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    hist = train_diffusion.main(cli_argv).history
+    torch.cuda.synchronize()
+    out["cli"] = {"history": hist, "launches": _read_launches(), "s": time.perf_counter() - t0,
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    return out
+
+
+def phase_tp(ref: dict, results: dict) -> dict:
+    """Phase 27, tensor parallelism and row-sharded tables
+    (npcd_tpu_torch/parallel/tp.py, tp_step.py, pointnerf_sharding.py):
+    K1f/K1b in the local-head form, then two gloo ranks on the one card
+    against one process (stage 2 from a warm output_proj, on phase 26's
+    batches and draws; stage 1 phase 26's run, in ``ref``), and
+    train_diffusion --tp 2 -> the launches of the paths "tp stage 2" and
+    "sharded fast stage 1"."""
+    dp, tp_dir = OUT / "dp", OUT / "tp"
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    tp_dir.mkdir(parents=True)
+    smi = ref["smi"]
+    exact_f32()
+    failures = []
+
+    # (c) K1f/K1b as a model rank of tp 2 launches them: 8 heads in 1 group,
+    # qkv [32*520, 1536], against their plain versions as phases 4 and 14
+    # hold the 16-head form (f32 also against float64)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    local = {}
+    b, seq, valid = 32, 520, 513
+    suffix = " (8 heads, G 1)"
+    _k1_f32_checks(lambda *a, **k: _record(local, *a, tag="tp-tables", **k), randn, b, seq, 8,
+                   512, valid, 1, suffix)
+    _k1_bf16_checks(lambda *a, **k: _record(local, *a, tag="tp-tables", peak=BF16_FLOP_S, **k),
+                    randn, b, seq, 8, 512, valid, 1, suffix)
+    for name16 in ("fused_qkv_attention (with lse)", "fused_qkv_attention_bwd",
+                   "fused_qkv_attention (bf16)", "fused_qkv_attention_bwd (bf16)"):
+        got, full = local[name16 + suffix], results.get(name16)
+        print(f"[tp-tables] {name16}{suffix}: {got['ms']:.4f} ms (bound {got['bound_ms']:.4f}, "
+              f"plain {got['plain_ms']:.4f}, library {got['library_ms']:.4f}); the 16-head "
+              f"form of phase 4/14 "
+              + (f"{full['ms']:.4f} ms" if full else "not run") + f" ({smi})")
+    torch.cuda.empty_cache()
+
+    # (a)'s and (b)'s references, one process on phase 26's batches and
+    # draws, output_proj warm: bf16 at full width, plain and with tp 2's
+    # split products and their roundings (tests/tp_split_control.py); f32
+    # at TP_F32_LAYERS blocks
+    batches2, batches1 = ref["batches2"], ref["batches1"]
+    refs = {}
+    for tag, kw in (("stage2-one", {}), ("stage2-split", {"split": 2}),
+                    ("f32-one", {"layers": TP_F32_LAYERS, "dtype": "float32"})):
+        trainer, dataset = _dp_stage2_trainer(tp_dir / tag, None, warm=True, **kw)
+        refs[tag] = _dp_steps(trainer, dataset, batches2, None, tp_dir / f"{tag}.pt")
+        del trainer, dataset
+        torch.cuda.empty_cache()
+    one2, split_one, one_f32 = refs["stage2-one"], refs["stage2-split"], refs["f32-one"]
+
+    # (e)'s run: train_diffusion --tp 2 at full width, TP_CLI_LAYERS blocks
+    config = load_config(str(SRNCARS))
+    config["model"]["layers"] = TP_CLI_LAYERS
+    config["diffusion_training"].update(max_iterations=TP_CLI_STEPS, print_interval=1,
+                                        log_scalars_interval=1)
+    cut = _write_config(config, tp_dir / "cli.yaml")
+    argv = ["--config", cut, "--pointnerf_weights", str(dp / "pointnerf.npz"), "--device",
+            "cuda", "--no_tensorboard", "--seed", "0", "--tp", "2"]
+
+    t0 = time.perf_counter()
+    mesh_module.LAUNCH_TIMEOUT_S = 900.0
+    ranks = launch(_tp_worker, (batches2, batches1, argv + ["--output", str(tp_dir / "cli")]),
+                   world=2)
+    print(f"[tp-tables] world {ranks[0]['world']}, backend {ranks[0]['backend']}, both ranks on "
+          f"one card ({smi}): these numbers measure the code path, not scaling; "
+          f"{time.perf_counter() - t0:.1f} s with the workers' start")
+
+    # (a), (b), (d): each step's metrics against one process. (a) is held
+    # to phase 26's limits against its split-product control; against the
+    # plain one process it may be as far apart as the control is, plus
+    # those limits
+    one = {"stage2": one2, "stage1": ref["one"]["stage1"]}
+    s2 = (DP_TOLERANCE["stage2", "loss"], DP_TOLERANCE["stage2", "grad_norm"])
+    tp2 = ranks[0]["stage2"]["steps"]
+    apart = {}  # the split control's max rel err against one process, by metric
+    cases = [("stage2", "2 ranks", tp2, "the split control", split_one["steps"], s2),
+             ("stage2", "the split control", split_one["steps"], "one process",
+              one["stage2"]["steps"], None),
+             ("stage2", "2 ranks", tp2, "one process", one["stage2"]["steps"], "apart"),
+             ("f32", "2 ranks", ranks[0]["f32"]["steps"], "one process", one_f32["steps"],
+              (1e-5, 1e-4)),
+             ("stage1", "2 ranks", ranks[0]["stage1"]["steps"], "one process",
+              one["stage1"]["steps"], (DP_TOLERANCE["stage1", "loss"],
+                                       DP_TOLERANCE["stage1", "grad_norm"]))]
+    what = {"stage2": "bf16 stage 2 at full width, tp 2, batch 32",
+            "f32": f"f32 stage 2 at full width, {TP_F32_LAYERS} blocks, tp 2, batch 32",
+            "stage1": "fast stage 1 with row-sharded tables, B 8 x V 50 = 2 x 4"}
+    for tag, name, got, against, want, tols in cases:
+        for k in (k for k in got[0] if k not in REDUCE_KEYS):
+            got_v, want_v = [x[k] for x in got], [x[k] for x in want]
+            rel = max(abs(a - b_) / max(abs(b_), 1e-30) for a, b_ in zip(got_v, want_v))
+            i_tol = 1 if k == "grad_norm" else 0
+            tol = (None if tols is None else apart[k] + s2[i_tol] if tols == "apart"
+                   else tols[i_tol])
+            if tols is None:
+                apart[k] = rel
+            print(f"[tp-tables] {tag} {k}: {name} " + " ".join(f"{v:.6g}" for v in got_v)
+                  + f", {against} " + " ".join(f"{v:.6g}" for v in want_v)
+                  + f"; max rel err {rel:.2e} ("
+                  + ("a reading" if tol is None else f"tol {tol:.3g}") + ")")
+            if not (np.isfinite(got_v).all() and (tol is None or rel <= tol)):
+                failures.append(f"{tag} {k}, {name} against {against}: rel err {rel}")
+    # the planted fault (b) must miss (a)'s grad_norm limit at its first step
+    # (its forward, and so its loss, is (a)'s)
+    fault = ranks[0]["fault"]["steps"][0]
+    for against, want in (("one process", one["stage2"]), ("the split control", split_one)):
+        w = want["steps"][0]
+        rel = abs(fault["grad_norm"] / w["grad_norm"] - 1)
+        print(f"[tp-tables] planted fault (b), the \"g\" reduce summed again in the backward: "
+              f"step 1 grad_norm {fault['grad_norm']:.6g}, {against} {w['grad_norm']:.6g}, rel "
+              f"err {rel:.2e} (must pass {s2[1]:g}); loss {fault['loss']:.6g} against "
+              f"{w['loss']:.6g}")
+        if not rel > s2[1]:
+            failures.append(f"planted fault (b) within (a)'s grad_norm limit of {against}: {rel}")
+    for tag in what:
+        want = one_f32 if tag == "f32" else one[tag]
+        for r, rank in enumerate(ranks):
+            got = rank[tag]
+            rate = lambda steps: (len(steps) - 1) / sum(x["s"] for x in steps[1:])
+            reduces = ", ".join(f"{x['model_reduces']} x {x['model_bytes'] / 2**20:.1f} MiB in "
+                                f"{x['model_ms']:.0f} ms" for x in got["steps"])
+            print(f"[tp-tables] {tag} rank {r} ({what[tag]}): "
+                  + (f"model-group reduces a step {reduces}; " if tag != "stage1" else
+                     f"table rows {got['rows']} ({got['own'][0]}:{got['own'][1]}), tables and "
+                     f"moments {got['table_bytes'] / 2**20:.1f} MiB; ")
+                  + f"steps/s over steps 2-{len(got['steps'])} {rate(got['steps']):.3f} (one "
+                  f"process {rate(want['steps']):.3f}); peak {got['peak_mib']:.0f} MiB (one "
+                  f"process {want['peak_mib']:.0f}"
+                  + (f", phase 26's replicated-table rank "
+                     f"{ref['ranks'][r]['stage1']['peak_mib']:.0f}" if tag == "stage1" else "")
+                  + f"); {'replicated ' if tag != 'stage1' else ''}parameters bitwise rank 0's: "
+                  f"{got['same_as_rank0']}")
+            if r and not got["same_as_rank0"]:
+                failures.append(f"{tag}: rank {r}'s parameters differ from rank 0's")
+    # the parameters after the steps: every one within 2 lr a step (a
+    # near-zero gradient of the other sign flips Adam's first steps), and
+    # >= 99% within 0.1 lr; the split control's share against one process
+    # is a reading, beside (a)'s
+    for tag, lr, got, want, gate in (
+            ("stage2 vs the split control", ref["lr2"], tp_dir / "stage2-tp.pt",
+             tp_dir / "stage2-split.pt", True),
+            ("the split control vs one process", ref["lr2"], tp_dir / "stage2-split.pt",
+             tp_dir / "stage2-one.pt", False),
+            ("stage2 vs one process", ref["lr2"], tp_dir / "stage2-tp.pt",
+             tp_dir / "stage2-one.pt", True),
+            ("f32 vs one process", ref["lr2"], tp_dir / "f32-tp.pt", tp_dir / "f32-one.pt", True),
+            ("stage1 vs one process", ref["lr1"], tp_dir / "stage1-sharded.pt",
+             dp / "stage1-one.pt", True)):
+        d = (torch.load(got).cuda() - torch.load(want).cuda()).abs()
+        share = float((d <= 0.1 * lr).float().mean())
+        print(f"[tp-tables] {tag}, parameters after {DP_STEPS} steps: {d.numel()} values, max "
+              f"|diff| {float(d.max()):.3e} (tol {2 * DP_STEPS * lr:.1e}), share within 0.1 lr "
+              f"{share:.6f} (" + ("tol >= 0.99" if gate else "a reading") + "), bitwise "
+              f"equal {float((d == 0).float().mean()):.6f}")
+        if float(d.max()) > 2 * DP_STEPS * lr or (gate and share < 0.99):
+            failures.append(f"{tag} parameters: max {float(d.max())}, within 0.1 lr {share}")
+        del d
+        torch.cuda.empty_cache()
+
+    # (e) the CLI's run: finite, its checkpoint and export whole, restored at tp 1
+    cli = ranks[0]["cli"]
+    hist = cli["history"]
+    print(f"[tp-tables] train_diffusion --tp 2 (gloo, 2 ranks, bf16, full width, "
+          f"{TP_CLI_LAYERS} blocks): {cli['s']:.1f} s, peak {cli['peak_mib']:.0f} MiB, loss "
+          + " ".join(f"{h['loss']:.5f}" for h in hist) + ", grad_norm "
+          + " ".join(f"{h['grad_norm']:.5f}" for h in hist))
+    if len(hist) != TP_CLI_STEPS or not np.isfinite([h["loss"] for h in hist]).all():
+        failures.append(f"train_diffusion --tp 2: history {hist}")
+    dataset, _ = train_diffusion.load_pointnerf_weights(
+        str(dp / "pointnerf.npz"), config["model"]["num_points"], config["model"]["feats_dim"])
+    compute, remat = train_diffusion.DTYPES["float16"]
+    one_rank = DiffusionTraining(str(tp_dir / "cli"), build_diffusion_model(
+        config, torch_dtype(compute), remat), dataset, seed=0, device="cuda", verbose=False,
+        **config["diffusion_training"])
+    export = tp_dir / "cli" / "weights_only_checkpoints_dir" / f"npcd-iter-{TP_CLI_STEPS:09d}.npz"
+    with np.load(export) as z:
+        same = all(np.array_equal(z[f"diffusion.denoiser.{n}"], v.cpu().numpy())
+                   for n, v in one_rank.flat.as_dict(one_rank.flat.params).items())
+    print(f"[tp-tables] a tp=1 trainer restores the --tp 2 checkpoint: step {one_rank.step}, "
+          f"parameters bitwise the export's: {same}")
+    if one_rank.step != TP_CLI_STEPS or not same:
+        failures.append(f"tp=1 restore of the --tp 2 checkpoint: step {one_rank.step}, {same}")
+    del one_rank, dataset
+    torch.cuda.empty_cache()
+    # --tp 2 over NCCL on the one card: a group of one, npcd_tpu's ValueError
+    import torch.distributed as dist
+
+    try:
+        train_diffusion.main(argv + ["--output", str(tp_dir / "nccl")])
+        failures.append("train_diffusion --tp 2 over NCCL on one card did not raise")
+    except ValueError as e:
+        print(f"[tp-tables] train_diffusion --tp 2 over NCCL on {torch.cuda.device_count()} "
+              f"card: ValueError({e})")
+        if "tp=2 does not divide device count 1" not in str(e):
+            failures.append(f"--tp 2 over NCCL: {e}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if failures:
+        raise AssertionError(f"phase 27: {failures}")
+    total = lambda runs: {k: sum(r[k] for r in runs) for k in runs[0]}
+    launches = {"tp stage 2": total([r["stage2"]["launches"] for r in ranks]
+                                    + [r["cli"]["launches"] for r in ranks]),
+                "sharded fast stage 1": total([r["stage1"]["launches"] for r in ranks])}
+    shutil.rmtree(tp_dir, ignore_errors=True)
     shutil.rmtree(dp, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
@@ -3759,10 +4130,13 @@ def main() -> None:
     paths["options O"] = (_timed("options-O", phase_options, "O")["launches"], OPTIONS_O)
     paths["D"] = (_timed("diffusion-options", phase_diffusion_options)["launches"],
                   DIFFUSION_OPTIONS)
-    dp = _timed("dp", phase_dp)
+    dp, dp_ref = _timed("dp", phase_dp)
     paths.update({path: (dp[path], names) for path, names in (
         ("dp stage 2", TRAINING_BF16), ("dp fast stage 1", FAST_STAGE1),
         ("dp sampling", GENERATION), ("dp fid eval", DP_FID), ("dp psnr eval", DP_PSNR))})
+    tp = _timed("tp-tables", phase_tp, dp_ref, results)
+    paths.update({"tp stage 2": (tp["tp stage 2"], TRAINING_BF16),
+                  "sharded fast stage 1": (tp["sharded fast stage 1"], FAST_STAGE1)})
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

@@ -25,6 +25,17 @@ forwards run again there: npcd_tpu's ``remat_policy`` "full". Its "dots"
 (save the blocks' GEMM outputs, recompute the rest) ran the bf16 stage-2
 step slower than "full" and with more memory on the H100 (PERF.md), and
 raises NotImplementedError.
+
+``tp`` > 1 with a ``mesh`` (parallel/mesh.py's Mesh.with_tp) builds this
+model rank's part of the denoiser for tensor parallelism, as npcd_tpu's
+modules with tp inside its shard_map step (parallel/tp_step.py): c_qkv and
+c_fc (of every block and of time_embed) hold 1/tp of their output columns,
+each block's attention runs K1 on heads / tp heads in qkv_groups / tp
+groups, and c_proj holds 1/tp of its input rows, its partial product
+summed over the model group before the bias is added once (parallel/tp.py's
+tp_reduce). tp_replicate at each column-parallel input sums the
+activation's cotangent over the model group in the backward. Block remat
+runs a block's forward reduces again in the backward.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import default_qkv_groups, fused_qkv_attention
 from ...ops.kernels.layer_norm import layer_norm, layer_norm_residual
+from ...parallel.tp import tp_reduce, tp_replicate
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
@@ -85,30 +97,64 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
-class TransformerMLP(nn.Module):
-    """4x MLP with the exact (erf) GELU, or its tanh form."""
+class RowParallelDense(Dense):
+    """Dense whose weight holds this model rank's input rows [out, in / tp]:
+    the partial product is summed over the model group (tp_reduce) and the
+    replicated bias added once after it, in the compute dtype (npcd_tpu's
+    RowParallelDense)."""
 
-    def __init__(self, width: int, dtype: torch.dtype = torch.float32, tanh: bool = False):
-        super().__init__()
-        self.c_fc = Dense(width, 4 * width, dtype)
-        self.c_proj = Dense(4 * width, width, dtype)
-        self.approximate = "tanh" if tanh else "none"
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, mesh):
+        super().__init__(in_features, out_features, dtype)
+        self.mesh = mesh
 
     def forward(self, x):
+        dt = self.compute_dtype
+        y = tp_reduce(F.linear(x.to(dt), self.weight.to(dt)), self.mesh)
+        return y + self.bias.to(dt)
+
+
+def _dense_out(in_features: int, out_features: int, dtype: torch.dtype, tp: int, mesh):
+    """An output projection: Dense, or row-parallel over in_features / tp."""
+    if tp == 1:
+        return Dense(in_features, out_features, dtype)
+    return RowParallelDense(in_features // tp, out_features, dtype, mesh)
+
+
+class TransformerMLP(nn.Module):
+    """4x MLP with the exact (erf) GELU, or its tanh form; with tp, this
+    model rank's 4W / tp hidden columns."""
+
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32, tanh: bool = False,
+                 tp: int = 1, mesh=None):
+        super().__init__()
+        self.c_fc = Dense(width, 4 * width // tp, dtype)
+        self.c_proj = _dense_out(4 * width, width, dtype, tp, mesh)
+        self.approximate = "tanh" if tanh else "none"
+        self.tp, self.mesh = tp, mesh
+
+    def forward(self, x):
+        if self.tp > 1:
+            x = tp_replicate(x, self.mesh)
         return self.c_proj(F.gelu(self.c_fc(x), approximate=self.approximate))
 
 
 class MultiheadAttention(nn.Module):
-    """Attention over 2D token matrices [N*seq, W] (rows batch-major)."""
+    """Attention over 2D token matrices [N*seq, W] (rows batch-major); with
+    tp, this model rank's heads / tp heads (qkv_groups / tp whole layout
+    groups)."""
 
     def __init__(self, width: int, heads: int, seq: int, valid_len: int, qkv_groups: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp: int = 1, mesh=None):
         super().__init__()
-        self.c_qkv = Dense(width, 3 * width, dtype)
-        self.c_proj = Dense(width, width, dtype)
-        self.heads, self.seq, self.valid_len, self.qkv_groups = heads, seq, valid_len, qkv_groups
+        self.c_qkv = Dense(width, 3 * width // tp, dtype)
+        self.c_proj = _dense_out(width, width, dtype, tp, mesh)
+        self.heads, self.seq, self.valid_len = heads // tp, seq, valid_len
+        self.qkv_groups = qkv_groups // tp
+        self.tp, self.mesh = tp, mesh
 
     def forward(self, x):
+        if self.tp > 1:
+            x = tp_replicate(x, self.mesh)
         qkv = self.c_qkv(x)
         out = fused_qkv_attention(qkv, self.heads, qkv.shape[0] // self.seq, self.seq,
                                   self.valid_len, self.qkv_groups)
@@ -120,12 +166,13 @@ class ResidualAttentionBlock(nn.Module):
     pending is the previous sublayer's un-added output, and returns
     (x', mlp_out) with the MLP output left pending for the next LayerNorm."""
 
-    def __init__(self, width, heads, seq, valid_len, qkv_groups, dtype=torch.float32):
+    def __init__(self, width, heads, seq, valid_len, qkv_groups, dtype=torch.float32, tp=1,
+                 mesh=None):
         super().__init__()
         self.ln_1 = FusedLayerNorm(width)
-        self.attn = MultiheadAttention(width, heads, seq, valid_len, qkv_groups, dtype)
+        self.attn = MultiheadAttention(width, heads, seq, valid_len, qkv_groups, dtype, tp, mesh)
         self.ln_2 = FusedLayerNorm(width)
-        self.mlp = TransformerMLP(width, dtype, tanh=dtype == torch.bfloat16)
+        self.mlp = TransformerMLP(width, dtype, tanh=dtype == torch.bfloat16, tp=tp, mesh=mesh)
 
     def forward(self, x, pending=None):
         if pending is None:
@@ -143,8 +190,11 @@ class NPCDTransformer(nn.Module):
     def __init__(self, coords_dim: int = 3, feats_dim: int = 32, num_points: int = 512,
                  width: int = 1024, layers: int = 24, heads: int = 16,
                  qkv_groups: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, remat_policy: str = "full"):
+                 remat: bool = False, remat_policy: str = "full", tp: int = 1, mesh=None):
         super().__init__()
+        self._args = dict(coords_dim=coords_dim, feats_dim=feats_dim, num_points=num_points,
+                          width=width, layers=layers, heads=heads, qkv_groups=qkv_groups,
+                          dtype=dtype, remat=remat, remat_policy=remat_policy, tp=tp, mesh=mesh)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         if remat_policy == "dots":
@@ -158,17 +208,32 @@ class NPCDTransformer(nn.Module):
         self.dtype, self.remat = dtype, remat
         self.qkv_groups = (qkv_groups if qkv_groups is not None
                            else default_qkv_groups(heads, width // heads))
+        if tp > 1 and (self.qkv_groups % tp or heads % tp):
+            raise ValueError(
+                f"tensor parallelism needs tp | qkv_groups and tp | heads; got tp={tp}, "
+                f"qkv_groups={self.qkv_groups}, heads={heads} (set qkv_groups explicitly on "
+                f"the model)")
+        if tp > 1 and mesh is None:
+            raise ValueError(f"tp={tp} needs the mesh whose model group it splits over")
+        self.tp, self.mesh = tp, mesh
         self.valid = num_points + 1  # points + the time token
         self.seq = -(-self.valid // 8) * 8
         in_ch = coords_dim + feats_dim
         self.input_proj = Dense(in_ch, width, dtype)
-        self.time_embed = TransformerMLP(width, dtype)
+        self.time_embed = TransformerMLP(width, dtype, tp=tp, mesh=mesh)
         self.ln_pre = FusedLayerNorm(width)
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, self.seq, self.valid, self.qkv_groups, dtype)
+            ResidualAttentionBlock(width, heads, self.seq, self.valid, self.qkv_groups, dtype,
+                                   tp, mesh)
             for _ in range(layers))
         self.ln_post = FusedLayerNorm(width)
         self.output_proj = nn.Linear(width, in_ch)
+
+    def clone(self, **overrides) -> "NPCDTransformer":
+        """A new denoiser of this one's arguments, ``overrides`` replacing some
+        (npcd_tpu's ``denoiser.clone(tp=, tp_axis=)``); its parameters are
+        fresh."""
+        return NPCDTransformer(**{**self._args, **overrides})
 
     @torch.no_grad()
     def init_seeded(self, generator: torch.Generator, init_scale: float = 0.25) -> None:

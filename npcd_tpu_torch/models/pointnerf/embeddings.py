@@ -19,11 +19,15 @@ class LatentTables(nn.Module):
         self.feats_table = nn.Parameter(torch.zeros((n_obj, num_points, 2 * feat_dim)))
 
 
-def feats_mean_log_var_std(table: torch.Tensor, obj_idx: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """[B] -> mean, log_var, std, each [B, P, F]."""
-    emb = table[obj_idx]
+def mean_log_var_std(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Feats table rows [B, P, 2F] -> mean, log_var, std, each [B, P, F]."""
     f = emb.shape[-1] // 2
     mean, log_var = emb[..., :f], emb[..., f:]
     return mean, log_var, torch.exp(0.5 * log_var)
+
+
+def feats_mean_log_var_std(table: torch.Tensor, obj_idx: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B] -> mean, log_var, std, each [B, P, F]."""
+    return mean_log_var_std(table[obj_idx])
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,7 +45,7 @@ from ...parallel.mesh import mesh_world, shard_batch
 from ...utils.config import PointNeRFOptions, pointnerf_default_options
 from .aggregator import (aggregate_features, compact_valid_samples, gather_rows,
                          knn_neighbors, pack_rows)
-from .embeddings import LatentTables, feats_mean_log_var_std
+from .embeddings import LatentTables, feats_mean_log_var_std, mean_log_var_std
 from .field import field_heads
 from .math_utils import fill_invalid_ray_limits, get_ray_limits_box
 from .nn_core import Layers, init_mlp, posenc_dim
@@ -435,7 +435,8 @@ class PointNeRF(nn.Module):
     def forward(self, obj_idx: torch.Tensor, intrinsics: torch.Tensor,
                 extrinsics: torch.Tensor, pixel_idx: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
+                draws: Optional[Dict[str, torch.Tensor]] = None, mesh=None,
+                table_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """The train forward (the eval path is ``render``) of objects
         obj_idx [B] from intrinsics [B, V, 3, 3] and world2cam extrinsics
         [B, V, 4, 4], on the pixel subset pixel_idx [R_pre] shared by every
@@ -455,15 +456,21 @@ class PointNeRF(nn.Module):
         With ``mesh`` (parallel.Mesh) the objects are this rank's rows of a
         global batch of B x world: each draw is taken for the global batch
         (and ``draws`` gives the global batch's), and this rank keeps its
-        rows."""
+        rows. ``table_rows`` = (coords [B, P, 3], feats [B, P, 2F]) are the
+        objects' rows in place of the tables' (the row-sharded tables'
+        fetch, parallel/pointnerf_sharding.py)."""
         o = self.opts
         draws = draws or {}
         b, v = extrinsics.shape[:2]
         i_dim = b * v
         world = mesh_world(mesh)
         dev = extrinsics.device
-        coords = self.tables.coords_table[obj_idx]
-        f_mean, f_log_var, f_std = feats_mean_log_var_std(self.tables.feats_table, obj_idx)
+        if table_rows is None:
+            coords = self.tables.coords_table[obj_idx]
+            f_mean, f_log_var, f_std = feats_mean_log_var_std(self.tables.feats_table, obj_idx)
+        else:
+            coords = table_rows[0]
+            f_mean, f_log_var, f_std = mean_log_var_std(table_rows[1])
         eps = draws.get("feats_eps")
         if eps is None:
             eps = torch.randn((b * world, *f_std.shape[1:]), generator=generator, device=dev)

@@ -1,11 +1,17 @@
-"""Data parallelism over torch.distributed: one process a rank. Port of
-npcd_tpu/parallel/mesh.py.
+"""Data and tensor parallelism over torch.distributed: one process a rank.
+Port of npcd_tpu/parallel/mesh.py.
 
 npcd_tpu shards the global batch on its leading axis over a 1-D ('data',)
-device mesh, with the parameters replicated. Here every rank is a process
-that owns one card (or shares one, over gloo), holds the whole replicated
-state and this rank's rows of the global batch, and the reductions are
-explicit collectives (parallel/shard_map_step.py, the trainers).
+device mesh, with the parameters replicated, or over the 'data' axis of a
+('data', 'model') mesh of shape (world // tp, tp) whose 'model' axis splits
+the denoiser's layers (parallel/tp.py). Here every rank is a process that
+owns one card (or shares one, over gloo) and holds this rank's rows of the
+global batch, and the reductions are explicit collectives
+(parallel/shard_map_step.py, parallel/tp_step.py, the trainers). A mesh
+with ``tp`` > 1 (``Mesh.with_tp``) lays the ranks out as npcd_tpu's
+``reshape(world // tp, tp)``: rank = data_index * tp + model_index; the
+model group holds the ranks of one data index, the data group those of one
+model index.
 
 ``make_mesh`` joins the group that a launcher's environment describes
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``,
@@ -44,38 +50,102 @@ GRACE_S = 30.0
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the data-parallel group."""
+    """This process's place in the (data, model) grid of ranks; ``tp`` 1
+    (the default) makes every rank a data rank."""
 
     world: int
     rank: int
     local_rank: int
     device: torch.device
     backend: str
+    tp: int = 1
+    # the process groups of this rank's model and data axes (tp > 1 only)
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
-    def rows(self, n: int, uneven: bool = False) -> slice:
-        """This rank's rows of a global leading dimension of n: n / world
-        each, or with ``uneven`` np.array_split's parts (the first n % world
-        ranks one more)."""
-        per, extra = divmod(n, self.world)
-        if extra and not uneven:
-            raise ValueError(f"{n} rows do not divide over {self.world} ranks")
-        start = self.rank * per + min(self.rank, extra)
-        return slice(start, start + per + (self.rank < extra))
+    @property
+    def dp(self) -> int:
+        """The ranks of the 'data' axis: world // tp."""
+        return self.world // self.tp
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place -> t."""
-        if self.world > 1:
-            dist.all_reduce(t)
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.tp
+
+    def with_tp(self, tp: int) -> "Mesh":
+        """This group as npcd_tpu's ('data', 'model') mesh of shape
+        (world // tp, tp), with its model and data groups (every rank of the
+        group must call it, in the same order)."""
+        if tp < 1 or self.world % tp:
+            raise ValueError(f"tp={tp} does not divide device count {self.world}")
+        if tp == 1:
+            return dataclasses.replace(self, tp=1, model_group=None, data_group=None)
+        dp = self.world // tp
+        model_group = data_group = None
+        for d in range(dp):  # new_group is collective: every rank makes every group
+            g = dist.new_group([d * tp + m for m in range(tp)])
+            if d == self.rank // tp:
+                model_group = g
+        for m in range(tp):
+            g = dist.new_group([d * tp + m for d in range(dp)])
+            if m == self.rank % tp:
+                data_group = g
+        return dataclasses.replace(self, tp=tp, model_group=model_group, data_group=data_group)
+
+    def rows(self, n: int, uneven: bool = False) -> slice:
+        """This rank's rows of a global leading dimension of n, by its data
+        index: n / dp each, or with ``uneven`` np.array_split's parts (the
+        first n % dp data indices one more). The model ranks of one data
+        index take the same rows."""
+        parts, i = self.dp, self.data_index
+        per, extra = divmod(n, parts)
+        if extra and not uneven:
+            raise ValueError(f"{n} rows do not divide over {parts} ranks")
+        start = i * per + min(i, extra)
+        return slice(start, start + per + (i < extra))
+
+    def all_reduce_(self, t: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+        """Sum ``t`` in place over the ranks (``axis`` None), over the ranks
+        of this rank's data index ("model") or of its model index ("data")
+        -> t."""
+        if axis is None:
+            if self.world > 1:
+                dist.all_reduce(t)
+        elif axis == "model":
+            if self.tp > 1:
+                dist.all_reduce(t, group=self.model_group)
+        elif axis == "data":
+            if self.dp > 1:
+                if self.tp > 1:
+                    dist.all_reduce(t, group=self.data_group)
+                else:
+                    dist.all_reduce(t)
+        else:
+            raise ValueError(f"axis must be None, 'data' or 'model', got {axis!r}")
         return t
 
-    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` on every rank, in place -> t."""
-        if self.world > 1:
-            dist.broadcast(t, 0)
+    def broadcast_(self, t: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank (``axis`` None), or data index 0's
+        on the ranks of this rank's model index ("data"), in place -> t."""
+        if axis is None:
+            if self.world > 1:
+                dist.broadcast(t, 0)
+        elif axis == "data":
+            if self.dp > 1:
+                if self.tp > 1:
+                    dist.broadcast(t, self.model_index, group=self.data_group)
+                else:
+                    dist.broadcast(t, 0)
+        else:
+            raise ValueError(f"axis must be None or 'data', got {axis!r}")
         return t
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -130,9 +200,12 @@ def launched() -> bool:
 def make_mesh(device: str | torch.device = "cuda", backend: Optional[str] = None) -> Mesh:
     """Join the launcher's group (or make a group of one) -> the Mesh.
     ``device`` "cuda" takes card LOCAL_RANK (modulo the cards); the
-    backend defaults to NCCL there and gloo on the CPU. Ranks other than 0
-    log warnings and errors only."""
+    backend defaults to the backend of a group this process already joined,
+    else to NCCL there and gloo on the CPU. Ranks other than 0 log warnings
+    and errors only."""
     env = os.environ
+    if backend is None and dist.is_initialized():
+        backend = dist.get_backend()
     world = int(env.get("WORLD_SIZE", 1))
     rank = int(env.get("RANK", 0))
     local_rank = int(env.get("LOCAL_RANK", rank))
@@ -183,11 +256,13 @@ def shard_batch(batch: Any, mesh: Optional[Mesh]) -> Any:
 
 
 def replicate(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> None:
-    """Rank 0's values of ``tensors`` on every rank (a broadcast, in place)."""
-    if mesh is not None and mesh.world > 1:
+    """Data index 0's values of ``tensors`` on every rank of its model index
+    (a broadcast in place; with tp 1, rank 0's on every rank): a model rank's
+    shards are never overwritten by another model rank's."""
+    if mesh is not None and mesh.dp > 1:
         with torch.no_grad():
             for t in tensors:
-                mesh.broadcast_(t.data)
+                mesh.broadcast_(t.data, axis="data")
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

@@ -6,11 +6,12 @@ keys make each example's (t, noise) the same on every shard, and the psum
 of the per-shard mean gradients over the shard count is the global mean.
 Here every rank draws the step's (t, coords noise, feats noise) for the
 whole global batch from the same seeded generator and keeps its own rows,
-then one all-reduce of the flat gradient buffer, divided by the world,
-gives the global gradient before kernel K3 updates the replicated
-parameters, Adam's moments and the EMAs on every rank
-(train/diffusion_training.py). The loss terms are means over fixed counts,
-so the mean over ranks of their per-rank means is the global mean.
+then one all-reduce of the flat gradient buffer over the data group,
+divided by its size (the world at tp 1), gives the global gradient before
+kernel K3 updates the replicated parameters, Adam's moments and the EMAs
+on every rank (train/diffusion_training.py). The loss terms are means over
+fixed counts, so the mean over ranks of their per-rank means is the global
+mean.
 """
 from __future__ import annotations
 
@@ -24,19 +25,22 @@ from .mesh import Mesh, shard_batch
 def global_row_draws(model, n_local: int, coords_shape, feats_shape, generator: torch.Generator,
                      mesh: Optional[Mesh]):
     """This rank's rows of the step's (t, coords noise, feats noise), drawn
-    for the global batch of n_local x world examples."""
-    world = 1 if mesh is None else mesh.world
-    draws = model.loss_draws(n_local * world, coords_shape, feats_shape, generator)
+    for the global batch of n_local x dp examples (the model ranks of a data
+    index keep the same rows)."""
+    dp = 1 if mesh is None else mesh.dp
+    draws = model.loss_draws(n_local * dp, coords_shape, feats_shape, generator)
     return shard_batch(draws, mesh)
 
 
 def all_reduce_mean_(grads: torch.Tensor, metrics: Dict[str, torch.Tensor],
                      mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """The mean over ranks of the flat gradient buffer ``grads`` (in place,
-    one all-reduce) and of the scalar ``metrics`` (one more) -> the
-    metrics' means."""
-    mesh.all_reduce_(grads).div_(mesh.world)
+    """The mean over the data group (every rank at tp 1) of the flat
+    gradient buffer ``grads`` (in place, one all-reduce) and of the scalar
+    ``metrics`` (one more) -> the metrics' means. Under tp the model ranks
+    hold different shards, so the mean must not reach across them
+    (parallel/tp_step.py)."""
+    mesh.all_reduce_(grads, "data").div_(mesh.dp)
     names = list(metrics)
-    values = mesh.all_reduce_(torch.stack([metrics[k].detach().float() for k in names]))
-    values = values / mesh.world
+    values = mesh.all_reduce_(torch.stack([metrics[k].detach().float() for k in names]), "data")
+    values = values / mesh.dp
     return {k: values[i] for i, k in enumerate(names)}

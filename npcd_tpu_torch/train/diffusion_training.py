@@ -28,6 +28,17 @@ buffer gives the global mean before K3 runs on every rank, so the
 parameters stay equal across ranks. Rank 0 writes the checkpoints, exports
 and scalars, and the others wait for it at a barrier at the end; every rank
 restores a checkpoint.
+
+With ``tp`` > 1 (tensor parallelism, npcd_tpu's ``DiffusionTraining(tp=)``)
+the ranks form npcd_tpu's default ('data', 'model') mesh of shape
+(world // tp, tp) over ``mesh`` (or over the launcher's group), and the
+step is parallel/tp_step.py's: every rank seeds the full denoiser alike and
+keeps its model rank's shards (parallel/tp.py), batches and draws go by
+data index, the gradients are averaged over the data group, grad_norm is
+summed over the model group, and K3 updates the local buffers. Checkpoints
+and exports hold full arrays in the layout of a tp=1 run (every rank joins
+their gather, rank 0 writes), and every rank restores its shards from one,
+so that a run restores across tp 1 and tp > 1.
 """
 from __future__ import annotations
 
@@ -42,10 +53,13 @@ import torch
 from ..data import BatchLoader, prefetch_to_device
 from ..models.diffusion.diffusion_model import DiffusionModel, DiffusionState
 from ..models.diffusion.normalizers import NormalizerStats
-from ..parallel import (all_reduce_mean_, barrier, global_row_draws, is_main, mesh_world,
+from ..parallel import (all_reduce_mean_, barrier, global_row_draws, is_main, make_mesh,
                         replicate, shard_batch)
+from ..parallel.tp import shard_denoiser_state
+from ..parallel.tp_step import TPLayout, tp_grad_norm
 from ..utils import logging, writer
-from ..utils.checkpoint import CheckpointSaver, timed_save_due, write_layout_meta
+from ..utils.checkpoint import (CheckpointSaver, rank0_decides, timed_save_due,
+                                write_layout_meta)
 from ..utils.ema import EmaConfig
 from ..utils.from_jax import save_npz
 from .fused_update import AdamState, FusedAdamWEma
@@ -125,15 +139,26 @@ class DiffusionTraining:
         weights_only_interval: int = 200_000,
         verbose: bool = True,
         mesh=None,
+        tp: int = 1,
         **_,
     ):
         """``export_extra``: flat arrays written into every weights-only
         export beside the denoiser and normalizers (the ``pointnerf.*``
         weights, so an export loads into an NPCD with ``load_npz``).
-        ``mesh``: a parallel.Mesh whose device the trainer runs on."""
-        if batch_size % mesh_world(mesh):
-            raise ValueError(f"global batch_size {batch_size} must divide by the world "
-                             f"{mesh_world(mesh)}")
+        ``mesh``: a parallel.Mesh whose device the trainer runs on. ``tp``:
+        the tensor-parallel degree; above 1 the ranks of ``mesh`` (or of
+        the launcher's group, joined here) form a (world // tp, tp) mesh."""
+        if tp > 1:
+            if mesh is None:
+                mesh = make_mesh(device)
+            if mesh.tp != tp:
+                if mesh.tp != 1:
+                    raise ValueError(f"mesh has tp={mesh.tp}, asked for tp={tp}")
+                mesh = mesh.with_tp(tp)
+        dp = 1 if mesh is None else mesh.dp
+        if batch_size % dp:
+            raise ValueError(f"global batch_size {batch_size} must divide by the data-parallel "
+                             f"world {dp}")
         self.out_dir = out_dir
         self.checkpoints_dir = os.path.join(out_dir, "checkpoints")
         self.weights_dir = os.path.join(out_dir, "weights_only_checkpoints_dir")
@@ -152,10 +177,22 @@ class DiffusionTraining:
         self.verbose = verbose
         self.export_extra = dict(export_extra or {})
         self.mesh = mesh
+        self.tp = tp
         self.ema_cfgs = tuple(EmaConfig.from_tuple(t) for t in (ema_params or [])) if use_ema \
             else ()
 
         model.denoiser.init_scratch(torch.Generator().manual_seed(seed))
+        # tensor parallelism: the full denoiser seeded alike on every rank,
+        # this model rank's shards kept (npcd_tpu's shard_train_state)
+        self.tp_layout = None
+        if tp > 1:
+            full = model.denoiser.state_dict()
+            named = list(model.denoiser.named_parameters())
+            self.tp_layout = TPLayout([n for n, _ in named], [tuple(p.shape) for _, p in named],
+                                      tp, mesh.model_index)
+            model.denoiser = model.denoiser.clone(tp=tp, mesh=mesh)
+            model.denoiser.load_state_dict(shard_denoiser_state(full, tp, mesh.model_index))
+            del full, named
         self.model = model.to(self.device).train()
         # normalizers from the full latent dataset (npcd_tpu :163-169)
         self.state = model.fit_normalizers(dataset.get_all_coords(), dataset.get_all_feats())
@@ -182,38 +219,67 @@ class DiffusionTraining:
             self.load_state_dict(state)
             logging.info(f"Restored checkpoint at iteration {it}")
         if verbose:
-            logging.info(f"DiffusionTraining: {self.flat.offsets[-1]} params, batch {batch_size}, "
+            logging.info(f"DiffusionTraining: {len(self._full_shapes)} leaves of "
+                         f"{self.flat.offsets[-1]} params on this rank, batch {batch_size}, "
                          f"max_iterations {max_iterations}, dataset size {len(dataset)}, "
-                         f"device {self.device}, world {mesh_world(mesh)}")
+                         f"device {self.device}, world {1 if mesh is None else mesh.world}, "
+                         f"tp {tp}")
 
     # -- state ---------------------------------------------------------------
 
+    @property
+    def _full_shapes(self) -> List[Tuple[int, ...]]:
+        """The parameters' shapes in a tp=1 run."""
+        return self.flat.shapes if self.tp_layout is None else self.tp_layout.full_shapes
+
+    def _full(self, buf: torch.Tensor) -> torch.Tensor:
+        """A flat buffer ([n] or [k, n]) in the layout of a tp=1 run: the
+        buffer itself, or under tp the model group's shards gathered (a
+        collective every rank of the group joins)."""
+        if self.tp_layout is None:
+            return buf
+        if buf.dim() == 2:
+            return torch.stack([self.tp_layout.full(b, self.mesh) for b in buf]) if len(buf) \
+                else buf
+        return self.tp_layout.full(buf, self.mesh)
+
+    def _local(self, full) -> torch.Tensor:
+        """A flat buffer ([n] or [k, n]) of a tp=1 run -> this rank's."""
+        full = torch.as_tensor(full)
+        if self.tp_layout is None:
+            return full
+        if full.dim() == 2:
+            return torch.stack([self.tp_layout.local(f) for f in full]) if len(full) else full
+        return self.tp_layout.local(full)
+
     def state_dict(self) -> Dict[str, Any]:
-        """The full train state (tensors are the live buffers)."""
+        """The full train state in the layout of a tp=1 run (tensors are the
+        live buffers; under tp, fresh full ones: every rank must call it)."""
         norms = {name: {f: getattr(stats, f) for f in _STATS}
                  for name, stats in (("coords_norm", self.state.coords_norm),
                                      ("feats_norm", self.state.feats_norm))}
-        return {"names": list(self.flat.names), "shapes": [list(s) for s in self.flat.shapes],
+        return {"names": list(self.flat.names), "shapes": [list(s) for s in self._full_shapes],
                 "ema_params": [cfg.param_string() for cfg in self.ema_cfgs],
-                "params": self.flat.params, "mu": self.adam.mu, "nu": self.adam.nu,
-                "emas": self.emas if self.emas is not None else torch.zeros(0),
+                "params": self._full(self.flat.params), "mu": self._full(self.adam.mu),
+                "nu": self._full(self.adam.nu),
+                "emas": self._full(self.emas) if self.emas is not None else torch.zeros(0),
                 "count": self.adam.count, "step": self.step, **norms}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Copy a ``state_dict`` (e.g. a restored checkpoint) into the live
-        buffers; the names, shapes and EMA configs must match."""
-        expect = (list(self.flat.names), [list(s) for s in self.flat.shapes],
+        """Copy a ``state_dict`` (e.g. a restored checkpoint, of any tp) into
+        the live buffers; the names, shapes and EMA configs must match."""
+        expect = (list(self.flat.names), [list(s) for s in self._full_shapes],
                   [cfg.param_string() for cfg in self.ema_cfgs])
         got = (list(state["names"]), [list(s) for s in state["shapes"]],
                list(state["ema_params"]))
         if got != expect:
             raise ValueError("checkpoint does not match this model's parameters or EMA configs")
         with torch.no_grad():
-            self.flat.params.copy_(state["params"])
-            self.adam.mu.copy_(state["mu"])
-            self.adam.nu.copy_(state["nu"])
+            self.flat.params.copy_(self._local(state["params"]))
+            self.adam.mu.copy_(self._local(state["mu"]))
+            self.adam.nu.copy_(self._local(state["nu"]))
             if self.emas is not None:
-                self.emas.copy_(state["emas"])
+                self.emas.copy_(self._local(state["emas"]))
         self.adam = AdamState(int(state["count"]), self.adam.mu, self.adam.nu)
         self.step = int(state["step"])
         self.state = DiffusionState(*(NormalizerStats(*(torch.as_tensor(state[n][f])
@@ -225,12 +291,14 @@ class DiffusionTraining:
         utils/from_jax.train_state_from_jax."""
         if len(bridged["emas"]) != len(self.ema_cfgs):
             raise ValueError(f"{len(bridged['emas'])} EMAs for {len(self.ema_cfgs)} configs")
+        mine = (lambda d: d) if self.tp_layout is None else (
+            lambda d: shard_denoiser_state(d, self.tp, self.mesh.model_index))
         with torch.no_grad():
-            self.flat.from_dict(self.flat.params, bridged["params"])
-            self.flat.from_dict(self.adam.mu, bridged["mu"])
-            self.flat.from_dict(self.adam.nu, bridged["nu"])
+            self.flat.from_dict(self.flat.params, mine(bridged["params"]))
+            self.flat.from_dict(self.adam.mu, mine(bridged["mu"]))
+            self.flat.from_dict(self.adam.nu, mine(bridged["nu"]))
             for i, ema in enumerate(bridged["emas"]):
-                self.flat.from_dict(self.emas[i], ema)
+                self.flat.from_dict(self.emas[i], mine(ema))
         self.adam = AdamState(int(bridged["count"]), self.adam.mu, self.adam.nu)
         self.step = int(bridged["step"])
         self.state = DiffusionState(*(NormalizerStats(*(torch.tensor(
@@ -262,8 +330,11 @@ class DiffusionTraining:
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
         if self.mesh is not None:
             metrics = all_reduce_mean_(self.flat.grads, metrics, self.mesh)
+        grad_norm = None
+        if self.tp_layout is not None:
+            grad_norm = tp_grad_norm(self.flat.grads, self.tp_layout, self.mesh)
         self.adam, grad_norm = self.fused.update(self.flat.grads, self.flat.params, self.adam,
-                                                 self.emas, self.step)
+                                                 self.emas, self.step, grad_norm)
         self.step += 1
         return {**metrics, "grad_norm": grad_norm}
 
@@ -272,8 +343,9 @@ class DiffusionTraining:
     def batches(self, start: int):
         """Batches (this rank's under a mesh) from iteration ``start`` on,
         epoch after epoch."""
-        loader = BatchLoader(self.dataset, self.batch_size, self.seed, mesh_world(self.mesh),
-                             0 if self.mesh is None else self.mesh.rank)
+        loader = BatchLoader(self.dataset, self.batch_size, self.seed,
+                             1 if self.mesh is None else self.mesh.dp,
+                             0 if self.mesh is None else self.mesh.data_index)
         per_epoch = len(loader)
         if per_epoch == 0:
             raise ValueError(f"dataset of {len(self.dataset)} has no full batch of "
@@ -318,21 +390,33 @@ class DiffusionTraining:
                     writer.put_scalar_dict("diffusion_train",
                                            {k: float(v) for k, v in metrics.items()}, it)
                     writer.write_out_storage()
-                if main and timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
-                                           iteration=it):
-                    self.saver.save(self.state_dict(), it)
+                due = main and timed_save_due(last_ckpt_time,
+                                              self.save_checkpoint_interval_min, iteration=it)
+                if self.tp_layout is not None:  # every rank joins the save
+                    due = rank0_decides(self.mesh, due, it, self.device)
+                if due:
+                    self._save(it)
                     last_ckpt_time = time.time()
-                if main and it % self.weights_only_interval == 0:
+                if it % self.weights_only_interval == 0:
                     self._save_weights_only(it)
                 if it >= self.max_iterations:
                     break
 
+        self._save(it)
+        self._save_weights_only(it)
         if main:
-            self.saver.save(self.state_dict(), it)
-            self._save_weights_only(it)
             self.saver.finish()  # the final snapshot is on disk before returning
         barrier(self.mesh)
         return self
+
+    def _save(self, it: int) -> None:
+        """The full train state to a checkpoint, written by rank 0 (under tp
+        every rank joins the gather)."""
+        main = is_main(self.mesh)
+        if main or self.tp_layout is not None:
+            state = self.state_dict()
+            if main:
+                self.saver.save(state, it)
 
     def weights_only_paths(self, it: int) -> List[str]:
         names = ["npcd"] + [f"npcd-ema_{cfg.param_string()}" for cfg in self.ema_cfgs]
@@ -340,17 +424,26 @@ class DiffusionTraining:
 
     def _save_weights_only(self, it: int) -> None:
         """npcd-iter-%09d.npz and npcd-ema_<params>-iter-%09d.npz: bridged
-        flat dicts (utils/from_jax.py) that ``load_npz`` loads into an NPCD."""
+        flat dicts (utils/from_jax.py) of full arrays that ``load_npz``
+        loads into an NPCD, written by rank 0 (under tp every rank joins
+        the gather)."""
+        main = is_main(self.mesh)
+        if not main and self.tp_layout is None:
+            return
+        bufs = [self._full(self.flat.params)] + [
+            self._full(self.emas[i]) for i in range(len(self.ema_cfgs))]
+        if not main:
+            return
+        as_dict = self.flat.as_dict if self.tp_layout is None else self.tp_layout.full_as_dict
         base = dict(self.export_extra)
         for name, stats in (("coords_norm", self.state.coords_norm),
                             ("feats_norm", self.state.feats_norm)):
             for f in _STATS:
                 base[f"{name}.{f}"] = getattr(stats, f).cpu().numpy()
-        bufs = [self.flat.params] + ([self.emas[i] for i in range(len(self.ema_cfgs))])
         for path, buf in zip(self.weights_only_paths(it), bufs):
             host = buf.detach().cpu()
             flat = dict(base)
             flat.update({f"diffusion.denoiser.{n}": v.numpy()
-                         for n, v in self.flat.as_dict(host).items()})
+                         for n, v in as_dict(host).items()})
             save_npz(path, flat)
             write_layout_meta(path, self.layout_meta)

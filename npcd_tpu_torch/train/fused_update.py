@@ -50,10 +50,15 @@ class FusedAdamWEma:
         return AdamState(0, torch.zeros_like(params), torch.zeros_like(params))
 
     def update(self, grads: torch.Tensor, params: torch.Tensor, adam: AdamState,
-               emas: Optional[torch.Tensor], step: int):
+               emas: Optional[torch.Tensor], step: int,
+               grad_norm: Optional[torch.Tensor] = None):
         """One step in place on params, adam.mu, adam.nu and emas
         [n_ema, *params.shape]; ``step`` is the train-state step counter
-        (the EMA update count) -> (AdamState with count + 1, grad_norm)."""
+        (the EMA update count) -> (AdamState with count + 1, grad_norm).
+        ``grad_norm`` (a device scalar) replaces the norm of ``grads`` for
+        the clip and is returned: the tensor-parallel step's norm over every
+        model rank's shards (parallel/tp_step.py), as npcd_tpu's
+        ``update(grad_norm=)``."""
         count_inc = adam.count + 1
         # [bc1, bc2, clip scale, decays...] in f32, as npcd_tpu computes them
         # (fused_update.py:127-130)
@@ -63,9 +68,9 @@ class FusedAdamWEma:
         decays = [ema_decay(cfg, step) for cfg in self.ema_cfgs]
         scalars = torch.tensor(np.asarray([bc1, bc2, 1.0, *decays], np.float32),
                                device=params.device)
-        grad_norm = None
         if self.clip_max_norm:
-            grad_norm = torch.linalg.vector_norm(grads)
+            if grad_norm is None:
+                grad_norm = torch.linalg.vector_norm(grads)
             scalars[2] = torch.where(grad_norm < self.clip_max_norm,
                                      torch.ones_like(grad_norm), self.clip_max_norm / grad_norm)
         sumsq = adamw_ema(grads, params, adam.mu, adam.nu, emas, scalars, b1=self.b1,

@@ -42,6 +42,22 @@ batch's objects. The clip and Adam run after the reduce on every rank, so
 the parameters stay equal across ranks. Rank 0 writes the checkpoints,
 exports, scalars and qualitatives; the others wait for it at a barrier at
 the end.
+
+With ``shard_tables`` (npcd_tpu's shard_pointnerf_params, which its CLI
+does not expose either) each rank keeps only the rows
+``Mesh.rows(n_obj, uneven=True)`` of both tables and of Adam's moments of
+the feats table (parallel/pointnerf_sharding.py). A step first fetches the
+global batch's rows with an all-reduce of the batch's object indices and
+one of the rows, each owner filling the rows it owns; the forward reads
+this rank's rows of that, and their gradient takes the place of the table
+gradient's rows in the reduce above, after which each owner adds the
+summed rows into its shard's gradient. Adam then decays every owned row
+every step, as npcd_tpu's dense adam does on the sharded table, and the
+clip's norm counts each row once (one more all-reduce of the shards' sums
+of squares). Checkpoints, exports and the qualitative re-render see the
+rows they need: the tables are gathered whole (every rank joins, rank 0
+writes) in the layout of an unsharded run, and a checkpoint of either
+layout restores into the other.
 """
 from __future__ import annotations
 
@@ -56,11 +72,12 @@ import torch
 
 from ..data import BatchLoader, collate, prefetch_to_device
 from ..losses import PointNeRFLossWeights, pointnerf_loss
-from ..models.pointnerf.embeddings import feats_mean_log_var_std
+from ..models.pointnerf.embeddings import mean_log_var_std
 from ..models.pointnerf.pointnerf import PointNeRF
 from ..parallel import barrier, is_main, mesh_world, replicate
+from ..parallel.pointnerf_sharding import add_rows_, fetch_rows, gather_rows, global_indices
 from ..utils import logging, writer
-from ..utils.checkpoint import CheckpointSaver, timed_save_due
+from ..utils.checkpoint import CheckpointSaver, rank0_decides, timed_save_due
 from ..utils.from_jax import LATENTS, save_npz
 from ..utils.util import psnr
 from .diffusion_training import _step_seed
@@ -87,11 +104,13 @@ class PointNeRFTraining:
         save_checkpoint_interval_min: float = 20.0,
         verbose: bool = True,
         mesh=None,
+        shard_tables: bool = False,
         **_,
     ):
         """``model``: a PointNeRF with its latent tables (n_obj objects) and
         ``renderer.ray_subsamples`` set (the pixels presampled per step).
-        ``mesh``: a parallel.Mesh whose device the trainer runs on."""
+        ``mesh``: a parallel.Mesh whose device the trainer runs on.
+        ``shard_tables``: each rank keeps its rows of the tables."""
         if batch_size % mesh_world(mesh):
             raise ValueError(f"global batch_size {batch_size} must divide by the world "
                              f"{mesh_world(mesh)}")
@@ -120,9 +139,18 @@ class PointNeRFTraining:
         if not model.opts.renderer.ray_subsamples:
             raise ValueError("PointNeRFTraining presamples renderer.ray_subsamples pixels per "
                              "step; full-frame training is not ported")
-        self.model = model.to(self.device).train()
         model.set_all_coords(dataset.get_all_coords())  # npcd_tpu :119
-        replicate(list(model.parameters()), mesh)
+        self.n_obj = model.tables.coords_table.shape[0]
+        self.own = None  # this rank's rows of the tables, when sharded
+        if shard_tables:
+            self.own = slice(0, self.n_obj) if mesh is None else mesh.rows(self.n_obj,
+                                                                           uneven=True)
+            model.tables.coords_table = model.tables.coords_table[self.own].clone()
+            model.tables.feats_table = torch.nn.Parameter(
+                model.tables.feats_table.detach()[self.own].clone())
+        self.model = model.to(self.device).train()
+        replicate([p for p in model.parameters()
+                   if self.own is None or p is not model.tables.feats_table], mesh)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=base_learning_rate,
                                           betas=(0.9, 0.999), eps=1e-8)
         self._presample_rng = np.random.default_rng(seed + 0x51D)
@@ -145,14 +173,52 @@ class PointNeRFTraining:
 
     # -- state ---------------------------------------------------------------
 
+    def _table_index(self) -> int:
+        """The feats table's place in the optimizer's parameter order."""
+        return next(i for i, p in enumerate(self.model.parameters())
+                    if p is self.model.tables.feats_table)
+
+    def _whole(self, rows: torch.Tensor) -> torch.Tensor:
+        """A table's (or a moment's) rows on this rank -> the whole table
+        (gathered when sharded: every rank joins)."""
+        return rows if self.own is None else gather_rows(rows, self.own, self.n_obj, self.mesh)
+
     def state_dict(self) -> Dict[str, Any]:
-        """The full train state (tensors are the live buffers)."""
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "presample_rng": self._presample_state}
+        """The full train state in the layout of an unsharded run (tensors
+        are the live buffers; with sharded tables fresh whole ones: every
+        rank must call it)."""
+        model, optimizer = self.model.state_dict(), self.optimizer.state_dict()
+        if self.own is not None:
+            model = {**model, **{k: self._whole(model[k]) for k in
+                                 ("tables.coords_table", "tables.feats_table")}}
+            i = self._table_index()
+            if i in optimizer["state"]:
+                st = optimizer["state"][i]
+                optimizer["state"][i] = {**st, "exp_avg": self._whole(st["exp_avg"]),
+                                         "exp_avg_sq": self._whole(st["exp_avg_sq"])}
+        return {"model": model, "optimizer": optimizer, "step": self.step,
+                "presample_rng": self._presample_state}
+
+    def _mine(self, full) -> torch.Tensor:
+        """A whole table's (or moment's) rows of this rank."""
+        full = torch.as_tensor(full)
+        return full if self.own is None else full[self.own]
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Copy a ``state_dict`` (e.g. a restored checkpoint, sharded or
+        not) into the trainer."""
+        model, optimizer = dict(state["model"]), state["optimizer"]
+        if self.own is not None:
+            for k in ("tables.coords_table", "tables.feats_table"):
+                model[k] = self._mine(model[k])
+            i = self._table_index()
+            if i in optimizer["state"]:
+                st = optimizer["state"][i]
+                optimizer = {**optimizer, "state": {**optimizer["state"], i: {
+                    **st, "exp_avg": self._mine(st["exp_avg"]),
+                    "exp_avg_sq": self._mine(st["exp_avg_sq"])}}}
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(state["step"])
         self._presample_state = state["presample_rng"]
         self._presample_rng.bit_generator.state = json.loads(self._presample_state)
@@ -164,14 +230,15 @@ class PointNeRFTraining:
         if set(bridged["mu"]) != set(named):
             raise ValueError(f"Adam moments for {sorted(bridged['mu'])}, "
                              f"parameters {sorted(named)}")
-        self.model.load_state_dict({k: torch.as_tensor(v) for k, v in bridged["params"].items()})
+        rows = lambda k, v: self._mine(v) if k.startswith("tables.") else torch.as_tensor(v)
+        self.model.load_state_dict({k: rows(k, v) for k, v in bridged["params"].items()})
         count = int(bridged["count"])
         with torch.no_grad():
             for name, p in named.items():
                 self.optimizer.state[p] = {
                     "step": torch.tensor(float(count)),
-                    "exp_avg": torch.as_tensor(bridged["mu"][name]).to(p.device).clone(),
-                    "exp_avg_sq": torch.as_tensor(bridged["nu"][name]).to(p.device).clone()}
+                    "exp_avg": rows(name, bridged["mu"][name]).to(p.device).clone(),
+                    "exp_avg_sq": rows(name, bridged["nu"][name]).to(p.device).clone()}
         self.step = int(bridged["step"])
 
     # -- step ----------------------------------------------------------------
@@ -240,17 +307,35 @@ class PointNeRFTraining:
         draws = {k: torch.as_tensor(v).to(dev) for k, v in (draws or {}).items()}
         self.optimizer.zero_grad(set_to_none=False)
         generator = self._generator.manual_seed(_step_seed(self.seed, self.step))
+        rows = None
+        if self.own is not None:  # the global batch's rows, then this rank's
+            gidx = global_indices(feed["obj_idx"], self.mesh)
+            tables = self.model.tables
+            coords = fetch_rows(tables.coords_table, self.own, gidx, self.mesh)
+            feats = fetch_rows(tables.feats_table, self.own, gidx, self.mesh).requires_grad_()
+            mine = slice(None) if self.mesh is None else self.mesh.rows(len(gidx))
+            rows = (gidx, feats, (coords[mine], feats[mine]))
         pred, aux = self.model(feed["obj_idx"], feed["intrinsics"], feed["extrinsics"],
                                feed["pixel_idx"], generator=generator, draws=draws,
-                               mesh=self.mesh)
+                               mesh=self.mesh, table_rows=None if rows is None else rows[2])
         loss, sub_losses = pointnerf_loss({"images": feed["images"]}, pred, aux,
                                           self.model.opts, self.loss_weights, self.mesh)
         loss.backward()
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in sub_losses.items()}}
-        if self.mesh is not None:
+        if rows is not None:
+            metrics = self._all_reduce_rows(rows[0], rows[1].grad, metrics)
+        elif self.mesh is not None:
             metrics = self._all_reduce_sum(feed["obj_idx"], metrics)
         grads = [p.grad for p in self.model.parameters()]
-        metrics["grad_norm"] = norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        if rows is None:
+            metrics["grad_norm"] = norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        else:  # the shards' rows summed over the ranks, counted once each
+            table = self.model.tables.feats_table.grad
+            table_sq = (table * table).sum().reshape(1)
+            if self.mesh is not None:
+                self.mesh.all_reduce_(table_sq)
+            metrics["grad_norm"] = norm = torch.sqrt(
+                sum((g * g).sum() for g in grads if g is not table) + table_sq[0])
         if self.grad_clip_max_norm:  # optax.clip_by_global_norm
             scale = torch.where(norm < self.grad_clip_max_norm, torch.ones_like(norm),
                                 self.grad_clip_max_norm / norm)
@@ -298,6 +383,31 @@ class PointNeRFTraining:
             p.grad.copy_(other[offset:offset + p.numel()].view_as(p.grad))
             offset += p.numel()
         return {k: buf[len(buf) - len(names) + i] for i, k in enumerate(names)}
+
+    def _all_reduce_rows(self, gidx: torch.Tensor, rows_grad: torch.Tensor,
+                         metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The sharded tables' reduce: the fetched rows' gradient [n x dp, P,
+        2F] (this rank's rows of it nonzero), the MLPs' gradients and
+        ``metrics`` summed over the ranks in one all-reduce; each owner adds
+        the summed rows of its objects into its shard's zeroed gradient ->
+        the summed metrics."""
+        table = self.model.tables.feats_table
+        others = [p for p in self.model.parameters() if p is not table]
+        names = list(metrics)
+        buf = torch.cat([rows_grad.reshape(-1)] + [p.grad.reshape(-1) for p in others]
+                        + [torch.stack([metrics[k].float() for k in names])])
+        if self.mesh is not None:
+            self.mesh.all_reduce_(buf)
+        n_rows = rows_grad.numel()
+        if table.grad is None:  # the table is not in the autograd graph
+            table.grad = torch.zeros_like(table)
+        table.grad.zero_()
+        add_rows_(table.grad, self.own, gidx, buf[:n_rows].view_as(rows_grad))
+        offset = n_rows
+        for p in others:
+            p.grad.copy_(buf[offset:offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+        return {k: buf[offset + i] for i, k in enumerate(names)}
 
     # -- loop ----------------------------------------------------------------
 
@@ -353,11 +463,15 @@ class PointNeRFTraining:
                         writer.put_scalar_dict("pointnerf_train",
                                                {k: float(v) for k, v in metrics.items()}, it)
                         writer.write_out_storage()
-                    if main and self.log_interval and it % self.log_interval == 0:
+                    if self.log_interval and it % self.log_interval == 0 and (
+                            main or self.own is not None):
                         self._log_qualitative(feed, it)
-                    if main and timed_save_due(last_ckpt_time, self.save_checkpoint_interval_min,
-                                               iteration=it):
-                        self.saver.save(self.state_dict(), it)
+                    due = main and timed_save_due(last_ckpt_time,
+                                                  self.save_checkpoint_interval_min, iteration=it)
+                    if self.own is not None:  # every rank joins the save
+                        due = rank0_decides(self.mesh, due, it, self.device)
+                    if due:
+                        self._save(it)
                         last_ckpt_time = time.time()
                     if it >= self.max_iterations:
                         break
@@ -365,22 +479,45 @@ class PointNeRFTraining:
             # the prefetch thread drew ahead; rewind to the last consumed draw
             self._presample_rng.bit_generator.state = json.loads(self._presample_state)
 
+        self._save(it)
+        self.save_weights_only(self.weights_only_path(it))
         if main:
-            self.saver.save(self.state_dict(), it)
-            self.save_weights_only(self.weights_only_path(it))
             self.saver.finish()  # the final snapshot is on disk before returning
         barrier(self.mesh)
         return self
+
+    def _save(self, it: int) -> None:
+        """The train state to a checkpoint, written by rank 0 (with sharded
+        tables every rank joins the gather)."""
+        main = is_main(self.mesh)
+        if main or self.own is not None:
+            state = self.state_dict()
+            if main:
+                self.saver.save(state, it)
 
     def _log_qualitative(self, feed: Mapping[str, Any], it: int) -> None:
         """Eval-mode render of the consumed batch's first object and first
         view (npcd_tpu pointnerf_training.py:287-313): its PSNR against the
         ground truth, both images, and the object's feature statistics.
-        A failure is logged and never stops training."""
+        A failure is logged and never stops training. With sharded tables
+        every rank joins the fetch of rank 0's object, and rank 0 renders."""
+        obj_idx = feed["obj_idx"][:1]
+        rows = None
+        if self.own is not None:
+            gidx = global_indices(obj_idx, self.mesh)[:1]
+            rows = (fetch_rows(self.model.tables.coords_table, self.own, gidx, self.mesh),
+                    fetch_rows(self.model.tables.feats_table, self.own, gidx, self.mesh))
+        if not is_main(self.mesh):
+            return
         try:
-            obj_idx = feed["obj_idx"][:1]
-            out = self.model.eval_forward(obj_idx, feed["intrinsics"][:1, :1],
-                                          feed["extrinsics"][:1, :1])
+            intrinsics, extrinsics = feed["intrinsics"][:1, :1], feed["extrinsics"][:1, :1]
+            if rows is None:
+                out = self.model.eval_forward(obj_idx, intrinsics, extrinsics)
+                emb = self.model.tables.feats_table[obj_idx]
+            else:
+                emb = rows[1]
+                out = self.model.render(rows[0], mean_log_var_std(emb)[0], extrinsics,
+                                        intrinsics, resolution=self.model.opts.default_resolution)
             res = self.model.opts.default_resolution
             img = np.clip(out["channels"][0, 0].float().cpu().numpy().reshape(res, res, 3), 0, 1)
             gt = np.asarray(self._host_batch(feed["indices"][:1])["images"][0, 0])
@@ -389,7 +526,7 @@ class PointNeRFTraining:
             writer.put_image("pointnerf_train/render", img, it)
             writer.put_image("pointnerf_train/gt", gt, it)
             with torch.no_grad():
-                f_mean, _, f_std = feats_mean_log_var_std(self.model.tables.feats_table, obj_idx)
+                f_mean, _, f_std = mean_log_var_std(emb)
                 writer.put_scalar("pointnerf_train/feats_mean_abs", float(f_mean.abs().mean()), it)
                 writer.put_scalar("pointnerf_train/feats_std_mean", float(f_std.mean()), it)
             writer.write_out_storage()
@@ -402,9 +539,18 @@ class PointNeRFTraining:
     def save_weights_only(self, path: str) -> None:
         """The bridged .npz that train_diffusion --pointnerf_weights and
         generate_samples --weights read: latents.coords_table [n_obj, P, 3],
-        latents.feats_table [n_obj, P, F] (the mean half) and pointnerf.*."""
+        latents.feats_table [n_obj, P, F] (the mean half) and pointnerf.*,
+        written by rank 0 (with sharded tables every rank joins the
+        gather)."""
+        main = is_main(self.mesh)
+        if not main and self.own is None:
+            return
+        coords = self._whole(self.model.get_all_coords())
+        feats = self._whole(self.model.get_all_feats().contiguous())
+        if not main:
+            return
         flat = {f"pointnerf.{k}": v.detach().cpu().numpy()
                 for k, v in self.model.mlp_state_dict().items()}
-        flat[f"{LATENTS}.coords_table"] = self.model.get_all_coords().cpu().numpy()
-        flat[f"{LATENTS}.feats_table"] = self.model.get_all_feats().detach().cpu().numpy()
+        flat[f"{LATENTS}.coords_table"] = coords.cpu().numpy()
+        flat[f"{LATENTS}.feats_table"] = feats.detach().cpu().numpy()
         save_npz(path, flat)

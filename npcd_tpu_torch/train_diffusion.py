@@ -24,9 +24,14 @@ environment (``python -m torch.distributed.run --nproc-per-node N -m
 npcd_tpu_torch.train_diffusion --mesh ...``) it joins that group; alone it
 starts one worker a visible card (a group of one on one card or with
 ``--device cpu``). The config's batch_size is the global batch, and rank 0
-writes the outputs. ``--tp > 1`` (tensor parallelism) is not ported yet and
-raises NotImplementedError; ``--platform`` chooses a JAX backend and is
-refused.
+writes the outputs. ``--tp N`` trains with tensor parallelism
+(parallel/tp_step.py) over a (world // N, N) mesh of the same group,
+joined or started as ``--mesh`` does; N must divide the world, the model's
+heads and its qkv_groups (ValueError otherwise, as npcd_tpu raises). NCCL
+takes one card a rank; ranks that share a card run under a launcher with
+gloo (parallel.make_mesh(backend="gloo")). Checkpoints and exports hold
+full arrays, as a tp=1 run writes them. ``--platform`` chooses a JAX
+backend and is refused.
 """
 from __future__ import annotations
 
@@ -58,7 +63,10 @@ def parse_args(argv=None):
                    help="Log to Weights & Biases (requires the wandb package).")
     p.add_argument("--exp_id", type=str, help="Experiment ID.")
     p.add_argument("--comment", type=str, help="Comment for the experiment.")
-    p.add_argument("--tp", type=int, default=1, help="Tensor-parallel degree (1 only).")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Megatron tensor-parallel degree over a (world // tp, tp) mesh of the "
+                        "launcher's group (or of a worker a visible card); tp must divide the "
+                        "world, the model's heads and its qkv_groups. Default: 1.")
     p.add_argument("--mesh", action="store_true",
                    help="Data parallelism over every visible card (or the launcher's group).")
     p.add_argument("--platform", type=str, default=None,
@@ -93,10 +101,10 @@ def train(args, config=None):
     from .utils.builders import build_diffusion_model, torch_dtype
     from .utils.config import load_config, print_config
 
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1: tensor parallelism is ROADMAP Queue 1 item 9 "
-                                  "('Tensor parallelism'), not ported yet")
+    args.mesh = args.mesh or args.tp > 1  # tensor parallelism runs on a mesh
     device, mesh = start(args)
+    if args.tp > 1:  # npcd_tpu's ValueError before anything is loaded
+        mesh = mesh.with_tp(args.tp)
     open_output(args, args.output, mesh)
     try:
         config = config if config is not None else load_config(args.config)
@@ -110,7 +118,7 @@ def train(args, config=None):
         model = build_diffusion_model(config, dtype=torch_dtype(dtype), remat=remat)
         training = DiffusionTraining(out_dir=args.output, model=model,
                                      dataset=dataset, seed=args.seed, device=device,
-                                     export_extra=pointnerf, mesh=mesh,
+                                     export_extra=pointnerf, mesh=mesh, tp=args.tp,
                                      **config["diffusion_training"])
         training()
     finally:
@@ -119,13 +127,13 @@ def train(args, config=None):
 
 
 def main(argv=None):
-    """The command line -> the trainer. ``--mesh`` alone on several cards
-    starts a worker a card, each running this again under the launcher's
-    environment, and -> None."""
+    """The command line -> the trainer. ``--mesh`` or ``--tp`` > 1 alone on
+    several cards starts a worker a card, each running this again under the
+    launcher's environment, and -> None."""
     from .parallel import spawn_cli
 
     args = parse_args(argv)
-    if args.mesh and spawn_cli(main, argv, args.device):
+    if (args.mesh or args.tp > 1) and spawn_cli(main, argv, args.device):
         return None
     return train(args)
 

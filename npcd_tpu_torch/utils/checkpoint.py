@@ -59,13 +59,26 @@ def check_layout_meta(ckpt_path: str, expected: dict, what: str = "checkpoint",
             + ". Shapes match, so a plain load would silently permute attention channels.")
 
 
+# the iterations at which timed_save_due consults the clock
+CHECK_EVERY = 50
+
+
 def timed_save_due(last_save_time: float, interval_min: float,
-                   iteration: Optional[int] = None, check_every: int = 50) -> bool:
+                   iteration: Optional[int] = None, check_every: int = CHECK_EVERY) -> bool:
     """Wall-clock checkpoint trigger, consulted every ``check_every``
     iterations (one process: no broadcast needed)."""
     if iteration is not None and iteration % check_every != 0:
         return False
     return (time.time() - last_save_time) / 60 > interval_min
+
+
+def rank0_decides(mesh, due: bool, iteration: int, device) -> bool:
+    """Rank 0's ``due`` (a timed_save_due answer) on every rank of ``mesh``,
+    for a save that every rank joins: a broadcast at the iterations the
+    clock is consulted, False at the others."""
+    if mesh is None or iteration % CHECK_EVERY:
+        return due
+    return bool(mesh.broadcast_(torch.tensor([float(due)], device=device)))
 
 
 def _iter_of(path: str) -> Optional[int]:

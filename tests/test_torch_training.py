@@ -375,12 +375,23 @@ def test_cli_trains_then_generates_from_the_ema_export(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """--platform (a JAX backend flag) is refused; --tp is ported, and a
+    degree that does not divide the world (a group of one here) raises
+    npcd_tpu's ValueError before anything is loaded."""
+    import torch.distributed as dist
+
     from npcd_tpu_torch.train_diffusion import parse_args, train
 
     base = ["--config", "x.yaml", "--output", str(tmp_path), "--pointnerf_weights", "x.npz",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train(parse_args(base + ["--tp", "2"]))
+    with pytest.raises(ValueError, match="--platform tpu"):
+        train(parse_args(base + ["--platform", "tpu"]))
+    try:
+        with pytest.raises(ValueError, match="tp=2 does not divide device count 1"):
+            train(parse_args(base + ["--tp", "2"]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_cli_mesh_on_two_ranks(tmp_path):

@@ -300,6 +300,183 @@ def launched_failure(bad_rank):
     mesh.barrier()
 
 
+# -- tensor parallelism and sharded tables ---------------------------------------------------
+
+
+def _local_norm(grads, layout, mesh):
+    """Planted fault: grad_norm from this rank's buffer alone."""
+    return torch.linalg.vector_norm(grads)
+
+
+def _summed_g(y, mesh):
+    """Planted fault: torch.distributed.nn's all_reduce as the "g" operator,
+    whose backward sums the cotangent over the model group again."""
+    import torch.distributed.nn.functional as dist_fn
+
+    return dist_fn.all_reduce(y, group=mesh.model_group)
+
+
+def _world_mean(grads, metrics, mesh):
+    """Planted fault: the data mean taken over the world."""
+    mesh.all_reduce_(grads).div_(mesh.world)
+    return {k: mesh.all_reduce_(v.detach().clone()) / mesh.world for k, v in metrics.items()}
+
+
+TP_FAULTS = {"norm": ("diffusion_training", "tp_grad_norm", _local_norm),
+             "g": ("transformer", "tp_reduce", _summed_g),
+             "mean": ("diffusion_training", "all_reduce_mean_", _world_mean)}
+
+
+def _tp_trainer(model_kw, coords, feats, batch_size, lr, wd, ema, clip, out_dir, tp, mesh,
+                max_iterations=100):
+    from npcd_tpu_torch.data import PointNeRFDataset
+    from npcd_tpu_torch.models.diffusion.diffusion_model import DiffusionModel
+    from npcd_tpu_torch.train import DiffusionTraining
+
+    return DiffusionTraining(out_dir, DiffusionModel(**model_kw), PointNeRFDataset(coords, feats),
+                             batch_size=batch_size, base_learning_rate=lr, weight_decay=wd,
+                             max_iterations=max_iterations, use_ema=True, ema_params=[ema],
+                             grad_clip_max_norm=clip, device="cpu",
+                             save_checkpoint_interval_min=1e9, weights_only_interval=10**9,
+                             verbose=False, print_interval=1, mesh=mesh, tp=tp)
+
+
+def tp_steps(model_kw, bridged, coords, feats, batches, draws, lr, wd, ema, clip, out_dir,
+             tp=2, fault=None):
+    """DiffusionTraining(tp=).train_step on this rank's data rows of each
+    global batch with the global draws, from the bridged train state -> each
+    step's metrics, then the train state gathered full (params, mu, nu,
+    EMAs), this rank's flat params and its (data, model) index. ``fault``:
+    one of TP_FAULTS."""
+    from npcd_tpu_torch.models.diffusion import transformer
+    from npcd_tpu_torch.parallel import shard_batch
+    from npcd_tpu_torch.train import diffusion_training
+
+    where = {"diffusion_training": diffusion_training, "transformer": transformer}
+    module, name, value = TP_FAULTS[fault] if fault else ("transformer", "tp_reduce", None)
+    with _patched(where[module], name, value):
+        trainer = _tp_trainer(model_kw, coords, feats, len(batches[0]["coords"]), lr, wd, ema,
+                              clip, out_dir, tp, _mesh())
+        trainer.load_bridged_state(bridged)
+        steps = []
+        for batch, d in zip(batches, draws):
+            m = trainer.train_step(shard_batch(batch, trainer.mesh),
+                                   draws=tuple(map(torch.as_tensor, d)))
+            steps.append({k: float(v) for k, v in m.items()})
+        state = trainer.state_dict()
+    mesh = trainer.mesh
+    return {"steps": steps, "params": _np(state["params"]), "mu": _np(state["mu"]),
+            "nu": _np(state["nu"]), "emas": _np(state["emas"]), "step": trainer.step,
+            "local": _np(trainer.flat.params), "index": (mesh.data_index, mesh.model_index)}
+
+
+def tp_run(model_kw, coords, feats, lr, wd, ema, out_dir, tp1_dir, max_iterations):
+    """A DiffusionTraining(tp=2) run of ``max_iterations`` steps at a global
+    batch of 4 (rank 0 writes), then a tp=2 trainer on ``tp1_dir`` (a tp=1
+    run's checkpoint) -> the run's losses, its local and gathered params
+    and EMAs, and the restored trainer's step and gathered params."""
+    mesh = _mesh()
+    trainer = _tp_trainer(model_kw, coords, feats, 4, lr, wd, ema, None, out_dir, 2, mesh,
+                          max_iterations)()
+    state = trainer.state_dict()
+    restored = _tp_trainer(model_kw, coords, feats, 4, lr, wd, ema, None, tp1_dir, 2, mesh,
+                           max_iterations)
+    return {"losses": [h["loss"] for h in trainer.history], "local": _np(trainer.flat.params),
+            "params": _np(state["params"]), "emas": _np(state["emas"]),
+            "restored_step": restored.step,
+            "restored_params": _np(restored.state_dict()["params"])}
+
+
+def _skip_decay(optimizer, table, gidx_of):
+    """Planted fault: Adam moves only the owned rows of this step's batch;
+    the other rows of the shard keep their values and moments."""
+    step = optimizer.step
+
+    def masked():
+        keep = torch.ones(table.shape[0], dtype=torch.bool)
+        keep[gidx_of()] = False
+        st = optimizer.state.get(table)
+        saved = [table.detach().clone()] + ([st["exp_avg"].clone(), st["exp_avg_sq"].clone()]
+                                            if st else [])
+        step()
+        with torch.no_grad():
+            table[keep] = saved[0][keep]
+            if st:
+                st["exp_avg"][keep] = saved[1][keep]
+                st["exp_avg_sq"][keep] = saved[2][keep]
+    optimizer.step = masked
+
+
+def sharded_stage1_steps(config, bridged, weights, lr, batches, draws, out_dir, fault=False):
+    """PointNeRFTraining(shard_tables=True).train_step on this rank's rows of
+    each global batch with the global draws, from the bridged train state
+    -> each step's metrics, the parameters with the tables gathered whole,
+    this rank's table shards and its rows. ``fault``: the owner skips the
+    decay of its rows outside the batch."""
+    from npcd_tpu_torch.data import SyntheticNPCTrain
+    from npcd_tpu_torch.losses import PointNeRFLossWeights
+    from npcd_tpu_torch.parallel import shard_batch
+    from npcd_tpu_torch.train import PointNeRFTraining
+    from npcd_tpu_torch.utils.builders import build_pointnerf
+
+    mesh = _mesh()
+    trainer = PointNeRFTraining(out_dir, build_pointnerf(config, with_tables=True),
+                                SyntheticNPCTrain(**config["dataset_kwargs"]),
+                                batch_size=len(batches[0]["obj_idx"]), base_learning_rate=lr,
+                                max_epochs=100, loss_weights=PointNeRFLossWeights(*weights),
+                                device="cpu", save_checkpoint_interval_min=1e9, verbose=False,
+                                mesh=mesh, shard_tables=True)
+    trainer.load_bridged_state(bridged)
+    table = trainer.model.tables.feats_table
+    current = {}
+    if fault:
+        own = trainer.own
+        _skip_decay(trainer.optimizer, table, lambda: [
+            i - own.start for i in current["idx"] if own.start <= i < own.stop])
+    steps = []
+    for batch, d in zip(batches, draws):
+        current["idx"] = [int(i) for i in batch["obj_idx"]]
+        m = trainer.train_step(shard_batch(batch, mesh), draws=d)
+        steps.append({k: float(v) for k, v in m.items()})
+    params = {n: _np(p) for n, p in trainer.model.named_parameters()}
+    params["tables.feats_table"] = _np(trainer._whole(table))
+    params["tables.coords_table"] = _np(trainer._whole(trainer.model.tables.coords_table))
+    return {"steps": steps, "params": params, "shard": _np(table),
+            "coords_shard": _np(trainer.model.tables.coords_table),
+            "own": (trainer.own.start, trainer.own.stop)}
+
+
+def sharded_stage1_run(config, out_dir, replicated_dir):
+    """A PointNeRFTraining(shard_tables=True) run of the config's steps
+    (rank 0 writes), then a sharded trainer on ``replicated_dir`` (an
+    unsharded run's checkpoint) -> the run's whole tables and shards, and
+    the restored trainer's step, shard and rows."""
+    import random
+
+    from npcd_tpu_torch.losses import PointNeRFLossWeights
+    from npcd_tpu_torch.train import PointNeRFTraining
+    from npcd_tpu_torch.utils.builders import build_dataset, build_pointnerf
+
+    mesh = _mesh()
+    t = config["pointnerf_training"]
+
+    def make(out):
+        return PointNeRFTraining(out, build_pointnerf(config, torch.Generator().manual_seed(42),
+                                                      with_tables=True),
+                                 build_dataset(config, view_rng=random.Random(42)),
+                                 loss_weights=PointNeRFLossWeights(1.0, 1e-7, 3.5e-7), seed=42,
+                                 device="cpu", verbose=False, mesh=mesh, shard_tables=True,
+                                 **t)
+    trainer = make(out_dir)()
+    table = trainer.model.tables.feats_table
+    restored = make(replicated_dir)
+    return {"step": trainer.step, "table": _np(trainer._whole(table)), "shard": _np(table),
+            "own": (trainer.own.start, trainer.own.stop), "restored_step": restored.step,
+            "restored_shard": _np(restored.model.tables.feats_table),
+            "restored_mu": _np(restored.optimizer.state[
+                restored.model.tables.feats_table]["exp_avg"])}
+
+
 def main():
     tmp = sys.argv[1]
     torch.set_num_threads(1)
@@ -309,6 +486,13 @@ def main():
     rank = int(os.environ["RANK"])
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
+    # leave the group together: a rank whose group outlives rank 0's store
+    # can abort at exit ("terminate called without an active exception")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
