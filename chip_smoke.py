@@ -306,6 +306,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
      restores its checkpoint (step 3, the parameters bitwise its export's),
      and --tp 2 over NCCL on the one card raises "tp=2 does not divide
      device count 1". Prints the phase's seconds.
+ 28. the FID eval through a full-width InceptionV3 (path "fid eval
+     inception"): python -m npcd_tpu_torch.eval_diffusion's code path on
+     configs/npcd_srncars.yaml (phase 5's seeded weights, validity from the
+     config) with a KerasInceptionExtractor (utils/inception_keras.py) of
+     seeded random keras weights on the card at 299^2, 2048 features,
+     batch 64, in place of phase 19's projection: 2 samples x 32 SRN test
+     poses at 128^2 in one group, the real statistics from the same
+     extractor on 64 seeded images; fid and kid, finite. Then the extractor
+     alone: a batch of 64 images at 128^2 timed with CUDA events (the
+     median of 20) in images/s beside its FP32 bound (the conv table's
+     operations over 67 TFLOP/s), the protocol's 251,000 images
+     extrapolated; its features on 4 images against the port's CPU
+     features, within INCEPTION_GATE of their scale, and a TF32 control
+     (cuDNN's TF32 on) that must fall outside the gate.
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (bytes over 3.35 TB/s, or operations
 over 67 TFLOP/s in FP32 and 989 TFLOP/s for the bf16 kernels (the dense
@@ -389,6 +403,8 @@ from npcd_tpu_torch.utils.config import load_config  # noqa: E402
 from npcd_tpu_torch.utils.convert_reference import convert_checkpoint, save_converted  # noqa: E402
 from npcd_tpu_torch.utils.fidkid import FIDKID, ProjectionExtractor  # noqa: E402
 from npcd_tpu_torch.utils.from_jax import load_npz, save_npz  # noqa: E402
+from npcd_tpu_torch.utils.inception_keras import (  # noqa: E402
+    KerasInceptionExtractor, conv_flops, inception_v3_features, random_weights, resize)
 from npcd_tpu_torch.profile_generation import _report  # noqa: E402
 from npcd_tpu_torch.utils import builders  # noqa: E402
 from npcd_tpu_torch.utils.util import psnr  # noqa: E402
@@ -570,6 +586,14 @@ DP_TOLERANCE = {("stage2", "grad_norm"): 2.5e-4, ("stage2", "loss"): 2e-5,
 DP_FID = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn", "min_d2",
           "fused_mlp_posenc_wsum")
 DP_PSNR = ("knn", "min_d2", "fused_mlp_posenc_wsum (bf16)", "fused_mlp")
+# phase 28: the FID eval's InceptionV3 (the f32 render's kernels); its batch,
+# timed runs, the protocol's images (1000 objects x 251 poses) and the gate
+# of the card's features against the CPU's, relative to their scale: the
+# convolutions in exact f32 sum in another order (~1e-6), TF32 rounds each
+# product's operands to 10 mantissa bits (~1e-3)
+FID_INCEPTION = ("fused_qkv_attention", "layer_norm", "layer_norm_residual", "knn", "min_d2",
+                 "fused_mlp_posenc_wsum")
+INCEPTION_BATCH, INCEPTION_RUNS, PROTOCOL_IMAGES, INCEPTION_GATE = 64, 20, 1000 * 251, 1e-4
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, FP32
 # operations/s outside the tensor cores, dense BF16 tensor-core
 # operations/s (the bound of the bf16 kernels) and dense TF32 tensor-core
@@ -4088,6 +4112,116 @@ def phase_tp(ref: dict, results: dict) -> dict:
     return launches
 
 
+def phase_fid_inception() -> dict:
+    """Phase 28: the FID eval through a full-width keras-weights InceptionV3
+    (see the module docstring)."""
+    out = OUT / "fid-eval-inception"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    weights = OUT / "seeded_npcd.npz"
+    if not weights.exists():  # phase 5 writes it
+        write_seeded_weights(str(SRNCARS), str(weights), seed=0)
+    res = 128
+    keras = random_weights(0)
+    ext = KerasInceptionExtractor(keras, batch_size=INCEPTION_BATCH, device="cuda")
+    reals = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (64, res, res, 3)).astype(np.float32)).cuda()
+    real = ext(reals)
+    pkl = out / "real_stats.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"mean": real.mean(0), "cov": np.cov(real, rowvar=False), "feats_np": real}, f)
+
+    fed = []
+
+    class Feed:  # the extractor, and what the eval fed it
+        device_resident = True
+
+        def __call__(self, images):
+            fed.append((images.is_cuda, tuple(images.shape)))
+            return ext(images)
+
+    config = load_config(str(SRNCARS))
+    config["diffusion_evaluation"].update(
+        num_samples=2, generate_batch_size=2, max_poses=FID_POSES, resolution=res,
+        feature_extractor=Feed(), inception_pkl_path=str(pkl),
+        poses_path=str(ROOT / "data/srncars_test_poses.npy"),
+        intrinsics_path=str(ROOT / "data/srncars_test_intrinsics.npy"))
+    args = eval_diffusion.parse_args([
+        "--config", str(SRNCARS), "--weights", str(weights), "--output", str(out / "run"),
+        "--device", "cuda", "--no_tensorboard", "--seed", "0", "--num_qualitatives", "1"])
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = eval_diffusion.evaluate(args, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    print(f"[fid-eval-inception] 2 samples x {FID_POSES} SRN test poses at {res}^2, InceptionV3 "
+          f"at 299^2 (seeded keras weights), batch {INCEPTION_BATCH}, fed {fed}: "
+          + " ".join(f"{k} {v:.6g}" for k, v in results.items())
+          + f"; {wall:.1f} s with the model's build and load")
+    if fed != [(True, (2 * FID_POSES, res, res, 3))] or not np.isfinite(
+            list(results.values())).all() or not np.isfinite(real).all() or real.std() == 0:
+        raise AssertionError(f"FID eval through InceptionV3: fed {fed}, {results}")
+
+    # the extractor alone: a batch of the renders' size
+    x = reals[:INCEPTION_BATCH]
+
+    def tf32_features(images):  # the control: the extractor's network with cuDNN's TF32 on
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return inception_v3_features(ext.params, resize(images) * 2.0 - 1.0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+
+    def median_ms(features) -> float:
+        for _ in range(3):
+            features(x)
+        times = []
+        for _ in range(INCEPTION_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            features(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    ms, ms_tf32 = median_ms(ext.features), median_ms(tf32_features)
+    flops = INCEPTION_BATCH * conv_flops()
+    moved = 4 * (x.numel() + sum(w.numel() + b.numel() for w, b in ext.params)
+                 + INCEPTION_BATCH * ext.feature_dim)
+    bound_ms = 1e3 * max(flops / FP32_FLOP_S, moved / HBM_BYTES_S)
+    rate = INCEPTION_BATCH / ms * 1e3
+    print(f"[fid-eval-inception] extractor, a batch of {INCEPTION_BATCH} at {res}^2 -> 299^2: "
+          f"{ms:.4f} ms (median of {INCEPTION_RUNS}), {rate:.1f} images/s; FP32 bound "
+          f"{bound_ms:.4f} ms ({flops / 1e12:.4f} TFLOP at 67 TFLOP/s; {moved / 1e6:.1f} MB), "
+          f"{100 * bound_ms / ms:.1f}% of it; the protocol's {PROTOCOL_IMAGES} images "
+          f"{PROTOCOL_IMAGES / rate:.1f} s; with cuDNN's TF32 on {ms_tf32:.4f} ms")
+
+    four = x[:4]
+    cpu = KerasInceptionExtractor(keras, device="cpu")(four.cpu().numpy())
+    flags = torch.backends.cudnn.allow_tf32
+    card = ext(four)
+    if torch.backends.cudnn.allow_tf32 != flags:
+        raise AssertionError("the extractor did not restore cuDNN's TF32 flag")
+    with torch.no_grad():
+        card_tf32 = tf32_features(four).cpu().numpy()
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max()) / scale
+    err_tf32 = float(np.abs(card_tf32 - cpu).max()) / scale
+    print(f"[fid-eval-inception] card vs the port's CPU features (4 images, scale {scale:.4f}): "
+          f"max_abs_err {err:.3e} of the scale (gate {INCEPTION_GATE:g}); the TF32 control "
+          f"{err_tf32:.3e} (must exceed the gate)")
+    if not (np.isfinite(card).all() and err <= INCEPTION_GATE < err_tf32):
+        raise AssertionError(f"InceptionV3 on the card: {err} (TF32 {err_tf32}) of the scale")
+    del ext, reals, x, four
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches": launches}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), then the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -4137,6 +4271,8 @@ def main() -> None:
     tp = _timed("tp-tables", phase_tp, dp_ref, results)
     paths.update({"tp stage 2": (tp["tp stage 2"], TRAINING_BF16),
                   "sharded fast stage 1": (tp["sharded fast stage 1"], FAST_STAGE1)})
+    paths["fid eval inception"] = (_timed("fid-eval-inception", phase_fid_inception)["launches"],
+                                   FID_INCEPTION)
     for path, (launches, _) in paths.items():
         print(f"[launches] {path} {json.dumps(launches)}")
     missing = [(path, n) for path, (launches, names) in paths.items()

@@ -6,9 +6,10 @@ SRN test poses at 128² in the protocol), clip and quantize to 255 levels on
 the device, and feed the images to the feature extractor into FID/KID
 against precomputed real statistics.
 
-A device-resident extractor (TorchScript Inception or the random
-projection, utils/fidkid.py) takes the quantized renders as a tensor on the
-device; any other callable takes numpy. With ``overlap_extraction`` one
+A device-resident extractor (the TorchScript Inception or the random
+projection of utils/fidkid.py, or ``inception_jax:<weights.h5>``'s
+keras-weights InceptionV3 of utils/inception_keras.py) takes the quantized
+renders as a tensor on the device; any other callable takes numpy. With ``overlap_extraction`` one
 worker thread feeds the extractor, at most two groups in flight, while the
 next group renders; its exceptions are raised in the caller. Where the
 render's ``matmul_precision`` flips PyTorch's process-wide TF32 flags, the
@@ -116,12 +117,13 @@ class DiffusionEvaluation:
                 proj = np.random.default_rng(0).normal(
                     size=(resolution * resolution * 3, int(arg or 8))).astype(np.float32)
                 feature_extractor = ProjectionExtractor(proj, self.device)
-            elif kind == "inception_jax":
-                raise ValueError(
-                    "feature_extractor='inception_jax': npcd_tpu's JAX InceptionV3 reads keras "
-                    "h5 weights with JAX and h5py and is not ported (ROADMAP Queue 1 item 12); "
-                    "the port's device-resident extractor is the TorchScript graph "
-                    "('inception_torchscript[:path]')")
+            elif kind == "inception_jax":  # npcd_tpu's name for the keras-weights InceptionV3
+                if not arg:
+                    raise ValueError("feature_extractor='inception_jax' needs a weights file: "
+                                     "pass 'inception_jax:<keras_weights.h5>'")
+                from ..utils.inception_keras import KerasInceptionExtractor
+
+                feature_extractor = KerasInceptionExtractor(arg, device=self.device)
             elif kind == "inception_torchscript":
                 feature_extractor = TorchScriptInceptionExtractor(arg or inception_path,
                                                                   device=self.device)

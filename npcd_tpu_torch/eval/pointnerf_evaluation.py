@@ -4,7 +4,8 @@ its own training scenes, each object's views rendered in ``eval_batch_size``
 groups at full resolution by ``PointNeRF.eval_forward`` (the feats mean, no
 jitter, every ray), one PSNR a view. The time of a forward is measured
 between ``torch.cuda.synchronize`` calls after 3 burn-in objects when
-``eval_batch_size`` is 1, beside ``torch.cuda.max_memory_allocated``.
+``eval_batch_size`` is 1, beside the peak of allocated device memory
+(utils/profiling.py's ``device_memory_stats``).
 Rows go to ``results.json`` and ``results.csv``, their summary to
 ``summary.csv`` (and ``results.json``); a run whose ``results.json`` exists
 is skipped. Qualitatives: pred | gt of the first view, without labels.
@@ -31,6 +32,7 @@ import torch
 from ..generate_samples import write_png
 from ..parallel import is_main, mesh_world, shard_batch
 from ..utils import logging
+from ..utils.profiling import device_memory_stats
 from ..utils.util import psnr, write_csv
 
 
@@ -128,8 +130,9 @@ class PointNeRFEvaluation:
         summary = {"psnr": float(np.mean([r["psnr"] for r in rows]))}
         if times:
             summary["time_per_forward_s"] = float(np.mean(times))
-            if device.type == "cuda":
-                summary["peak_device_mem_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+            mem = device_memory_stats(device)
+            if "peak_bytes_in_use" in mem:
+                summary["peak_device_mem_mib"] = mem["peak_bytes_in_use"] / 2**20
         if mesh is not None:  # rank 0's times
             summary = mesh.gather_objects(summary)[0]
         logging.info(f"PointNeRF evaluation: {summary}")

@@ -70,14 +70,17 @@ def parse_args(argv=None):
 
 
 def start(args):
-    """Refuse --platform before anything is built or written, then the
-    eval's device and mesh (None without --mesh) -> (device, mesh)."""
+    """Refuse --platform before anything is built or written, seed Python's
+    and numpy's RNGs with --seed (as npcd_tpu's CLIs), then the eval's
+    device and mesh (None without --mesh) -> (device, mesh)."""
     from .generate_samples import _device, exact_f32
     from .parallel import make_mesh
+    from .utils.util import set_seed
 
     if args.platform:
         raise ValueError(f"--platform {args.platform}: a JAX backend flag; the PyTorch port "
                          "takes --device cuda or --device cpu")
+    set_seed(args.seed)
     exact_f32()
     device = _device(args.device)
     mesh = make_mesh(device) if args.mesh else None

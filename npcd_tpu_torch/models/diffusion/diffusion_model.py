@@ -6,23 +6,17 @@ DiffusionState, are a ``DiffusionState`` here."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ...utils.util import split_num
 from .gaussian_diffusion import GaussianDiffusion, NoiseFn, Trajectory
 from .normalizers import (NormalizerStats, denormalize, fit_minus_one_to_one, fit_unit_gaussian,
                           normalize)
 from .transformer import NPCDTransformer
-
-
-def split_num(num: int, max_size: int) -> List[int]:
-    """``num`` in parts of at most ``max_size``."""
-    if num <= 0:
-        return []
-    return [max_size] * (num // max_size) + ([num % max_size] if num % max_size else [])
 
 
 def sharded_noise(noise: NoiseFn, mesh) -> NoiseFn:

@@ -62,6 +62,7 @@ from ..utils.checkpoint import (CheckpointSaver, rank0_decides, timed_save_due,
                                 write_layout_meta)
 from ..utils.ema import EmaConfig
 from ..utils.from_jax import save_npz
+from ..utils.util import count_parameters
 from .fused_update import AdamState, FusedAdamWEma
 
 _STATS = ("shift", "scale", "min", "max")
@@ -220,7 +221,7 @@ class DiffusionTraining:
             logging.info(f"Restored checkpoint at iteration {it}")
         if verbose:
             logging.info(f"DiffusionTraining: {len(self._full_shapes)} leaves of "
-                         f"{self.flat.offsets[-1]} params on this rank, batch {batch_size}, "
+                         f"{count_parameters(self.model.denoiser)} params on this rank, batch {batch_size}, "
                          f"max_iterations {max_iterations}, dataset size {len(dataset)}, "
                          f"device {self.device}, world {1 if mesh is None else mesh.world}, "
                          f"tp {tp}")

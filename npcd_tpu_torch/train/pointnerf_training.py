@@ -79,7 +79,7 @@ from ..parallel.pointnerf_sharding import add_rows_, fetch_rows, gather_rows, gl
 from ..utils import logging, writer
 from ..utils.checkpoint import CheckpointSaver, rank0_decides, timed_save_due
 from ..utils.from_jax import LATENTS, save_npz
-from ..utils.util import psnr
+from ..utils.util import count_parameters, psnr
 from .diffusion_training import _step_seed
 
 FEED_KEYS = ("obj_idx", "images", "intrinsics", "extrinsics")
@@ -166,8 +166,8 @@ class PointNeRFTraining:
             self.load_state_dict(state)
             logging.info(f"Restored checkpoint at iteration {it}")
         if verbose:
-            n_params = sum(p.numel() for p in model.parameters())
-            logging.info(f"PointNeRFTraining: {n_params} trainable params, batch {batch_size}, "
+            logging.info(f"PointNeRFTraining: {count_parameters(model)} trainable params, "
+                         f"batch {batch_size}, "
                          f"max_iterations {self.max_iterations}, device {self.device}, "
                          f"world {mesh_world(mesh)}")
 

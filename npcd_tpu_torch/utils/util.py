@@ -1,13 +1,14 @@
-"""Small shared helpers. Port of ``chunks``, ``psnr`` and the diffusion
-diagnostics' ``mean_flat``, ``normal_kl``, ``approx_standard_normal_cdf``
-and ``discretized_gaussian_log_likelihood`` of npcd_tpu/utils/util.py
-(``split_num`` lives in models/diffusion/diffusion_model.py), and the
-evals' csv writer."""
+"""Small shared helpers. Port of npcd_tpu/utils/util.py: ``chunks``,
+``split_num``, ``set_seed``, ``to_numpy``, ``backend_initializes``,
+``count_parameters``, ``psnr`` and the diffusion diagnostics'
+``mean_flat``, ``normal_kl``, ``approx_standard_normal_cdf`` and
+``discretized_gaussian_log_likelihood``; and the evals' csv writer."""
 from __future__ import annotations
 
 import csv
 import math
-from typing import Any, Iterable, Iterator, Sequence
+import random
+from typing import Any, Iterable, Iterator, List, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +18,71 @@ def chunks(lst: Sequence[Any], n: int) -> Iterator[Sequence[Any]]:
     """Successive n-sized chunks of lst."""
     for i in range(0, len(lst), n):
         yield lst[i:i + n]
+
+
+def split_num(num: int, max_size: int) -> List[int]:
+    """``num`` in parts of at most ``max_size``."""
+    if num <= 0:
+        return []
+    return [max_size] * (num // max_size) + ([num % max_size] if num % max_size else [])
+
+
+def set_seed(seed: int) -> None:
+    """Seed Python's and numpy's global RNGs, as npcd_tpu seeds them. The
+    port's torch draws come from explicit torch.Generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def to_numpy(tree: Any) -> Any:
+    """Tensors in nested dicts, lists and tuples, detached and copied to the
+    host as numpy arrays; other leaves through np.asarray, None kept (an
+    empty subtree, as jax.tree_util's)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def backend_initializes(timeout_s: float = 300.0) -> bool:
+    """True if CUDA initializes in a fresh subprocess within ``timeout_s``.
+
+    A probe in this process cannot be bounded or retried: a driver that
+    hangs takes the process with it, and a failed CUDA initialization
+    stays failed. A subprocess can be killed, and leaves this process free
+    to choose the CPU afterwards. Call before anything initializes CUDA
+    here."""
+    import subprocess
+    import sys
+
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", "import torch; torch.cuda.init()"],
+            timeout=timeout_s,
+            capture_output=True,
+        )
+        return r.returncode == 0
+    except (subprocess.TimeoutExpired, OSError):
+        return False
+
+
+def count_parameters(params: Any) -> int:
+    """The elements of a module's parameters, or of the tensors and arrays
+    in nested dicts, lists and tuples (None counts 0)."""
+    if params is None:
+        return 0
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_parameters(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_parameters(v) for v in params)
+    return int(np.prod(np.shape(params)))
 
 
 def write_csv(path: str, header: Sequence[Any], rows: Iterable[Sequence[Any]]) -> None:

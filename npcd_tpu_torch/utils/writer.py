@@ -1,11 +1,13 @@
 """Event-buffered metric writer fan-out.
 
 Copy of npcd_tpu/utils/writer.py (which imports no JAX), a rebuild of the
-reference writer (npcd/utils/writer.py), with scalars and images (the
-stage-1 trainer's qualitative renders): training code `put`s them into a
-global event buffer; `write_out_storage` flushes to all registered
+reference writer (npcd/utils/writer.py): training code `put`s scalars,
+images (the stage-1 trainer's qualitative renders) and histograms into a
+global event buffer; `write_out_storage` flushes them to all registered
 backends. Backends: JSONL (scalars; always available), TensorBoard (when
 the tensorboard package is importable) and Weights & Biases (``--wandb``).
+`TimeWriter` times a block and puts its duration, and with
+`set_max_iterations` an ETA from the last 20 durations.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 EVENT_STORAGE: List[Dict[str, Any]] = []
 _WRITERS: List["Writer"] = []
@@ -31,6 +34,9 @@ class Writer:
         raise NotImplementedError
 
     def write_image(self, name: str, image: np.ndarray, step: int) -> None:
+        pass
+
+    def write_histogram(self, name: str, values: np.ndarray, step: int) -> None:
         pass
 
     def close(self) -> None:
@@ -63,6 +69,9 @@ class TensorboardWriter(Writer):
         # image: [H, W, 3] float in [0, 1]
         self._tb.add_image(name, image, step, dataformats="HWC")
 
+    def write_histogram(self, name: str, values: np.ndarray, step: int) -> None:
+        self._tb.add_histogram(name, values, step)
+
     def close(self) -> None:
         self._tb.close()
 
@@ -88,6 +97,9 @@ class WandbWriter(Writer):
 
     def write_image(self, name: str, image: np.ndarray, step: int) -> None:
         self._wandb.log({name: self._wandb.Image(image)}, step=step)
+
+    def write_histogram(self, name: str, values: np.ndarray, step: int) -> None:
+        self._wandb.log({name: self._wandb.Histogram(values)}, step=step)
 
     def close(self) -> None:
         self._run.finish()
@@ -133,13 +145,30 @@ def put_image(name: str, image: np.ndarray, step: int) -> None:
     EVENT_STORAGE.append({"kind": "image", "name": name, "value": image, "step": step})
 
 
+def put_histogram(name: str, values, step: int) -> None:
+    """values: any array-like (a tensor on any device), kept flattened."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu()
+    EVENT_STORAGE.append({
+        "kind": "histogram", "name": name,
+        "value": np.asarray(values).reshape(-1), "step": step,
+    })
+
+
+def put_histogram_dict(prefix: str, values: Dict[str, Any], step: int) -> None:
+    for k, v in values.items():
+        put_histogram(f"{prefix}/{k}", v, step)
+
+
 def write_out_storage() -> None:
     for ev in EVENT_STORAGE:
         for w in _WRITERS:
-            if ev["kind"] == "image":
-                w.write_image(ev["name"], ev["value"], ev["step"])
-            else:
+            if ev["kind"] == "scalar":
                 w.write_scalar(ev["name"], float(ev["value"]), ev["step"])
+            elif ev["kind"] == "image":
+                w.write_image(ev["name"], ev["value"], ev["step"])
+            elif ev["kind"] == "histogram":
+                w.write_histogram(ev["name"], ev["value"], ev["step"])
     EVENT_STORAGE.clear()
 
 
@@ -148,3 +177,39 @@ def close_writers() -> None:
     for w in _WRITERS:
         w.close()
     _WRITERS.clear()
+
+
+class TimeWriter:
+    """Context manager measuring wall time (reference writer.py:176-208):
+    with a ``step`` and ``write``, puts ``time/<name>`` and, after
+    set_max_iterations, ``time/<name>_eta_hours`` from the mean of the
+    name's last 20 durations."""
+
+    def __init__(self, name: str = "", step: Optional[int] = None, write: bool = True):
+        self.name = name
+        self.step = step
+        self.write = write
+        self.duration = 0.0
+
+    def __enter__(self):
+        self.start = time.time()
+        return self
+
+    def __exit__(self, *args):
+        self.duration = time.time() - self.start
+        if self.write and self.step is not None:
+            put_scalar(f"time/{self.name}", self.duration, self.step)
+            # running-average ETA (reference writer.py:270-296)
+            buf = _TIME_BUFFERS.setdefault(self.name, [])
+            buf.append(self.duration)
+            del buf[:-20]
+            if _max_iterations is not None:
+                avg = sum(buf) / len(buf)
+                put_scalar(
+                    f"time/{self.name}_eta_hours",
+                    avg * max(_max_iterations - self.step, 0) / 3600.0,
+                    self.step,
+                )
+
+
+_TIME_BUFFERS: Dict[str, List[float]] = {}

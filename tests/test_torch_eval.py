@@ -305,10 +305,13 @@ def test_eval_bf16_render(setup):
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(feature_extractor="inception_jax:w.h5"), ValueError),
+    (dict(feature_extractor="inception_jax"), ValueError),
     (dict(feature_extractor="mystery"), ValueError),
-    (dict(feature_extractor=None, inception_path="missing.pt"), FileNotFoundError)])
+    (dict(feature_extractor=None, inception_path="missing.pt"), FileNotFoundError),
+    (dict(feature_extractor="inception_jax:missing.h5"), OSError)])
 def test_eval_refuses(setup, kw, error):
+    """npcd_tpu's contract: 'inception_jax' without a weights file raises
+    ValueError, one whose file is missing the h5 reader's OSError."""
     with pytest.raises(error):
         _port_eval(setup, **kw)
 
